@@ -1,0 +1,254 @@
+"""Split-K ragged decode over a layer-stacked K/V cache (port of
+``repro/kernels/flash_decode.py``).
+
+A rollout tick attends a handful of new query rows against a preallocated
+cache whose live prefix is bounded per row by ``kv_length``. The cache may
+hold float32, bfloat16, or int8 rows with per-(head, token) float32
+scales; all arithmetic is float32.
+
+* :func:`flash_decode` launches the CUDA kernel in ``csrc/flash_decode.cu``
+  for CUDA tensors (and raises on anything it does not take) and runs
+  :func:`decode_plain` for CPU tensors.
+* :func:`decode_plain` is the port of ``decode_ragged_xla``: an online
+  softmax over the live key blocks only, reading the stacked cache in place
+  through views (only one block is ever converted to float32).
+
+Masking: block-causal over explicit times (``k_time <= q_time``), segment
+ids (``q_seg == k_seg`` and ``k_seg >= 0``), GQA (``h // group``), and the
+cursor. A value row that no query can reach is zeroed before ``p @ v``
+(0 * NaN is NaN, and rows past a cursor may hold any bit pattern); a query
+row with no live key gives 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cuda
+
+_NEG_INF = -1e30
+
+#: cache storage dtypes accepted (as strings) by ``init_cache`` /
+#: ``RolloutEngine(cache_dtype=...)``
+CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+def canonical_cache_dtype(dtype, default=None):
+    """Resolve a cache-dtype option (string / torch dtype / None)."""
+    if dtype is None:
+        return default
+    if isinstance(dtype, str):
+        return CACHE_DTYPES[dtype]
+    return dtype
+
+
+def quantize_kv(x: torch.Tensor, eps: float = 1e-8):
+    """Symmetric int8 quantization over the feature axis: (int8 values
+    (..., d), float32 scales (...,)), one scale per (batch, head, token)
+    row. Bit-exact with the reference (same f32 ops, round half to even)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=eps) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The plain version.
+# ---------------------------------------------------------------------------
+
+def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
+                 q_segment_ids=None, k_segment_ids=None,
+                 q_times=None, k_times=None,
+                 scale: Optional[float] = None, block_k: int = 128,
+                 layer: Optional[int] = None) -> torch.Tensor:
+    """Cursor-bounded online-softmax decode in plain PyTorch.
+
+    q (B, Hq, Sq, D); k (B, Hkv, S, D) and v (B, Hkv, S, Dv), or with
+    ``layer=i`` the stacked (L, B, Hkv, S, .) buffers read at layer i;
+    ``kv_length`` (B,). The loop runs ``ceil(max(kv_length) / block_k)``
+    blocks; the last one clamps its start to ``S - block_k`` and masks the
+    rows an earlier block already folded.
+    """
+    b, hq, sq, d = q.shape
+    if layer is not None:
+        k, v = k[layer], v[layer]
+        k_scale = None if k_scale is None else k_scale[layer]
+        v_scale = None if v_scale is None else v_scale[layer]
+    hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    block_k = min(block_k, sk)
+    kvl = torch.as_tensor(kv_length, device=q.device).reshape(-1)
+    kvl = kvl.expand(b).to(torch.int64)
+    n_live = (min(int(kvl.max()), sk) + block_k - 1) // block_k
+    qf = q.to(torch.float32)
+    m = torch.full((b, hq, sq), _NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, sq), device=q.device)
+    acc = torch.zeros((b, hq, sq, dv), device=q.device)
+    for i in range(n_live):
+        start_u = i * block_k
+        start = min(start_u, sk - block_k)
+        sl = slice(start, start + block_k)
+        kc = k[:, :, sl].to(torch.float32)
+        vc = v[:, :, sl].to(torch.float32)
+        if k_scale is not None:
+            kc = kc * k_scale[:, :, sl][..., None]
+        if v_scale is not None:
+            vc = vc * v_scale[:, :, sl][..., None]
+        if group > 1:
+            kc = torch.repeat_interleave(kc, group, dim=1)
+            vc = torch.repeat_interleave(vc, group, dim=1)
+        s = torch.einsum("bhnd,bhmd->bhnm", qf, kc) * scale
+        cols = torch.arange(start, start + block_k, device=q.device)
+        mask = ((cols[None, :] < kvl[:, None]) & (cols >= start_u)[None, :])
+        mask = mask[:, None, None, :]
+        if q_times is not None:
+            mask = mask & (k_times[:, None, None, sl]
+                           <= q_times[:, None, :, None])
+        if q_segment_ids is not None:
+            ks = k_segment_ids[:, None, None, sl]
+            mask = mask & (q_segment_ids[:, None, :, None] == ks) & (ks >= 0)
+        s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
+        vc = torch.where(mask.any(dim=2).any(dim=1)[:, None, :, None], vc,
+                         torch.zeros((), device=q.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros((), device=q.device))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhnm,bhmd->bhnd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrapper.
+# ---------------------------------------------------------------------------
+
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_TILE_Q, _TILE_K, _MAX_DV = 16, 32, 256
+
+
+def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
+                 q_segment_ids=None, k_segment_ids=None,
+                 q_times=None, k_times=None, scale: Optional[float] = None,
+                 num_splits: Optional[int] = None,
+                 layer: Optional[int] = None) -> torch.Tensor:
+    """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Shapes as :func:`decode_plain`; returns
+    (B, Hq, Sq, Dv) float32. ``num_splits`` (CUDA only) splits each row's
+    key range over that many CTAs; None picks enough to fill the card."""
+    if q.device.type == "cpu":
+        return decode_plain(q, k, v, kv_length, k_scale=k_scale,
+                            v_scale=v_scale, q_segment_ids=q_segment_ids,
+                            k_segment_ids=k_segment_ids, q_times=q_times,
+                            k_times=k_times, scale=scale, layer=layer)
+    return _launch(q, k, v, kv_length, k_scale, v_scale, q_segment_ids,
+                   k_segment_ids, q_times, k_times, scale, num_splits, layer)
+
+
+def _check_int(name, t, shape, device):
+    if t.dtype != torch.int32 or tuple(t.shape) != shape \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 {shape} tensor "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
+            k_times, scale, num_splits, layer):
+    dev = q.device
+    if q.dtype != torch.float32 or q.ndim != 4 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous float32 (B, Hq, Sq, D) "
+                         f"tensor, got {q.dtype} {tuple(q.shape)}")
+    b, hq, sq, d = q.shape
+    if layer is None:
+        k, v = k[None], v[None]
+        k_scale = None if k_scale is None else k_scale[None]
+        v_scale = None if v_scale is None else v_scale[None]
+        layer = 0
+    if k.ndim != 5 or v.ndim != 5:
+        raise ValueError(f"cache must be (L, B, Hkv, S, .), got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    nl, _, hkv, sk, dv = v.shape
+    if tuple(k.shape) != (nl, b, hkv, sk, d) or not 0 <= layer < nl:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} / layer "
+                         f"{layer} do not match q {tuple(q.shape)}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if k.dtype not in _CACHE_CODES or v.dtype != k.dtype:
+        raise TypeError(f"cache dtype must be one of float32/bfloat16/int8 "
+                        f"for both k and v, got {k.dtype} / {v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        if t.shape[-1] % 4 or t.data_ptr() % 4:
+            raise ValueError(f"{name} row width must be a multiple of 4 "
+                             f"and its data 4-byte aligned")
+    if dv > _MAX_DV:
+        raise ValueError(f"value width {dv} > {_MAX_DV}")
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError("int8 caches need k_scale and v_scale; other "
+                         "caches take none")
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (nl, b, hkv, sk) \
+                    or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous float32 "
+                                 f"{(nl, b, hkv, sk)} on {dev}")
+    _check_int("kv_length", kv_length, (b,), dev)
+    if (q_times is None) != (k_times is None) or \
+            (q_seg is None) != (k_seg is None):
+        raise ValueError("times and segment ids come in (q, k) pairs")
+    if q_times is not None:
+        _check_int("q_times", q_times, (b, sq), dev)
+        _check_int("k_times", k_times, (b, sk), dev)
+    if q_seg is not None:
+        _check_int("q_segment_ids", q_seg, (b, sq), dev)
+        _check_int("k_segment_ids", k_seg, (b, sk), dev)
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    tiles = -(-sk // _TILE_K)
+    if num_splits is None:
+        base = b * hq * -(-sq // _TILE_Q)
+        num_splits = -(-4 * _sm_count(dev) // max(base, 1))
+    num_splits = max(1, min(int(num_splits), tiles))
+
+    o_part = torch.empty((b, hq, num_splits, sq, dv), device=dev)
+    m_part = torch.empty((b, hq, num_splits, sq), device=dev)
+    l_part = torch.empty((b, hq, num_splits, sq), device=dev)
+    out = torch.empty((b, hq, sq, dv), device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
+              ptr(v_scale), kv_length.data_ptr(), ptr(q_times), ptr(k_times),
+              ptr(q_seg), ptr(k_seg), o_part.data_ptr(), m_part.data_ptr(),
+              l_part.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, d, dv,
+              layer, num_splits, _CACHE_CODES[k.dtype], float(scale),
+              torch.cuda.current_stream(dev).cuda_stream)
+    cuda.count_launch("flash_decode")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return cuda.launcher(
+        "flash_decode", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_void_p])

@@ -1,0 +1,59 @@
+"""Parameter specs and seeded initialisation (port of ``repro/nn/module.py``).
+
+A layer declares each weight with a :class:`ParamSpec` (shape and init
+kind); :func:`init_params` fills every parameter of a module from one
+``torch.Generator``. The init kinds are the reference's that the ported
+layers use (fan_in, ones, zeros); the random numbers differ, since the
+port does not reproduce ``jax.random`` (weights cross over through
+``repro_torch.params.from_reference`` where a test needs equality).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "fan_in"          # fan_in | ones | zeros
+    fan_in: int = 0               # fan_in init: input size (0 -> shape[0])
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+
+
+def new_parameter(spec: ParamSpec, device) -> nn.Parameter:
+    """An uninitialised parameter that remembers its spec."""
+    p = nn.Parameter(torch.empty(spec.shape, dtype=torch.float32,
+                                 device=device), requires_grad=False)
+    p.spec = spec
+    return p
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape)
+    if spec.init == "ones":
+        return torch.ones(spec.shape)
+    if spec.init == "fan_in":
+        fan_in = spec.fan_in or (spec.shape[0] if spec.shape else 1)
+        return torch.randn(spec.shape, generator=gen) / float(
+            np.sqrt(max(fan_in, 1)))
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Fill every spec'd parameter of ``module`` in sorted-name order.
+
+    Numbers are drawn on the CPU from ``gen`` and copied to each
+    parameter's device, so a seed gives the same weights on every device.
+    """
+    for _, p in sorted(module.named_parameters()):
+        p.copy_(_init_leaf(p.spec, gen))
+    return module

@@ -1,0 +1,99 @@
+"""The port's package contract: it imports nothing of JAX or of the JAX
+package, its entry points refuse to run on the CPU unless asked, and the
+weight bridge round-trips exactly."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+from repro.nn import agent_sim as jsim  # noqa: E402
+from repro.nn import module as jmodule  # noqa: E402
+from repro_torch import configs, params  # noqa: E402
+from repro_torch.nn import agent_sim as tsim  # noqa: E402
+from repro_torch.runtime import RolloutEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_and_no_reference(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: imports {hits}"
+
+
+def test_port_import_loads_no_jax_module():
+    code = ("import sys, repro_torch, repro_torch.configs, repro_torch.params,"
+            " repro_torch.runtime, repro_torch.scenarios, repro_torch.kernels;"
+            " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    arch = configs.get_sim_arch("sim-se2-fourier").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsim.AgentSimModel(arch.agent_sim_config())
+    model = tsim.AgentSimModel(arch.agent_sim_config(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RolloutEngine(model, arch.scenario_config(), num_slots=2)
+
+
+def test_sim_archs_registered_and_only_se2_fourier_builds():
+    assert sorted(configs.SIM_ARCHS) == ["sim-absolute", "sim-rope2d",
+                                         "sim-se2-fourier", "sim-se2-repr"]
+    full = configs.get_sim_arch("sim-se2-fourier")
+    assert (full.d_model, full.num_layers, full.num_heads, full.head_dim,
+            full.d_ff, full.fourier_terms) == (256, 6, 8, 24, 1024, 12)
+    for name in ("sim-absolute", "sim-rope2d", "sim-se2-repr"):
+        cfg = configs.get_sim_arch(name).reduced().agent_sim_config()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tsim.AgentSimModel(cfg, device="cpu")
+
+
+def test_params_round_trip_exact():
+    arch = configs.get_sim_arch("sim-se2-fourier").reduced()
+    jmodel = jsim.AgentSimModel(jsim.AgentSimConfig(
+        **{f: getattr(arch.agent_sim_config(), f) for f in (
+            "d_model", "num_layers", "num_heads", "head_dim", "d_ff",
+            "num_actions", "fourier_terms")}))
+    tree = jax.tree.map(np.asarray, jmodule.init_params(jmodel.specs(),
+                                                        jax.random.key(3)))
+    model = tsim.AgentSimModel(arch.agent_sim_config(), device="cpu")
+    model.load_state_dict(params.from_reference(tree), strict=True)
+    back = params.to_reference(model)
+    flat = lambda t: dict(jax.tree_util.tree_flatten_with_path(t)[0])  # noqa
+    want, got = flat(tree), flat(back)
+    assert sorted(map(str, got)) == sorted(map(str, want))
+    for path, arr in want.items():
+        assert got[path].dtype == arr.dtype and got[path].shape == arr.shape
+        np.testing.assert_array_equal(got[path], arr, err_msg=str(path))
+
+
+def test_seeded_init_is_deterministic_and_shaped():
+    cfg = configs.get_sim_arch("sim-se2-fourier").reduced().agent_sim_config()
+    a = tsim.AgentSimModel(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    b = tsim.AgentSimModel(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(pa, pb), name
+    assert torch.equal(a.blocks[0].norm1.scale, torch.ones(cfg.d_model))
+    std = a.blocks[0].mlp.down.kernel.std().item()
+    assert abs(std - cfg.d_ff ** -0.5) < 0.2 * cfg.d_ff ** -0.5
