@@ -10,12 +10,24 @@ Run from the root of a checkout. Phases, each of which fails the run:
    each, all started together (into build/kernels/);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the rollout's shapes, including ragged cursors, stale NaN rows past the
-   cursor and every cache dtype;
-4. main path: sim-se2-fourier at full width (seeded random weights) rolls
+   cursor and every cache dtype; the flash-attention forward, dq and dk/dv
+   at the train step's shape (32 scenes, the scenes' own times and segment
+   ids, -1 rows included) and on a feature matrix (index causal, window,
+   softcap, GQA, Dv != D, ragged lengths, bf16), the backward run twice
+   and required bitwise equal;
+4. rollout: sim-se2-fourier at full width (seeded random weights) rolls
    out 64 freeform scenes through RolloutEngine with float32 and int8
-   caches; launch counts, output shape and finiteness are checked, and the
-   cached decode is held to the full forward on two scenes;
-5. times: each kernel at the tick shape beside its plain version, a
+   caches; launch counts, output shape and finiteness are checked, the
+   cached decode is held to the O(S^2) reference forward on two scenes,
+   and so are the flash kernels' forward logits;
+5. training: the behaviour-cloning train step at full width, 32 freeform
+   scenes a batch through ShardedIterator, 2 warm-up and 20 timed steps
+   with global-norm clip and AdamW on warmup-cosine; the loss must be
+   finite and fall, each flash kernel must launch 6 times a step, the
+   gradients of one batch through the kernels are held to those through
+   the plain versions, open-loop metrics on 2 holdout batches must be
+   finite; steps/s, peak memory and the device profile are printed;
+6. times: each kernel at its main-path shape beside its plain version, a
    PyTorch library call where one exists, and its bound on this card
    (CUDA events over back-to-back calls; CUPTI kernel time beside them).
 
@@ -26,6 +38,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -46,21 +59,47 @@ DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
 SE2_TOL = dict(atol=1e-5, rtol=1e-4)
 MODEL_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
              "int8": dict(atol=8e-2, rtol=8e-2)}
+# flash kernels vs plain versions: tests/test_kernels.py:25-27 (forward)
+# and :162-163 (gradients); bf16 outputs round to bf16 on both sides
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+FLASH_GRAD_TOL = {"float32": dict(atol=1e-5, rtol=1e-3),
+                  "bfloat16": dict(atol=1e-2, rtol=4e-2)}
+# the train step's parameter gradients, kernels vs plain versions, per
+# tensor relative to its largest |g|: float32 sums in another order through
+# 6 layers forward and back; an indexing or masking fault shows at O(1)
+TRAIN_GRAD_REL_TOL = 1e-3
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 32, 2, 20, 3e-3
+FAMILIES = ("freeform",)
 
 REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:115",
     "se2_project_q": "src/repro/kernels/se2_project.py:76",
     "se2_project_k": "src/repro/kernels/se2_project.py:42",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:44",
+    "flash_attention_dq": "src/repro/kernels/flash_attention_bwd.py:132",
+    "flash_attention_dkv": "src/repro/kernels/flash_attention_bwd.py:181",
 }
 SOURCES = {
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "se2_project_q": "src/repro_torch/kernels/csrc/se2_project.cu",
     "se2_project_k": "src/repro_torch/kernels/csrc/se2_project.cu",
+    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_dq": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_dkv":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
+
+
+T0 = time.perf_counter()
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def phase(title):
+    log(f"--- {title} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def smi_line() -> str:
@@ -173,6 +212,110 @@ def se2_case(gen, dev, b, h, n, d, pos_scale):
     return x, pose
 
 
+def scene_attention_case(gen, dev, model, scen, n, scale):
+    """Random q~, k~, v~ and output cotangent at the train step's attention
+    shape (n scenes, all heads, c wide) with the scenes' own times and
+    segment ids; a few agents and map tokens are marked invalid, so the
+    -1 rows are in."""
+    import torch
+    from repro_torch.training.data import make_sim_batch
+    batch = make_sim_batch(0, 0, n, scen, FAMILIES)
+    batch["agent_valid"][::3, 5:, -2:] = False
+    batch["map_valid"][1::4, -6:] = False
+    _, times, seg = model.tokenize({k: torch.as_tensor(v, device=dev)
+                                    for k, v in batch.items()})
+    cfg = model.cfg
+    c = model.blocks[0].attn.enc.expanded_dim
+    shape = (n, cfg.num_heads, times.shape[1], c)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(4))
+    return q, k, v, do, dict(causal=True, scale=scale, q_times=times,
+                             k_times=times, q_segment_ids=seg,
+                             k_segment_ids=seg)
+
+
+# name: (b, hq, hkv, sq, sk, d, dv, options); lengths not multiples of the
+# 16 / 32-row tiles
+FLASH_FEATURES = {
+    "causal_gqa_dv": (2, 4, 2, 45, 45, 32, 40, dict(causal=True)),
+    "window_cross": (1, 2, 2, 50, 70, 24, 24, dict(window=12)),
+    "causal_window_mqa": (2, 4, 1, 33, 65, 16, 16,
+                          dict(causal=True, window=16)),
+    "softcap": (1, 2, 2, 40, 40, 32, 32, dict(softcap=20.0)),
+}
+
+
+def feature_case(gen, dev, name, dtype):
+    import torch
+    b, hq, hkv, sq, sk, d, dv, opts = FLASH_FEATURES[name]
+    shapes = ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv),
+              (b, hq, sq, dv))
+    q, k, v, do = (torch.randn(s_, generator=gen, device=dev).to(dtype)
+                   for s_ in shapes)
+    return q, k, v, do, opts
+
+
+def check_flash(what, q, k, v, do, opts, max_err):
+    """The three flash kernels against their plain versions on one input;
+    returns the kernels' (dq, dk, dv)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dt = "float32" if q.dtype == torch.float32 else "bfloat16"
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    grads = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    want = fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_fwd": close_or_raise(
+        f"flash fwd {what}", out, want_out, **FLASH_TOL[dt])}
+    live = want_lse > -1e29
+    close_or_raise(f"flash lse {what}", lse[live], want_lse[live],
+                   atol=1e-5, rtol=1e-5)
+    for name, i in (("flash_attention_dq", 0), ("flash_attention_dkv", 1),
+                    ("flash_attention_dkv", 2)):
+        err = close_or_raise(f"{name} {what} ({'dq dk dv'.split()[i]})",
+                             grads[i], want[i], **FLASH_GRAD_TOL[dt])
+        errs[name] = max(errs.get(name, 0.0), err)
+    for name, err in errs.items():
+        max_err[name] = max(max_err[name], err)
+    log(f"flash {what}: max abs err " + ", ".join(
+        f"{n.split('_')[-1]} {e:.3e}" for n, e in errs.items()))
+    return grads
+
+
+def device_profile(run, wall_s, per, what):
+    """Device time by kernel (torch.profiler) over ``run()`` against the
+    unprofiled wall time ``wall_s`` of the same work; ``per`` is (unit,
+    units in the run, read after it). Returns the busy share, or None when
+    the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # kernel events only: a PyTorch op's event repeats its kernels' time
+    per_kernel = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    device_ms = sum(ms for ms, _, _ in per_kernel)
+    n_kernels = sum(count for _, count, _ in per_kernel)
+    if device_ms <= 0:
+        log(f"profile {what}: no device time recorded (device busy share "
+            f"not measured)")
+        return None
+    busy = device_ms / (wall_s * 1e3)
+    log(f"profile {what}: {device_ms:.2f} ms of device time in "
+        f"{n_kernels} kernels ({n_kernels / per[1]():.0f} per {per[0]}) over "
+        f"a {wall_s * 1e3:.2f} ms unprofiled run: busy {busy:.1%}, idle "
+        f"{1 - busy:.1%}")
+    for ms, count, key in per_kernel[:15]:
+        log(f"  {ms:9.3f} ms {count:6d} x {key[:90]}")
+    return busy
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -188,8 +331,15 @@ def main() -> int:
     from repro_torch.kernels import cuda, ops
     from repro_torch.kernels.se2_project import (se2_fourier_project,
                                                  se2_project_plain)
-    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.data import ShardedIterator
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.nn.agent_sim import AgentSimModel, action_nll
     from repro_torch.runtime import RolloutEngine
+    from repro_torch.training.data import holdout_batches, make_batch_fn
+    from repro_torch.training.steps import (bc_optimizer, loss_summary,
+                                            make_sim_train_step,
+                                            open_loop_metrics)
 
     # 1. the card ------------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -199,6 +349,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     # 2. build ---------------------------------------------------------------
+    phase("2. build")
     t0 = time.perf_counter()
     build_logs = cuda.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(build_logs)}")
@@ -223,9 +374,9 @@ def main() -> int:
         f"{sum(p.numel() for p in model.parameters())} parameters")
 
     # 3. kernels against their plain versions ----------------------------------
+    phase("3. kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {"flash_decode": 0.0, "se2_project_q": 0.0,
-               "se2_project_k": 0.0}
+    max_err = dict.fromkeys(REPLACES, 0.0)
     cursors = np.concatenate([[0, 1, 127, 128, s_max],
                               np.random.default_rng(0).integers(
                                   0, s_max + 1, n_slots - 5)])
@@ -263,15 +414,39 @@ def main() -> int:
                 max_err[f"se2_project_{mode}"], err)
             log(f"se2_project_{mode} rows {tuple(x.shape[:3])}: "
                 f"max abs err {err:.3e}")
+    attn_scale = 1.0 / math.sqrt(cfg.head_dim)
+    train_case = scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
+                                      attn_scale)
+    first = check_flash("train shape " + "x".join(
+        map(str, train_case[0].shape)), *train_case, max_err)
+    again = fab.flash_attention_bwd(*train_case[:3], *fa.flash_attention_fwd(
+        *train_case[:3], **train_case[4]), train_case[3], **train_case[4])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("flash backward is not bitwise repeatable")
+    log("flash backward at the train shape: bitwise repeatable")
+    for name in FLASH_FEATURES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash(f"{name} {str(dtype)[6:]}",
+                        *feature_case(gen, dev, name, dtype), max_err)
 
-    # 4. main path --------------------------------------------------------------
+    # 4. rollout -----------------------------------------------------------------
+    phase("4. rollout")
     scenes = [scenarios.generate_scene("freeform", 0, i, scen)
               for i in range(n_slots)]
     batch = {k_: torch.as_tensor(np.stack([s.tensors[k_] for s in scenes[:2]]),
                                  device=dev)
              for k_ in ("map_feats", "map_pose", "map_valid", "agent_feats",
                         "agent_pose", "agent_valid")}
-    full = model(batch)
+    ref_model = AgentSimModel(dataclasses.replace(cfg, attn_impl="ref"),
+                              generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        full = ref_model(batch)
+        err = close_or_raise("flash forward vs reference forward", model(batch),
+                             full, **MODEL_TOL["float32"])
+    log(f"full forward through the flash kernels vs the O(S^2) reference: "
+        f"max abs logit err {err:.3e}")
+    del ref_model
     for cache_dtype in ("float32", "int8"):
         cache = model.init_cache(2, s_max, cache_dtype)
         hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
@@ -297,7 +472,7 @@ def main() -> int:
                                                      - t_hist)}
     want_counts["se2_project_q"] = want_counts["flash_decode"]
     want_counts["se2_project_k"] = 2 * want_counts["flash_decode"]
-    launches = dict.fromkeys(want_counts, 0)
+    launches = dict.fromkeys(REPLACES, 0)
     for cache_dtype in ("float32", "int8"):
         engine = RolloutEngine(model, scen, num_slots=n_slots,
                                cache_dtype=cache_dtype)
@@ -317,8 +492,8 @@ def main() -> int:
         if counts != want_counts:
             raise AssertionError(f"{cache_dtype} launches {counts} != "
                                  f"{want_counts}")
-        for name in launches:
-            launches[name] += counts[name]
+        for name, n in counts.items():
+            launches[name] += n
         log(f"rollout {cache_dtype}: {n_slots} scenes x {engine.ticks} ticks "
             f"in {secs:.3f} s = {engine.ticks / secs:.1f} ticks/s, "
             f"{n_slots / secs:.1f} scenes/s, peak memory "
@@ -330,32 +505,104 @@ def main() -> int:
 
     # where the rollout's time goes: device time by kernel (torch.profiler)
     # against the unprofiled wall time of the same float32 run
-    from torch.profiler import ProfilerActivity, profile
     engine = RolloutEngine(model, scen, num_slots=n_slots)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.run(scenes, t_hist=t_hist, n_samples=1, seed=0)
-        torch.cuda.synchronize()
-    # kernel events only: a PyTorch op's event repeats its kernels' time
-    per_kernel = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    device_ms = sum(ms for ms, _, _ in per_kernel)
-    n_kernels = sum(count for _, count, _ in per_kernel)
-    if device_ms > 0:
-        log(f"profile: {device_ms:.2f} ms of device time in "
-            f"{n_kernels} kernels ({n_kernels / (1 + engine.ticks):.0f} per "
-            f"prefill or tick) over a {f32_secs * 1e3:.2f} ms unprofiled "
-            f"float32 rollout: busy {device_ms / (f32_secs * 1e3):.1%}, "
-            f"idle {1 - device_ms / (f32_secs * 1e3):.1%}")
-        for ms, count, key in per_kernel[:15]:
-            log(f"  {ms:9.3f} ms {count:6d} x {key[:90]}")
-    else:
-        log("profile: no device time recorded (device busy share not "
-            "measured)")
+    device_profile(lambda: engine.run(scenes, t_hist=t_hist, n_samples=1,
+                                      seed=0),
+                   f32_secs, ("prefill or tick", lambda: 1 + engine.ticks),
+                   "float32 rollout")
 
-    # 5. times at the tick shape ---------------------------------------------------
+    # 5. training -----------------------------------------------------------------
+    phase("5. training")
+    del engine
+    torch.cuda.empty_cache()
+    tmodel = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
+    data = ShardedIterator(make_batch_fn(scen, FAMILIES),
+                           batch_size=TRAIN_BATCH, seed=0)
+    opt = bc_optimizer(lr=TRAIN_LR, steps=TRAIN_WARMUP + TRAIN_STEPS)
+    train_step = make_sim_train_step(tmodel, opt)
+    state = opt.init(dict(tmodel.named_parameters()))
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = train_step(state, next(data))
+    torch.cuda.synchronize()
+    log(f"train warm-up: {TRAIN_WARMUP} steps in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, next(data))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    losses = [float(x) for x in losses]
+    per_step = {"flash_attention_fwd": cfg.num_layers,
+                "flash_attention_dq": cfg.num_layers,
+                "flash_attention_dkv": cfg.num_layers,
+                "se2_project_q": cfg.num_layers,
+                "se2_project_k": 2 * cfg.num_layers}
+    want_counts = {k_: n * TRAIN_STEPS for k_, n in per_step.items()}
+    if counts != want_counts:
+        raise AssertionError(f"train launches {counts} != {want_counts}")
+    for name, n in counts.items():
+        launches[name] += n
+    summary = loss_summary(losses)
+    if not (np.isfinite(losses).all()
+            and summary["loss_last"] < summary["loss_first"]):
+        raise AssertionError(f"train loss did not fall: {losses}")
+    log(f"train: {TRAIN_STEPS} steps x {TRAIN_BATCH} scenes in "
+        f"{train_secs:.3f} s = {TRAIN_STEPS / train_secs:.2f} steps/s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({resident / 2**30:.2f} GiB of it resident before the loop: "
+        f"weights, optimizer state, the kernel phase's inputs), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({summary}), grad_norm "
+        f"{float(metrics['grad_norm']):.3f}, accuracy "
+        f"{float(metrics['accuracy']):.3f}, launches {counts}")
+    t0 = time.perf_counter()
+    host_batch = next(data)
+    log(f"train data: one {TRAIN_BATCH}-scene batch from the iterator in "
+        f"{time.perf_counter() - t0:.3f} s of host time")
+
+    # gradients of one batch: the kernels against the plain versions
+    pmodel = AgentSimModel(dataclasses.replace(cfg, attn_impl="plain"),
+                           generator=torch.Generator().manual_seed(0))
+    pmodel.load_state_dict(tmodel.state_dict())
+    pmodel.requires_grad_(True)
+    gb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in host_batch.items()}
+    grads = []
+    for m_ in (tmodel, pmodel):
+        loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
+        names, leaves = zip(*m_.named_parameters())
+        grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+    worst = 0.0
+    for name, g_plain in grads[1].items():
+        scale_ = float(g_plain.abs().max())
+        err = float((grads[0][name] - g_plain).abs().max())
+        if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
+            raise AssertionError(f"train grad {name}: kernels vs plain max "
+                                 f"abs err {err:.3e}, tensor max {scale_:.3e}")
+        worst = max(worst, err / max(scale_, 1e-30))
+    log(f"train step gradients, kernels vs plain versions: worst max abs "
+        f"err / tensor max {worst:.3e} over {len(grads[1])} tensors")
+    del pmodel, grads
+    ol = open_loop_metrics(tmodel, holdout_batches(scen, TRAIN_BATCH, 2,
+                                                   families=FAMILIES))
+    if not all(math.isfinite(x) for x in ol.values()):
+        raise AssertionError(f"open-loop metrics not finite: {ol}")
+    log(f"open-loop metrics on 2 holdout batches: {ol}")
+
+    def one_step():
+        nonlocal state
+        state, _ = train_step(state, host_batch)
+    device_profile(one_step, train_secs / TRAIN_STEPS, ("train step", lambda: 1),
+                   "one train step")
+    data.close()
+
+    # 6. times at the main-path shapes ------------------------------------------
+    phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
     case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
                        b=n_slots, h=cfg.num_heads, s=s_max, c=c,
@@ -394,14 +641,68 @@ def main() -> int:
             plain=lambda: se2_project_plain(x, pose, enc, "k"), library=None,
             bytes=se2_bytes, flops=rows * nb * (16 * nf * nf + 24 * nf + 8)),
     }
+    # the flash kernels at the train step's attention shape; FLOPs count
+    # only the (q, k) pairs this run's mask admits
+    tq, tk, tv, tdo, topts = train_case
+    tout, tlse = fa.flash_attention_fwd(tq, tk, tv, **topts)
+    tdelta = torch.sum(tdo * tout, dim=-1)
+    times_, seg_ = topts["q_times"], topts["q_segment_ids"]
+    pair_mask = ((times_[:, None, :] <= times_[:, :, None])
+                 & (seg_[:, :, None] == seg_[:, None, :])
+                 & (seg_[:, None, :] >= 0))                 # (B, Sq, Sk)
+    tb_, th_, ts_, tc_ = tq.shape
+    pairs = int(pair_mask.sum()) * th_
+    elem, row = tb_ * th_ * ts_ * tc_ * 4, tb_ * th_ * ts_ * 4
+    masks_bytes = 4 * tb_ * ts_ * 4
+    sdpa_mask = pair_mask[:, None]
+    lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                  for t_ in (tq, tk, tv))
+    lout = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=sdpa_mask, scale=attn_scale)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lout, (lq, lk, lv), tdo, retain_graph=True)
+    plain_bwd = lambda: fab.flash_bwd_plain(  # noqa: E731
+        tq, tk, tv, tout, tlse, tdo, **topts)
+    timings.update({
+        "flash_attention_fwd": dict(
+            fn=lambda: fa.flash_attention_fwd(tq, tk, tv, **topts),
+            plain=lambda: fa.flash_fwd_plain(tq, tk, tv, **topts),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                tq, tk, tv, attn_mask=sdpa_mask, scale=attn_scale),
+            bytes=4 * elem + row + masks_bytes,
+            flops=2 * pairs * (tc_ + tc_)),
+        # one plain backward and one SDPA backward compute dq, dk and dv
+        # together: both rows carry the same combined plain_ms/library_ms
+        "flash_attention_dq": dict(
+            fn=lambda: fab.flash_attention_dq(tq, tk, tv, tdo, tlse, tdelta,
+                                              **topts),
+            plain=plain_bwd, library=sdpa_bwd,
+            bytes=5 * elem + 2 * row + masks_bytes,
+            flops=2 * pairs * (2 * tc_ + tc_)),
+        "flash_attention_dkv": dict(
+            fn=lambda: fab.flash_attention_dkv(tq, tk, tv, tdo, tlse,
+                                               tdelta, **topts),
+            plain=plain_bwd, library=sdpa_bwd,
+            bytes=6 * elem + 2 * row + masks_bytes,
+            flops=2 * pairs * (2 * tc_ + 2 * tc_)),
+    })
     records = []
+    measured = {}
+
+    def once(timer, fn):
+        """timer(fn), measured once for a function two rows share."""
+        if (timer, fn) not in measured:
+            measured[timer, fn] = timer(fn)
+        return measured[timer, fn]
+
     for name, tm in timings.items():
         ms = time_ms(tm["fn"])
-        plain_ms = time_ms(tm["plain"])
-        library_ms = time_ms(tm["library"]) if tm["library"] else None
-        device = {"ms": kernel_ms(tm["fn"]), "plain_ms": kernel_ms(tm["plain"])}
+        plain_ms = once(time_ms, tm["plain"])
+        library_ms = once(time_ms, tm["library"]) if tm["library"] else None
+        device = {"ms": kernel_ms(tm["fn"]),
+                  "plain_ms": once(kernel_ms, tm["plain"])}
         if tm["library"]:
-            device["library_ms"] = kernel_ms(tm["library"])
+            device["library_ms"] = once(kernel_ms, tm["library"])
         byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
         flop_ms = tm["flops"] / F32_FLOP_PER_S * 1e3
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -419,7 +720,13 @@ def main() -> int:
                         "device_time_ms": device}))
     log(f"tick shape: {n_slots} slots x {cfg.num_heads} heads x {tick_rows} "
         f"query rows, {kvl} live cache rows, c = {c}")
+    log(f"train attention shape: {tb_} scenes x {th_} heads x {ts_} tokens, "
+        f"c = {tc_}; {pairs // th_} of {tb_ * ts_ * ts_} (q, k) pairs "
+        f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "
+        f"library_ms of flash_attention_dq and _dkv are one backward that "
+        f"computes dq, dk and dv together")
 
+    phase("done")
     log(json.dumps({"kernels": records}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -29,10 +29,7 @@
 // are one contiguous run of the cache, copied as 16-byte chunks with several
 // loads in flight per thread (D, Dv % 4 == 0, checked by the wrapper), and
 // the score loop reads shared memory as float4.
-#include <cstdint>
-#include <cstring>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "tiles.cuh"
 
 namespace {
 
@@ -41,90 +38,6 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kTileQ = kWarps * kRowsPerWarp;  // 16 query rows per CTA
 constexpr int kTileK = 32;                      // keys per tile = warp size
 constexpr int kMaxCols = 8;                     // Dv <= 32 * kMaxCols
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-
-// Unpack one loaded chunk V of cache elements T starting at element e0 of a
-// (rows, width) tile into shared memory, dequantizing with per-row scales.
-template <typename T, typename V>
-__device__ __forceinline__ void store_chunk(const V& raw, int e0, int width,
-                                            const float* __restrict__ scale,
-                                            float* dst, int stride) {
-  constexpr int E = sizeof(V) / sizeof(T);
-  T vals[E];
-  memcpy(vals, &raw, sizeof(V));
-  int row = e0 / width, col = e0 - row * width;
-  float s = scale ? scale[row] : 1.f;
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    dst[row * stride + col] = to_f(vals[i]) * s;
-    if (++col == width && i + 1 < E) {
-      col = 0;
-      ++row;
-      s = scale ? scale[row] : 1.f;
-    }
-  }
-}
-
-// Copy the first n elements of a contiguous (rows, width) tile into shared
-// memory (row stride `stride`) as chunks of type V, kUnroll chunks per
-// thread in flight before any is stored, then the tail element by element.
-constexpr int kUnroll = 4;
-template <typename T, typename V>
-__device__ void load_chunks(const T* __restrict__ src, int n, int width,
-                            const float* __restrict__ scale, float* dst,
-                            int stride) {
-  constexpr int E = sizeof(V) / sizeof(T);
-  const int nchunks = n / E;
-  const V* src_v = reinterpret_cast<const V*>(src);
-  for (int base = threadIdx.x; base < nchunks; base += kUnroll * blockDim.x) {
-    V buf[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int c = base + u * blockDim.x;
-      if (c < nchunks) buf[u] = __ldg(src_v + c);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int c = base + u * blockDim.x;
-      if (c < nchunks) store_chunk<T, V>(buf[u], c * E, width, scale, dst, stride);
-    }
-  }
-  for (int e = nchunks * E + threadIdx.x; e < n; e += blockDim.x) {
-    const int row = e / width;
-    dst[row * stride + e - row * width] = to_f(src[e]) * (scale ? scale[row] : 1.f);
-  }
-}
-
-// Load rows [0, nrows) of a tile: 16-byte chunks where the tile start is
-// 16-byte aligned (always at the sim arch's shapes), else 4-byte words.
-template <typename T>
-__device__ void load_tile(const T* __restrict__ src, int nrows, int width,
-                          const float* __restrict__ scale, float* dst, int stride) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0)
-    load_chunks<T, uint4>(src, nrows * width, width, scale, dst, stride);
-  else
-    load_chunks<T, uint32_t>(src, nrows * width, width, scale, dst, stride);
-}
-
-// Row stride (floats) of the shared K tile: D rounded so that the float4
-// reads of 8 consecutive lanes (one per key row) hit distinct bank groups,
-// i.e. an odd number of 16-byte units. D % 4 == 0 (checked by the wrapper).
-__host__ __device__ __forceinline__ int key_stride(int D) { return 4 * ((D / 4) | 1); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -139,7 +52,7 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
               float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ks = key_stride(D);
+  const int ks = lane_stride(D);
   float* s_q = smem;                          // [kTileQ][D]
   float* s_k = s_q + kTileQ * D;              // [kTileK][ks]
   float* s_v = s_k + kTileK * ks;             // [kTileK][Dv]
@@ -307,7 +220,7 @@ cudaError_t launch(const float* q, const void* k, const void* v, const float* k_
                    float* o_part, float* m_part, float* l_part, float* out, int B,
                    int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
                    int num_splits, float scale, cudaStream_t stream) {
-  const int ks = key_stride(D);
+  const int ks = lane_stride(D);
   const size_t smem = sizeof(float) * ((size_t)kTileQ * D + (size_t)kTileK * ks +
                                        (size_t)kTileK * Dv) +
                       sizeof(int) * 2 * kTileK;

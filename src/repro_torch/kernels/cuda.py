@@ -36,9 +36,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, keyed by a hash of that source
+    and of every shared header in ``csrc/``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):
@@ -83,8 +86,10 @@ def build_all() -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed. Every
-    library exports ``int <name>_launch(...)`` returning the launch's
-    ``cudaGetLastError()`` and ``const char* <name>_error_string(int)``."""
+    library exports launch functions ``int <entry>_launch(...)`` returning
+    the launch's ``cudaGetLastError()`` (``<entry>`` is ``<name>`` unless
+    the source holds several kernels) and
+    ``const char* <name>_error_string(int)``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -100,11 +105,13 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launcher(name: str, argtypes) -> Callable[..., None]:
-    """``<name>_launch`` from the library of ``csrc/<name>.cu``, bound with
-    ``argtypes``; calling it raises when the launch reports an error."""
+def launcher(name: str, argtypes, entry: str = "") -> Callable[..., None]:
+    """``<entry>_launch`` (default ``<name>_launch``) from the library of
+    ``csrc/<name>.cu``, bound with ``argtypes``; calling it raises when the
+    launch reports an error."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    entry = entry or name
+    fn = getattr(lib, f"{entry}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     err_fn = getattr(lib, f"{name}_error_string")
@@ -112,7 +119,7 @@ def launcher(name: str, argtypes) -> Callable[..., None]:
     def call(*args) -> None:
         err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"{name}: CUDA error {err} at launch: "
+            raise RuntimeError(f"{entry}: CUDA error {err} at launch: "
                                f"{err_fn(err).decode()}")
     return call
 

@@ -1,8 +1,20 @@
-"""Attention dispatch (port of ``repro/kernels/ops.py:363-497``)."""
+"""Attention dispatch (port of ``repro/kernels/ops.py:278-497``).
+
+The flash path's ``jax.custom_vjp`` becomes :class:`FlashAttention`, a
+``torch.autograd.Function``: its forward saves q, k, v, the output and the
+forward's log-sum-exp rows (all O(S), no (Sq, Sk) tensor), and its backward
+recomputes block probabilities from them. The reference pads to the TPU's
+128-lane tiles around its kernels (``_pad_all``); the CUDA kernels mask
+their own ragged edges, so nothing here pads.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
 
@@ -49,15 +61,67 @@ def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
     raise ValueError(f"unknown decode_attention impl {impl!r}")
 
 
-def attention(q, k, v, *, impl: str = "ref", causal: bool = False,
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``_flash`` with its
+    forward and backward rules).
+
+    ``plain=False`` runs :func:`flash_attention.flash_attention_fwd` and
+    :func:`flash_attention_bwd.flash_attention_bwd`, which launch the CUDA
+    kernels for CUDA tensors and run their plain versions for CPU tensors;
+    ``plain=True`` runs the plain versions on any device. Integer masks
+    and options get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, k_segment_ids, q_times,
+                k_times, causal, window, softcap, scale, plain):
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+        fwd = fa.flash_fwd_plain if plain else fa.flash_attention_fwd
+        out, lse = fwd(q, k, v, q_segment_ids=q_segment_ids,
+                       k_segment_ids=k_segment_ids, q_times=q_times,
+                       k_times=k_times, **opts)
+        ctx.save_for_backward(q, k, v, out, lse, q_segment_ids,
+                              k_segment_ids, q_times, k_times)
+        ctx.opts, ctx.plain = opts, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, q_seg, k_seg, q_times, k_times = ctx.saved_tensors
+        bwd = fab.flash_bwd_plain if ctx.plain else fab.flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, g.contiguous(),
+                         q_segment_ids=q_seg, k_segment_ids=k_seg,
+                         q_times=q_times, k_times=k_times, **ctx.opts)
+        return (dq, dk, dv) + (None,) * 9
+
+
+def attention(q, k, v, *, impl: str = "auto", causal: bool = False,
+              window: Optional[int] = None, softcap: Optional[float] = None,
               scale: Optional[float] = None,
               q_segment_ids=None, k_segment_ids=None,
               q_times=None, k_times=None, kv_length=None):
-    """Full multi-head attention. Only the oracle is ported so far; the
-    flash forward kernel comes with the training slice (see ROADMAP.md)."""
-    if impl != "ref":
-        raise ValueError(f"attention impl {impl!r} is not ported; use 'ref'")
-    return ref.mha_reference(q, k, v, causal=causal, scale=scale,
-                             q_segment_ids=q_segment_ids,
-                             k_segment_ids=k_segment_ids, q_times=q_times,
-                             k_times=k_times, kv_length=kv_length)
+    """Full multi-head attention, differentiable in q, k and v.
+
+    ``impl``:
+      * ``"auto"`` / ``"flash"``: the CUDA forward and backward kernels for
+        CUDA tensors, their plain versions for CPU tensors;
+      * ``"plain"``: the plain versions (blocked online softmax forward,
+        blocked backward) on any device;
+      * ``"ref"``: the O(S^2) oracle, differentiated by autograd.
+
+    ``kv_length`` (decode cursors) is taken by ``"ref"`` only: the decode
+    shape goes through :func:`decode_attention`.
+    """
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_segment_ids=q_segment_ids, k_segment_ids=k_segment_ids,
+              q_times=q_times, k_times=k_times)
+    if impl == "ref":
+        return ref.mha_reference(q, k, v, kv_length=kv_length, **kw)
+    if impl not in ("auto", "flash", "plain"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if kv_length is not None:
+        raise ValueError("kv_length takes impl='ref'; use decode_attention")
+    return FlashAttention.apply(q, k, v, q_segment_ids, k_segment_ids,
+                                q_times, k_times, causal, window, softcap,
+                                scale, impl == "plain")

@@ -6,6 +6,11 @@
 :func:`se2_project_plain` (the encoding's own ``transform_q`` /
 ``transform_k``), for a CPU tensor. Mode ``"k"`` also serves values, as
 ``transform_v`` is ``transform_k``.
+
+The projection is differentiable in x: its backward is the vector-Jacobian
+product of the plain version, recomputed with autograd. The reference
+differentiates ``enc.transform_*`` by autodiff and has no backward kernel,
+so none is written here. The pose is data and gets no gradient.
 """
 from __future__ import annotations
 
@@ -58,9 +63,26 @@ def se2_fourier_project(x: torch.Tensor, pose: torch.Tensor,
     """
     if mode not in _MODES:
         raise ValueError(f"mode must be 'q' or 'k', got {mode!r}")
-    if x.device.type == "cpu":
-        return se2_project_plain(x, pose, enc, mode)
-    return _launch(x, pose, enc, mode)
+    return _Project.apply(x, pose, enc, mode)
+
+
+class _Project(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pose, enc, mode):
+        ctx.save_for_backward(x, pose)
+        ctx.enc, ctx.mode = enc, mode
+        if x.device.type == "cpu":
+            return se2_project_plain(x, pose, enc, mode)
+        return _launch(x, pose, enc, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pose = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            y = se2_project_plain(x, pose, ctx.enc, ctx.mode)
+            (gx,) = torch.autograd.grad(y, x, g)
+        return gx, None, None, None
 
 
 def _launch(x, pose, enc, mode):

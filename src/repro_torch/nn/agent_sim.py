@@ -48,7 +48,9 @@ class AgentSimConfig:
     min_scale: float = 0.25
     max_scale: float = 1.0
     pos_scale: float = 0.05       # world meters -> encoder units
-    attn_impl: str = "ref"        # full forward (``ops.attention``)
+    #: full forward (``ops.attention``): "auto" runs the flash forward and
+    #: backward kernels on the card and their plain versions on the CPU
+    attn_impl: str = "auto"
     #: cached decode path (``ops.decode_attention``): "auto" runs the CUDA
     #: kernel on the card and its plain version on the CPU
     decode_impl: str = "auto"
@@ -221,9 +223,10 @@ class AgentSimModel(nn.Module):
         atok = self.agent_enc(batch["agent_feats"].to(torch.float32))
         return torch.cat([mtok, atok.reshape(b, t * a, -1)], 1)
 
-    @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Full forward: logits (B, T, A, num_actions)."""
+        """Full forward: logits (B, T, A, num_actions), differentiable in
+        the parameters (which are created with ``requires_grad=False``;
+        the train step switches gradients on)."""
         b, m, _ = batch["map_feats"].shape
         _, t, a, _ = batch["agent_feats"].shape
         pose, times, seg = self.tokenize(batch)

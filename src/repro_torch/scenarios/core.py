@@ -4,7 +4,7 @@ container."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -12,7 +12,7 @@ from repro_torch.core.kinematics import step_kinematics
 from repro_torch.scenarios.lane_graph import LaneGraph
 
 __all__ = ["step_kinematics", "ScenarioConfig", "Scene", "encode_action",
-           "decode_action"]
+           "decode_action", "stack_scenes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +66,9 @@ class Scene:
     family: str
     tensors: Dict[str, np.ndarray]
     lane_graph: Optional[LaneGraph] = None
+
+
+def stack_scenes(scenes: List[Scene]) -> Dict[str, np.ndarray]:
+    """Stack same-config scenes (any mix of families) into one batch dict."""
+    keys = scenes[0].tensors.keys()
+    return {k: np.stack([s.tensors[k] for s in scenes]) for k in keys}

@@ -1,0 +1,119 @@
+"""Behaviour-cloning train and eval steps (port of
+``repro/training/steps.py:40-95, 151-187``).
+
+One BC update: the teacher-forced logits of the full forward (block-causal
+over simulation times, the same mask the rollout cache relies on), the
+validity-masked ``action_nll``, its gradients by autograd (through the flash
+attention kernels on the card), then global-norm clipping and AdamW on a
+warmup-cosine schedule.
+
+The port's steps work on the model's own parameters: the train step writes
+each update into them in place, where the reference returns new arrays.
+Batches may be numpy dicts (as the data pipeline yields them) or tensors;
+the steps move them to the model's device.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.nn.agent_sim import AgentSimModel, action_nll
+from repro_torch.optim import (Optimizer, adamw, apply_updates, chain,
+                               clip_by_global_norm, global_norm,
+                               warmup_cosine)
+
+__all__ = ["bc_optimizer", "loss_summary", "make_sim_train_step",
+           "make_sim_eval_step", "open_loop_metrics"]
+
+
+def bc_optimizer(lr: float, steps: int) -> Optimizer:
+    """The BC optimizer recipe: global-norm clip + AdamW on a
+    warmup-cosine schedule."""
+    warmup = max(1, min(20, steps // 10))
+    return chain(clip_by_global_norm(1.0),
+                 adamw(warmup_cosine(lr, warmup, steps)))
+
+
+def loss_summary(history: Sequence[float]) -> Dict[str, float]:
+    """Endpoint means of a loss trajectory (k-step windows)."""
+    k = max(1, min(5, len(history) // 2))
+    return {
+        "loss_first": float(np.mean(history[:k])) if len(history) else
+        float("nan"),
+        "loss_last": float(np.mean(history[-k:])) if len(history) else
+        float("nan"),
+    }
+
+
+def _masked_accuracy(logits, actions, valid):
+    """Fraction of valid agent steps whose argmax action matches the
+    expert's."""
+    pred = torch.argmax(logits.float(), dim=-1)
+    w = valid.float()
+    hit = (pred == actions).float()
+    return torch.sum(hit * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def make_sim_train_step(model: AgentSimModel,
+                        optimizer: Optimizer) -> Callable:
+    """One BC update: teacher-forced masked NLL -> grads -> optimizer.
+
+    Switches on gradients for the model's parameters and returns
+    ``step(opt_state, batch) -> (opt_state, metrics)``. The step updates
+    the parameters in place; start from
+    ``optimizer.init(dict(model.named_parameters()))``. ``metrics`` holds
+    0-d tensors on the model's device: ``loss``, ``grad_norm`` (of the raw
+    gradients, before clipping) and ``accuracy``.
+    """
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+
+    def train_step(opt_state, batch):
+        batch = _on_device(batch, model.device)
+        logits = model(batch)
+        loss = action_nll(logits, batch["actions"], batch["agent_valid"])
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            apply_updates(params, updates)
+            metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+                       "accuracy": _masked_accuracy(
+                           logits, batch["actions"], batch["agent_valid"])}
+        return opt_state, metrics
+
+    return train_step
+
+
+def make_sim_eval_step(model: AgentSimModel) -> Callable:
+    """Open-loop evaluation of one batch with the model's current weights:
+    ``eval_step(batch) -> {"nll", "accuracy"}`` (0-d tensors)."""
+
+    @torch.no_grad()
+    def eval_step(batch):
+        batch = _on_device(batch, model.device)
+        logits = model(batch)
+        return {"nll": action_nll(logits, batch["actions"],
+                                  batch["agent_valid"]),
+                "accuracy": _masked_accuracy(logits, batch["actions"],
+                                             batch["agent_valid"])}
+
+    return eval_step
+
+
+def open_loop_metrics(model: AgentSimModel,
+                      batches: Sequence[Dict[str, Any]],
+                      eval_fn: Optional[Callable] = None) -> Dict[str, float]:
+    """Mean open-loop NLL / accuracy over a list of batches."""
+    if not batches:
+        return {"nll": float("nan"), "accuracy": float("nan")}
+    if eval_fn is None:
+        eval_fn = make_sim_eval_step(model)
+    rows = [{k: float(v) for k, v in eval_fn(b).items()} for b in batches]
+    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}

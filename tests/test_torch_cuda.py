@@ -70,3 +70,91 @@ def test_refused_launch_raises(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         sp.se2_fourier_project(x, pose, enc, "k")
     torch.cuda.synchronize()
+
+
+# -- flash attention: forward, dq and dk/dv against their plain versions ----
+
+FLASH_CASES = {
+    # b, hq, hkv, sq, sk, d, dv, options
+    "plain": (2, 2, 2, 37, 37, 32, 32, {}),
+    "causal_gqa": (2, 4, 2, 48, 48, 32, 40, dict(causal=True)),
+    "window": (1, 2, 2, 50, 50, 24, 24, dict(window=12)),
+    "causal_window_mqa": (2, 4, 1, 33, 65, 16, 16,
+                          dict(causal=True, window=16)),
+    "softcap": (1, 2, 2, 40, 40, 32, 32, dict(softcap=20.0)),
+    "times_segments": (2, 2, 2, 64, 64, 200, 200, "scene"),
+    "sim_width": (2, 8, 8, 336, 336, 200, 200, "scene"),
+}
+
+
+def _flash_case(dev, name, dtype=torch.float32):
+    b, hq, hkv, sq, sk, d, dv, opts = FLASH_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, sk, dv), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, hq, sq, dv), generator=g, device=dev).to(dtype)
+    if opts == "scene":           # block-causal times, -1 segments
+        times = torch.sort(torch.randint(0, 12, (b, sk), generator=g,
+                                         device=dev), dim=-1)[0]
+        seg = torch.where(torch.rand((b, sk), generator=g, device=dev) < 0.1,
+                          -1, 0)
+        opts = dict(causal=True, q_times=times.int(), k_times=times.int(),
+                    q_segment_ids=seg.int(), k_segment_ids=seg.int())
+    return q, k, v, do, opts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, name, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do, opts = _flash_case(dev, name, getattr(torch, dtype))
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    want = fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+    torch.cuda.synchronize()
+    # f32: tests/test_kernels.py's forward and gradient tolerances; bf16:
+    # both sides round their outputs to bf16
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    live = want_lse > -1e29
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-5,
+                               rtol=1e-5)
+    gtol = dict(atol=1e-5, rtol=1e-3) if dtype == "float32" else \
+        dict(atol=1e-2, rtol=4e-2)
+    for which, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == w.dtype
+        torch.testing.assert_close(a.float(), w.float(), **gtol, msg=which)
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_bitwise_repeatable(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do, opts = _flash_case(dev, "causal_gqa")
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    first = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    second = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_raise_on_what_they_do_not_take(dev):
+    """Widths the kernels do not take, and non-contiguous inputs, raise
+    before any launch; nothing falls back to the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    q = torch.zeros((1, 1, 8, 260), device=dev)
+    with pytest.raises(ValueError, match="widths"):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 1, 8, 30), device=dev)
+    with pytest.raises(ValueError, match="widths"):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.attention(q, q, q, impl="flash")

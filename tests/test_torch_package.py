@@ -35,7 +35,8 @@ def test_port_sources_import_no_jax_and_no_reference(path):
 
 def test_port_import_loads_no_jax_module():
     code = ("import sys, repro_torch, repro_torch.configs, repro_torch.params,"
-            " repro_torch.runtime, repro_torch.scenarios, repro_torch.kernels;"
+            " repro_torch.runtime, repro_torch.scenarios, repro_torch.kernels,"
+            " repro_torch.optim, repro_torch.training, repro_torch.data;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
