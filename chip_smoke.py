@@ -7,14 +7,17 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 1. the card: its name and power limit;
 2. build: every CUDA source under src/repro_torch/kernels/csrc, one nvcc
-   each, all started together (into build/kernels/);
+   each, all started together (into build/kernels/); the backward's build
+   must show 0 spill bytes, and the HMMA instructions in its SASS are
+   counted (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the rollout's shapes, including ragged cursors, stale NaN rows past the
    cursor and every cache dtype; the flash-attention forward, dq and dk/dv
    at the train step's shape (32 scenes, the scenes' own times and segment
    ids, -1 rows included) and on a feature matrix (index causal, window,
-   softcap, GQA, Dv != D, ragged lengths, bf16), the backward run twice
-   and required bitwise equal;
+   softcap, GQA, Dv != D, ragged lengths, widths off the tensor cores' k8
+   step, bf16), float32 gradients against the plain backward in float64,
+   the backward run twice and required bitwise equal;
 4. rollout: sim-se2-fourier at full width (seeded random weights) rolls
    out 64 freeform scenes through RolloutEngine with float32 and int8
    caches; launch counts, output shape and finiteness are checked, the
@@ -29,7 +32,10 @@ Run from the root of a checkout. Phases, each of which fails the run:
    finite; steps/s, peak memory and the device profile are printed;
 6. times: each kernel at its main-path shape beside its plain version, a
    PyTorch library call where one exists, and its bound on this card
-   (CUDA events over back-to-back calls; CUPTI kernel time beside them).
+   (CUDA events over back-to-back calls; CUPTI kernel time beside them);
+   the flash kernels' bound is at the tensor cores' rate for
+   float32-accurate products, the CUDA-core bound beside it, and the
+   share of the pairs the backward's tiles compute that the mask admits.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -41,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -49,9 +56,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet rates (the bound_ms denominators)
+# H100 SXM data-sheet rates (the bound_ms denominators): HBM, f32 on the
+# CUDA cores, and float32-accurate products on the tensor cores (split TF32:
+# three TF32 products each, a third of the 495 TFLOP/s TF32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+SPLIT_TF32_FLOP_PER_S = 495e12 / 3
+# rows a backward CTA owns and rows it walks at c = 200
+# (csrc/flash_attention_bwd.cu)
+BWD_TILE_OWN, BWD_TILE_WALK = 64, 32
 
 DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
               "bfloat16": dict(atol=8e-3, rtol=8e-3),
@@ -143,9 +156,54 @@ def time_ms(fn, batches=20, per_batch=10, warmup=5):
                              for s, e in zip(starts, ends))
 
 
+def spill_bytes(build_log: str) -> int:
+    """Spill stores and loads, in bytes, summed over a build log's
+    functions (nvcc -Xptxas -v)."""
+    return sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", build_log))
+
+
+def sass_counts(library, opcode, kernels):
+    """Instructions ``opcode`` in the SASS of the functions of ``library``
+    whose names hold each of ``kernels`` (cuobjdump -sass), or None where
+    the toolkit has no cuobjdump."""
+    from repro_torch.kernels import cuda
+    tool = Path(cuda._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = dict.fromkeys(kernels, 0)
+    function = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1]
+        elif opcode in line:
+            for name in kernels:
+                if name in function:
+                    counts[name] += 1
+    return counts
+
+
+def computed_pairs(pair_mask, own, walk):
+    """Pairs the backward's tensor-core tiles compute over a (B, owned
+    rows, walked rows) mask: every pair of each own x walk tile (ragged
+    edges padded) in which the mask admits at least one pair."""
+    import torch
+    b, n_own, n_walk = pair_mask.shape
+    m = torch.nn.functional.pad(pair_mask.to(torch.uint8),
+                                (0, -n_walk % walk, 0, -n_own % own))
+    tiles = m.reshape(b, m.shape[1] // own, own, m.shape[2] // walk, walk)
+    return int(tiles.amax(dim=4).amax(dim=2).sum()) * own * walk
+
+
 def kernel_ms(fn, reps=20):
     """Mean device milliseconds a call spends in kernels (CUPTI, through
-    torch.profiler): the call's own time on the card, without the host."""
+    torch.profiler): the call's own time on the card, without the host.
+    Each kernel counts at its mean time a launch times its launches a call
+    (its recorded launches over ``reps``, rounded), so that launches the
+    trace misses do not read as time saved; a kernel whose recorded
+    launches are not a whole number a call is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -155,9 +213,16 @@ def kernel_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / reps
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+            continue
+        per_call = round(e.count / reps) or e.count / reps
+        if e.count != per_call * reps:
+            log(f"kernel_ms: CUPTI recorded {e.count} launches of "
+                f"{e.key[:60]} over {reps} calls")
+        total += e.self_device_time_total / e.count * per_call
+    return total / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +307,8 @@ FLASH_FEATURES = {
     "causal_window_mqa": (2, 4, 1, 33, 65, 16, 16,
                           dict(causal=True, window=16)),
     "softcap": (1, 2, 2, 40, 40, 32, 32, dict(softcap=20.0)),
+    # widths not multiples of the tensor cores' k8 step, lengths not of m16
+    "odd_widths": (2, 4, 2, 37, 53, 20, 36, dict(causal=True)),
 }
 
 
@@ -265,7 +332,12 @@ def check_flash(what, q, k, v, do, opts, max_err):
     out, lse = fa.flash_attention_fwd(q, k, v, **opts)
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
     grads = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
-    want = fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+    # float32 gradients are held to exact ones: the plain backward of the
+    # same inputs in float64, rounded to float32
+    wide = torch.float64 if q.dtype == torch.float32 else q.dtype
+    want = tuple(w.to(q.dtype) for w in fab.flash_bwd_plain(
+        q.to(wide), k.to(wide), v.to(wide), out.to(wide), lse, do.to(wide),
+        **opts))
     torch.cuda.synchronize()
     errs = {"flash_attention_fwd": close_or_raise(
         f"flash fwd {what}", out, want_out, **FLASH_TOL[dt])}
@@ -357,6 +429,20 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the tensor-core backward keeps its accumulators in registers
+    bwd_lib = cuda.library_path("flash_attention_bwd")
+    bwd_log = build_logs["flash_attention_bwd"] or \
+        bwd_lib.with_suffix(".log").read_text()
+    if "spill stores" not in bwd_log:
+        raise AssertionError("flash_attention_bwd: no ptxas report in its "
+                             "build log")
+    if spill_bytes(bwd_log):
+        raise AssertionError(f"flash_attention_bwd spills "
+                             f"{spill_bytes(bwd_log)} bytes")
+    hmma = sass_counts(bwd_lib, "HMMA", ("dq_kernel", "dkv_kernel"))
+    log("flash_attention_bwd: 0 spill bytes; HMMA instructions in the SASS: "
+        + ("not available (no cuobjdump)" if hmma is None else
+           ", ".join(f"{k} {n}" for k, n in hmma.items())))
 
     arch = configs.get_sim_arch("sim-se2-fourier")
     cfg = arch.agent_sim_config()
@@ -642,7 +728,8 @@ def main() -> int:
             bytes=se2_bytes, flops=rows * nb * (16 * nf * nf + 24 * nf + 8)),
     }
     # the flash kernels at the train step's attention shape; FLOPs count
-    # only the (q, k) pairs this run's mask admits
+    # only the (q, k) pairs this run's mask admits, bounded at the tensor
+    # cores' rate for float32-accurate products
     tq, tk, tv, tdo, topts = train_case
     tout, tlse = fa.flash_attention_fwd(tq, tk, tv, **topts)
     tdelta = torch.sum(tdo * tout, dim=-1)
@@ -670,7 +757,7 @@ def main() -> int:
             library=lambda: torch.nn.functional.scaled_dot_product_attention(
                 tq, tk, tv, attn_mask=sdpa_mask, scale=attn_scale),
             bytes=4 * elem + row + masks_bytes,
-            flops=2 * pairs * (tc_ + tc_)),
+            flops=2 * pairs * (tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S),
         # one plain backward and one SDPA backward compute dq, dk and dv
         # together: both rows carry the same combined plain_ms/library_ms
         "flash_attention_dq": dict(
@@ -678,13 +765,13 @@ def main() -> int:
                                               **topts),
             plain=plain_bwd, library=sdpa_bwd,
             bytes=5 * elem + 2 * row + masks_bytes,
-            flops=2 * pairs * (2 * tc_ + tc_)),
+            flops=2 * pairs * (2 * tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S),
         "flash_attention_dkv": dict(
             fn=lambda: fab.flash_attention_dkv(tq, tk, tv, tdo, tlse,
                                                tdelta, **topts),
             plain=plain_bwd, library=sdpa_bwd,
             bytes=6 * elem + 2 * row + masks_bytes,
-            flops=2 * pairs * (2 * tc_ + 2 * tc_)),
+            flops=2 * pairs * (2 * tc_ + 2 * tc_), rate=SPLIT_TF32_FLOP_PER_S),
     })
     records = []
     measured = {}
@@ -704,18 +791,22 @@ def main() -> int:
         if tm["library"]:
             device["library_ms"] = once(kernel_ms, tm["library"])
         byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
-        flop_ms = tm["flops"] / F32_FLOP_PER_S * 1e3
+        flop_ms = tm["flops"] / tm.get("rate", F32_FLOP_PER_S) * 1e3
         rec = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(byte_ms, flop_ms),
                "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
-               "library_ms": library_ms}
+               "library_ms": library_ms,
+               # the same work at the CUDA cores' f32 rate
+               "bound_f32_ms": max(byte_ms,
+                                   tm["flops"] / F32_FLOP_PER_S * 1e3)}
         records.append(rec)
         log(json.dumps({"kernel": name, "launches": launches[name],
                         "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms,
                         "bound_ms": rec["bound_ms"],
+                        "bound_f32_ms": rec["bound_f32_ms"],
                         "max_err": max_err[name],
                         "device_time_ms": device}))
     log(f"tick shape: {n_slots} slots x {cfg.num_heads} heads x {tick_rows} "
@@ -725,6 +816,12 @@ def main() -> int:
         f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "
         f"library_ms of flash_attention_dq and _dkv are one backward that "
         f"computes dq, dk and dv together")
+    for name, own_mask in (("flash_attention_dq", pair_mask),
+                           ("flash_attention_dkv", pair_mask.transpose(1, 2))):
+        computed = computed_pairs(own_mask, BWD_TILE_OWN, BWD_TILE_WALK)
+        log(f"{name}: its {BWD_TILE_OWN} x {BWD_TILE_WALK} tiles compute "
+            f"{computed} (q, k) pairs a head, of which the mask admits "
+            f"{pairs // th_} ({pairs / th_ / computed:.1%})")
 
     phase("done")
     log(json.dumps({"kernels": records}))

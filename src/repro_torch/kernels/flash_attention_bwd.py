@@ -2,9 +2,14 @@
 
 * :func:`flash_attention_bwd` launches the dq and the dk/dv kernels of
   ``csrc/flash_attention_bwd.cu`` for CUDA tensors (and raises on anything
-  they do not take) and runs :func:`flash_bwd_plain` for CPU tensors.
+  they do not take) and runs :func:`flash_bwd_plain` for CPU tensors. The
+  kernels run their five products on the tensor cores in split TF32: each
+  float32 operand is split into two TF32 parts and a product is taken as
+  three TF32 products, which keeps float32 accuracy.
 * :func:`flash_bwd_plain` is the port of the reference's blocked recurrence
-  ``ops._bwd_chunked``: the same arithmetic chunk by chunk over keys.
+  ``ops._bwd_chunked``: the same arithmetic chunk by chunk over keys, in
+  float32 (float64 for float64 inputs, which the kernels' checks pass to
+  get an exact yardstick).
 
 Both recompute block probabilities from the forward's log-sum-exp rows,
 ``P = exp(S - lse)``, so no (Sq, Sk) tensor outlives a block. The row term
@@ -37,21 +42,23 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
                     q_times=None, k_times=None):
     """The plain version: (dq, dk, dv) in the dtypes of (q, k, v), from the
     forward's output ``o``, its ``lse`` rows and the output cotangent
-    ``do``, over chunks of 512 keys (the reference's chunk). GQA sums dk/dv
-    over the q heads of each kv head's group."""
+    ``do``, over chunks of 512 keys (the reference's chunk), computed in
+    float32 or the inputs' wider dtype. GQA sums dk/dv over the q heads of
+    each kv head's group."""
     b, hq, sq, d = q.shape
     hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
     group = hq // hkv
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
-    qf, gf = q.float(), do.float()
-    delta = torch.sum(gf * o.float(), dim=-1)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, gf = q.to(ct), do.to(ct)
+    delta = torch.sum(gf * o.to(ct), dim=-1)
     dq = torch.zeros_like(qf)
     dks, dvs = [], []
     for k0 in range(0, sk, _CHUNK):
         k1 = min(k0 + _CHUNK, sk)
-        kc = k[:, :, k0:k1].float().repeat_interleave(group, dim=1)
-        vc = v[:, :, k0:k1].float().repeat_interleave(group, dim=1)
+        kc = k[:, :, k0:k1].to(ct).repeat_interleave(group, dim=1)
+        vc = v[:, :, k0:k1].to(ct).repeat_interleave(group, dim=1)
         s_pre = torch.einsum("bhnd,bhmd->bhnm", qf, kc) * scale
         s = _softcapped(s_pre, softcap)
         mask = block_mask(sq, k0, k1, causal=causal, window=window,

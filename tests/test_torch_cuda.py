@@ -82,6 +82,8 @@ FLASH_CASES = {
     "causal_window_mqa": (2, 4, 1, 33, 65, 16, 16,
                           dict(causal=True, window=16)),
     "softcap": (1, 2, 2, 40, 40, 32, 32, dict(softcap=20.0)),
+    # widths not multiples of the tensor cores' k8 step, lengths not of m16
+    "odd_widths": (2, 4, 2, 37, 53, 20, 36, dict(causal=True)),
     "times_segments": (2, 2, 2, 64, 64, 200, 200, "scene"),
     "sim_width": (2, 8, 8, 336, 336, 200, 200, "scene"),
 }
@@ -114,7 +116,12 @@ def test_flash_kernels_match_plain(dev, name, dtype):
     out, lse = fa.flash_attention_fwd(q, k, v, **opts)
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
     got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
-    want = fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+    # float32 gradients are held to exact ones: the plain backward of the
+    # same inputs in float64, rounded to float32
+    wide = torch.float64 if dtype == "float32" else q.dtype
+    want = tuple(w.to(q.dtype) for w in fab.flash_bwd_plain(
+        q.to(wide), k.to(wide), v.to(wide), out.to(wide), lse, do.to(wide),
+        **opts))
     torch.cuda.synchronize()
     # f32: tests/test_kernels.py's forward and gradient tolerances; bf16:
     # both sides round their outputs to bf16
@@ -136,6 +143,21 @@ def test_flash_backward_is_bitwise_repeatable(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     q, k, v, do, opts = _flash_case(dev, "causal_gqa")
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    first = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    second = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_is_bitwise_repeatable_at_odd_widths(dev, dtype):
+    """The zero-padded contraction and the masked ragged edges of the
+    tensor-core tiles keep one writer per row and a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do, opts = _flash_case(dev, "odd_widths", getattr(torch, dtype))
     out, lse = fa.flash_attention_fwd(q, k, v, **opts)
     first = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
     second = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
