@@ -7,9 +7,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 1. the card: its name and power limit;
 2. build: every CUDA source under src/repro_torch/kernels/csrc, one nvcc
-   each, all started together (into build/kernels/); the backward's build
-   must show 0 spill bytes, and the HMMA instructions in its SASS are
-   counted (cuobjdump);
+   each, all started together (into build/kernels/); the flash forward's
+   and backward's builds must show 0 spill bytes, and the HMMA
+   instructions in their SASS are counted (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the rollout's shapes, including ragged cursors, stale NaN rows past the
    cursor and every cache dtype; the flash-attention forward, dq and dk/dv
@@ -17,7 +17,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    ids, -1 rows included) and on a feature matrix (index causal, window,
    softcap, GQA, Dv != D, ragged lengths, widths off the tensor cores' k8
    step, bf16), float32 gradients against the plain backward in float64,
-   the backward run twice and required bitwise equal;
+   the forward (at the train shape and at odd widths, float32 and bf16)
+   and the backward run twice and required bitwise equal;
 4. rollout: sim-se2-fourier at full width (seeded random weights) rolls
    out 64 freeform scenes through RolloutEngine with float32 and int8
    caches; launch counts, output shape and finiteness are checked, the
@@ -35,7 +36,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (CUDA events over back-to-back calls; CUPTI kernel time beside them);
    the flash kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
-   share of the pairs the backward's tiles compute that the mask admits.
+   share of the pairs the forward's and backward's tiles compute that the
+   mask admits.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -62,8 +64,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 SPLIT_TF32_FLOP_PER_S = 495e12 / 3
-# rows a backward CTA owns and rows it walks at c = 200
-# (csrc/flash_attention_bwd.cu)
+# rows a CTA of the forward / backward owns and rows it walks at c = 200
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+FWD_TILE_OWN, FWD_TILE_WALK = 64, 32
 BWD_TILE_OWN, BWD_TILE_WALK = 64, 32
 
 DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
@@ -186,7 +189,7 @@ def sass_counts(library, opcode, kernels):
 
 
 def computed_pairs(pair_mask, own, walk):
-    """Pairs the backward's tensor-core tiles compute over a (B, owned
+    """Pairs a flash kernel's tensor-core tiles compute over a (B, owned
     rows, walked rows) mask: every pair of each own x walk tile (ragged
     edges padded) in which the mask admits at least one pair."""
     import torch
@@ -429,20 +432,22 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    # the tensor-core backward keeps its accumulators in registers
-    bwd_lib = cuda.library_path("flash_attention_bwd")
-    bwd_log = build_logs["flash_attention_bwd"] or \
-        bwd_lib.with_suffix(".log").read_text()
-    if "spill stores" not in bwd_log:
-        raise AssertionError("flash_attention_bwd: no ptxas report in its "
-                             "build log")
-    if spill_bytes(bwd_log):
-        raise AssertionError(f"flash_attention_bwd spills "
-                             f"{spill_bytes(bwd_log)} bytes")
-    hmma = sass_counts(bwd_lib, "HMMA", ("dq_kernel", "dkv_kernel"))
-    log("flash_attention_bwd: 0 spill bytes; HMMA instructions in the SASS: "
-        + ("not available (no cuobjdump)" if hmma is None else
-           ", ".join(f"{k} {n}" for k, n in hmma.items())))
+    # the tensor-core flash kernels keep their accumulators in registers
+    for source, kernels in (("flash_attention", ("fwd_kernel",)),
+                            ("flash_attention_bwd",
+                             ("dq_kernel", "dkv_kernel"))):
+        lib = cuda.library_path(source)
+        text = build_logs[source] or lib.with_suffix(".log").read_text()
+        if "spill stores" not in text:
+            raise AssertionError(f"{source}: no ptxas report in its build "
+                                 f"log")
+        if spill_bytes(text):
+            raise AssertionError(f"{source} spills {spill_bytes(text)} "
+                                 f"bytes")
+        hmma = sass_counts(lib, "HMMA", kernels)
+        log(f"{source}: 0 spill bytes; HMMA instructions in the SASS: "
+            + ("not available (no cuobjdump)" if hmma is None else
+               ", ".join(f"{k} {n}" for k, n in hmma.items())))
 
     arch = configs.get_sim_arch("sim-se2-fourier")
     cfg = arch.agent_sim_config()
@@ -515,6 +520,20 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             check_flash(f"{name} {str(dtype)[6:]}",
                         *feature_case(gen, dev, name, dtype), max_err)
+    repeat_cases = {"train shape": train_case}
+    for dtype in (torch.float32, torch.bfloat16):
+        repeat_cases[f"odd_widths {str(dtype)[6:]}"] = feature_case(
+            gen, dev, "odd_widths", dtype)
+    repeat_cases["train shape bfloat16"] = (
+        *(t_.to(torch.bfloat16) for t_ in train_case[:4]), train_case[4])
+    for what, (q, k, v, _, opts) in repeat_cases.items():
+        first = fa.flash_attention_fwd(q, k, v, **opts)
+        again = fa.flash_attention_fwd(q, k, v, **opts)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"flash forward {what}: not bitwise "
+                                 f"repeatable")
+    log(f"flash forward bitwise repeatable: {', '.join(repeat_cases)}")
 
     # 4. rollout -----------------------------------------------------------------
     phase("4. rollout")
@@ -816,12 +835,15 @@ def main() -> int:
         f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "
         f"library_ms of flash_attention_dq and _dkv are one backward that "
         f"computes dq, dk and dv together")
-    for name, own_mask in (("flash_attention_dq", pair_mask),
-                           ("flash_attention_dkv", pair_mask.transpose(1, 2))):
-        computed = computed_pairs(own_mask, BWD_TILE_OWN, BWD_TILE_WALK)
-        log(f"{name}: its {BWD_TILE_OWN} x {BWD_TILE_WALK} tiles compute "
-            f"{computed} (q, k) pairs a head, of which the mask admits "
-            f"{pairs // th_} ({pairs / th_ / computed:.1%})")
+    for name, own_mask, own, walk in (
+            ("flash_attention_fwd", pair_mask, FWD_TILE_OWN, FWD_TILE_WALK),
+            ("flash_attention_dq", pair_mask, BWD_TILE_OWN, BWD_TILE_WALK),
+            ("flash_attention_dkv", pair_mask.transpose(1, 2), BWD_TILE_OWN,
+             BWD_TILE_WALK)):
+        computed = computed_pairs(own_mask, own, walk)
+        log(f"{name}: its {own} x {walk} tiles compute {computed} (q, k) "
+            f"pairs a head, of which the mask admits {pairs // th_} "
+            f"({pairs / th_ / computed:.1%})")
 
     phase("done")
     log(json.dumps({"kernels": records}))

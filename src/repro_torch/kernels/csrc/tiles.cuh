@@ -100,19 +100,6 @@ __host__ __device__ __forceinline__ int lane_stride(int width) {
   return 4 * ((width / 4) | 1);
 }
 
-// Dot product of a float4-aligned shared row with another, n4 float4s long.
-__device__ __forceinline__ float dot4(const float4* a, const float4* b, int n4) {
-  float s = 0.f;
-  for (int t = 0; t < n4; ++t) {
-    const float4 x = a[t], y = b[t];
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-    s = fmaf(x.z, y.z, s);
-    s = fmaf(x.w, y.w, s);
-  }
-  return s;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

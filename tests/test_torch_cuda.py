@@ -166,6 +166,57 @@ def test_flash_backward_is_bitwise_repeatable_at_odd_widths(dev, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["sim_width", "odd_widths"])
+def test_flash_forward_is_bitwise_repeatable(dev, name, dtype):
+    """Each output row has one writer, and the two warps of a query block
+    merge their softmax states in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _, opts = _flash_case(dev, name, getattr(torch, dtype))
+    first = fa.flash_attention_fwd(q, k, v, **opts)
+    second = fa.flash_attention_fwd(q, k, v, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_ragged_tile_with_large_padding_rows(dev, dtype):
+    """85 keys: the last 32-key tile holds 21, in the buffer that held the
+    first tile, whose rows 21-31 are padding (segment -1) with V = 1e4. A
+    pad row of the ragged tile that is not zeroed, or a padding key that
+    gets P > 0, shows at that size; rows of segment -1 give 0."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, dtype)
+    b, h, sq, sk, d = 2, 4, 40, 85, 40
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dt)
+    k = torch.randn((b, h // 2, sk, d), generator=g, device=dev)
+    v = torch.randn((b, h // 2, sk, d), generator=g, device=dev)
+    k_seg = torch.zeros((b, sk), dtype=torch.int32, device=dev)
+    k_seg[:, 21:32] = -1
+    k_seg[:, 60] = -1
+    v[:, :, 21:32] = 1e4
+    v[:, :, 60] = 1e4
+    q_seg = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+    q_seg[:, 7] = -1
+    opts = dict(q_segment_ids=q_seg, k_segment_ids=k_seg)
+    k, v = k.to(dt), v.to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert float(want_out.float().abs().max()) < 10.0
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    assert not bool(out[:, :, 7].any())
+    live = want_lse > -1e29
+    torch.testing.assert_close(lse[live], want_lse[live], atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_flash_kernels_raise_on_what_they_do_not_take(dev):
     """Widths the kernels do not take, and non-contiguous inputs, raise
     before any launch; nothing falls back to the plain version."""

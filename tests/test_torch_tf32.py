@@ -1,4 +1,4 @@
-"""The split-TF32 arithmetic of the tensor-core flash backward, on the CPU.
+"""The split-TF32 arithmetic of the tensor-core flash kernels, on the CPU.
 
 ``csrc/flash_attention_bwd.cu`` runs its five products (S = Q K^T,
 dP = dO V^T, dQ = dS K, dV = P^T dO, dK = dS^T Q) on the tensor cores,
@@ -16,6 +16,13 @@ kernels' float32 gradient tolerance, as the checks on the card hold the
 kernels. They show why the kernel splits (one TF32 product alone misses
 the tolerance by far) and why it skips the small products of bf16 inputs
 (they are zero).
+
+``csrc/flash_attention.cu`` runs the forward's two products, S = Q K^T
+(compensated, as the backward's S) and O = P V, the same way; its tests
+hold out and the live lse rows, emulated so, to a float64 evaluation at
+the forward's float32 tolerance and the lse tolerance the checks on the
+card use, and show that one TF32 product on P V misses the first and one
+on S the second.
 """
 import numpy as np
 import pytest
@@ -28,6 +35,10 @@ from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 # the float32 gradient tolerance of the flash kernels (tests/test_kernels.py
 # :162-163, chip_smoke.py FLASH_GRAD_TOL["float32"])
 GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
+# the forward's float32 tolerance (tests/test_kernels.py:23-25,
+# chip_smoke.py FLASH_TOL["float32"]) and that of its live lse rows
+# (chip_smoke.check_flash)
+FWD_TOL = {"out": dict(atol=2e-5, rtol=2e-4), "lse": dict(atol=1e-5, rtol=1e-5)}
 
 
 def tf32(x):
@@ -80,6 +91,18 @@ def backward(q, k, v, do, lse, delta, mask, scale, mm, mm_scores=None):
             mm(p.transpose(-1, -2), do))
 
 
+def forward(q, k, v, mask, scale, mm_scores, mm):
+    """(out, lse) of the forward's softmax over all keys at once, with S
+    from mm_scores and P V from mm (masked pairs give P = 0)."""
+    s = mm_scores(q, k.transpose(-1, -2)) * scale
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype))
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]),
+                    torch.zeros((), dtype=s.dtype))
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    return mm(p, v) / l[..., None], m + torch.log(l)
+
+
 def sim_case(seed=0):
     """2 scenes x 8 heads x 336 tokens at c = 200: 48 map tokens at time 0,
     then 24 agents x 12 steps (block-causal times), 10% of the tokens in
@@ -113,6 +136,30 @@ def sim():
     return dict(plain=want,
                 split=backward(*args, mm_split, mm_split_compensated),
                 single=backward(*args, mm_tf32))
+
+
+@pytest.fixture(scope="module")
+def sim_fwd():
+    """The forward at sim_case: exact (float64, rounded to float32 once) and
+    as the kernel computes it, with one TF32 product on P V or on S in
+    place of a split one; out and the live lse rows of each."""
+    q, k, v, _, opts = sim_case()
+    t, sg = opts["q_times"], opts["q_segment_ids"]
+    mask = ((t[:, None, :] <= t[:, :, None])
+            & (sg[:, :, None] == sg[:, None, :])
+            & (sg[:, None, :] >= 0))[:, None]
+    live = mask.any(dim=-1).expand(-1, q.shape[1], -1)
+    args = (mask, opts["scale"])
+
+    def run(q_, k_, v_, mm_scores, mm):
+        out, lse = forward(q_, k_, v_, *args, mm_scores, mm)
+        return {"out": out.float(), "lse": lse.float()[live]}
+    matmul = torch.matmul
+    return dict(
+        exact=run(q.double(), k.double(), v.double(), matmul, matmul),
+        split=run(q, k, v, mm_split_compensated, mm_split),
+        single_pv=run(q, k, v, mm_split_compensated, mm_tf32),
+        single_s=run(q, k, v, mm_tf32, mm_split))
 
 
 def out_of_tolerance(got, want):
@@ -159,6 +206,30 @@ def test_single_tf32_product_misses_float32_tolerance(sim, which):
     the gradient elements outside the float32 tolerance."""
     got, want = sim["single"][which], sim["plain"][which]
     assert out_of_tolerance(got, want) > want.numel() // 10
+
+
+@pytest.mark.parametrize("which", ["out", "lse"])
+def test_split_tf32_forward_meets_float32_tolerance(sim_fwd, which):
+    got, want = sim_fwd["split"][which], sim_fwd["exact"][which]
+    tol = FWD_TOL[which]
+    assert int((~torch.isclose(got, want, **tol)).sum()) == 0
+    torch.testing.assert_close(got, want, **tol)
+    allowed = tol["atol"] + tol["rtol"] * want.abs()
+    assert float(((got - want).abs() / allowed).max()) < 0.5
+
+
+@pytest.mark.parametrize("variant,which", [("single_pv", "out"),
+                                           ("single_s", "lse")],
+                         ids=["pv-out", "s-lse"])
+def test_single_tf32_product_misses_forward_tolerance(sim_fwd, variant,
+                                                      which):
+    """Why the forward splits both products: one TF32 product on P V puts a
+    large share of the outputs outside the float32 tolerance, and one on S
+    most of the live lse rows outside theirs (the backward recomputes P
+    from lse)."""
+    got, want = sim_fwd[variant][which], sim_fwd["exact"][which]
+    bad = int((~torch.isclose(got, want, **FWD_TOL[which])).sum())
+    assert bad > want.numel() // 10
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
