@@ -7,12 +7,14 @@ Run from the root of a checkout. Phases, each of which fails the run:
 
 1. the card: its name and power limit;
 2. build: every CUDA source under src/repro_torch/kernels/csrc, one nvcc
-   each, all started together (into build/kernels/); the flash forward's
-   and backward's builds must show 0 spill bytes, and the HMMA
-   instructions in their SASS are counted (cuobjdump);
+   each, all started together (into build/kernels/); the flash forward's,
+   the backward's and the decode's builds must show 0 spill bytes, and
+   the HMMA instructions in their SASS are counted (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the rollout's shapes, including ragged cursors, stale NaN rows past the
-   cursor and every cache dtype; the flash-attention forward, dq and dk/dv
+   cursor and every cache dtype, the decode also with the prefill's
+   block-causal mask and required bitwise repeatable at every split
+   count; the flash-attention forward, dq and dk/dv
    at the train step's shape (32 scenes, the scenes' own times and segment
    ids, -1 rows included) and on a feature matrix (index causal, window,
    softcap, GQA, Dv != D, ragged lengths, widths off the tensor cores' k8
@@ -34,7 +36,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
 6. times: each kernel at its main-path shape beside its plain version, a
    PyTorch library call where one exists, and its bound on this card
    (CUDA events over back-to-back calls; CUPTI kernel time beside them);
-   the flash kernels' bound is at the tensor cores' rate for
+   the decode at the tick and, in its record's "prefill", at the prefill;
+   the tensor-core kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
    share of the pairs the forward's and backward's tiles compute that the
    mask admits.
@@ -86,6 +89,8 @@ FLASH_GRAD_TOL = {"float32": dict(atol=1e-5, rtol=1e-3),
 # 6 layers forward and back; an indexing or masking fault shows at O(1)
 TRAIN_GRAD_REL_TOL = 1e-3
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 32, 2, 20, 3e-3
+# the rollout: scene slots, and steps of history written by the prefill
+N_SLOTS, T_HIST = 64, 8
 FAMILIES = ("freeform",)
 
 REPLACES = {
@@ -233,9 +238,11 @@ def kernel_ms(fn, reps=20):
 # ---------------------------------------------------------------------------
 
 def decode_case(gen, dev, cache_dtype, *, layers, b, h, s, c, sq, cursors,
-                num_map, num_agents):
+                num_map, num_agents, prefill=False):
     """A stacked cache with scene-layout times, scribbled segment ids and
-    NaN rows past each cursor, plus appended query rows."""
+    NaN rows past each cursor, plus query rows: appended at the newest
+    time (a tick), or with ``prefill`` the cache's first ``sq`` tokens,
+    their own times and segment ids (block-causal, as the prefill)."""
     import torch
     from repro_torch.kernels.flash_decode import quantize_kv
     k = torch.randn((layers, b, h, s, c), generator=gen, device=dev)
@@ -251,6 +258,9 @@ def decode_case(gen, dev, cache_dtype, *, layers, b, h, s, c, sq, cursors,
                         -1, 0).to(torch.int32)
     q_seg = torch.where(torch.rand((b, sq), generator=gen, device=dev) < 0.1,
                         -1, 0).to(torch.int32)
+    if prefill:
+        q_times = k_times[:, :sq].contiguous()
+        q_seg = k_seg[:, :sq].contiguous()
     kvl = torch.as_tensor(cursors, dtype=torch.int32, device=dev)
     stale = pos[None, :] >= kvl[:, None].long()               # (b, s)
     k_seg = torch.where(stale, 0, k_seg).contiguous()         # scribbled
@@ -432,10 +442,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    # the tensor-core flash kernels keep their accumulators in registers
+    # the tensor-core kernels keep their accumulators in registers
     for source, kernels in (("flash_attention", ("fwd_kernel",)),
                             ("flash_attention_bwd",
-                             ("dq_kernel", "dkv_kernel"))):
+                             ("dq_kernel", "dkv_kernel")),
+                            ("flash_decode", ("decode_kernel",))):
         lib = cuda.library_path(source)
         text = build_logs[source] or lib.with_suffix(".log").read_text()
         if "spill stores" not in text:
@@ -455,7 +466,7 @@ def main() -> int:
     model = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
     enc = model.blocks[0].attn.enc
     c = enc.expanded_dim
-    t_hist, n_slots = 8, 64
+    t_hist, n_slots = T_HIST, N_SLOTS
     s_max = -(-(scen.num_map + scen.num_steps * scen.num_agents) // 128) * 128
     tick_rows, prefill_rows = scen.num_agents, \
         scen.num_map + t_hist * scen.num_agents
@@ -472,26 +483,34 @@ def main() -> int:
                               np.random.default_rng(0).integers(
                                   0, s_max + 1, n_slots - 5)])
     for cache_dtype in ("float32", "bfloat16", "int8"):
-        for sq in (tick_rows, prefill_rows):
+        for sq, prefill in ((tick_rows, False), (prefill_rows, False),
+                            (prefill_rows, True)):
             case = decode_case(gen, dev, cache_dtype, layers=cfg.num_layers,
                                b=n_slots, h=cfg.num_heads, s=s_max, c=c,
                                sq=sq, cursors=cursors,
                                num_map=scen.num_map,
-                               num_agents=scen.num_agents)
+                               num_agents=scen.num_agents, prefill=prefill)
             q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
             want = ops.decode_attention(q, k, v, impl="plain", layer=3,
                                         **case)
+            what = f"{cache_dtype:8s} Sq={sq:3d}{' prefill mask' * prefill}"
             for splits in (None, 1, 5):
                 got = ops.decode_attention(q, k, v, impl="flash_decode",
                                            layer=3, num_splits=splits,
                                            **case)
+                again = ops.decode_attention(q, k, v, impl="flash_decode",
+                                             layer=3, num_splits=splits,
+                                             **case)
                 torch.cuda.synchronize()
                 err = close_or_raise(
-                    f"flash_decode {cache_dtype} Sq={sq} splits={splits}",
-                    got, want, **DECODE_TOL[cache_dtype])
+                    f"flash_decode {what} splits={splits}", got, want,
+                    **DECODE_TOL[cache_dtype])
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_decode {what} splits="
+                                         f"{splits}: not bitwise repeatable")
                 max_err["flash_decode"] = max(max_err["flash_decode"], err)
-                log(f"flash_decode {cache_dtype:8s} Sq={sq:3d} "
-                    f"splits={splits}: max abs err {err:.3e}")
+                log(f"flash_decode {what} splits={splits}: max abs err "
+                    f"{err:.3e}, bitwise repeatable")
     for n in (tick_rows, prefill_rows):
         x, pose = se2_case(gen, dev, n_slots, cfg.num_heads, n,
                            cfg.head_dim, cfg.pos_scale)
@@ -709,34 +728,51 @@ def main() -> int:
     # 6. times at the main-path shapes ------------------------------------------
     phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
-    case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
-                       b=n_slots, h=cfg.num_heads, s=s_max, c=c,
-                       sq=tick_rows, cursors=[kvl] * n_slots,
-                       num_map=scen.num_map, num_agents=scen.num_agents)
-    q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
-    decode = lambda impl: ops.decode_attention(  # noqa: E731
-        q, k, v, impl=impl, layer=3, **case)
-    live = case["k_times"][:, None, :kvl] <= case["q_times"][:, :, None]
-    seg = ((case["q_segment_ids"][:, :, None]
-            == case["k_segment_ids"][:, None, :kvl])
-           & (case["k_segment_ids"][:, None, :kvl] >= 0))
-    mask = (live & seg)[:, None].contiguous()             # (B, 1, Sq, kvl)
-    kl, vl = k[3, :, :, :kvl], v[3, :, :, :kvl]
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
-        q, kl, vl, attn_mask=mask, scale=1.0 / math.sqrt(cfg.head_dim))
-    b_, h_, sq_ = n_slots, cfg.num_heads, tick_rows
-    dec_bytes = (b_ * h_ * kvl * 2 * c * 4 + b_ * h_ * sq_ * 2 * c * 4
-                 + b_ * kvl * 2 * 4 + b_ * sq_ * 2 * 4 + b_ * 4)
-    dec_flops = 2 * b_ * h_ * sq_ * kvl * 2 * c
+
+    def decode_timing(sq, cursor, prefill):
+        """flash_decode at the tick (sq new rows at the newest time against
+        ``cursor`` live rows) or the prefill (the first sq tokens against
+        themselves, block-causal), float32 cache; SDPA over the live prefix
+        with the same mask. FLOPs count the (q, k) pairs the mask admits,
+        bounded at the tensor cores' rate for float32-accurate products."""
+        case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
+                           b=n_slots, h=cfg.num_heads, s=s_max, c=c, sq=sq,
+                           cursors=[cursor] * n_slots, num_map=scen.num_map,
+                           num_agents=scen.num_agents, prefill=prefill)
+        q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
+        live = (case["k_times"][:, None, :cursor]
+                <= case["q_times"][:, :, None])
+        seg = ((case["q_segment_ids"][:, :, None]
+                == case["k_segment_ids"][:, None, :cursor])
+               & (case["k_segment_ids"][:, None, :cursor] >= 0))
+        mask = (live & seg)[:, None].contiguous()         # (B, 1, Sq, cursor)
+        kl, vl = k[3, :, :, :cursor], v[3, :, :, :cursor]
+        b_, h_ = n_slots, cfg.num_heads
+        return dict(
+            fn=lambda: ops.decode_attention(q, k, v, impl="flash_decode",
+                                            layer=3, **case),
+            plain=lambda: ops.decode_attention(q, k, v, impl="plain",
+                                               layer=3, **case),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kl, vl, attn_mask=mask,
+                scale=1.0 / math.sqrt(cfg.head_dim)),
+            bytes=(b_ * h_ * cursor * 2 * c * 4 + b_ * h_ * sq * 2 * c * 4
+                   + b_ * cursor * 2 * 4 + b_ * sq * 2 * 4 + b_ * 4),
+            flops=2 * int(mask.sum()) * h_ * 2 * c,
+            rate=SPLIT_TF32_FLOP_PER_S, kernel="flash_decode",
+            shape=f"{'prefill' if prefill else 'tick'}: {b_} slots x {h_} "
+                  f"heads x {sq} query rows, {cursor} live cache rows, "
+                  f"{int(mask.sum())} of {b_ * sq * cursor} (q, k) pairs "
+                  f"admitted a head")
     x, pose = se2_case(gen, dev, n_slots, cfg.num_heads, tick_rows,
                        cfg.head_dim, cfg.pos_scale)
     rows = n_slots * cfg.num_heads * tick_rows
     nb, nf = enc.num_blocks, enc.num_terms
     se2_bytes = rows * (cfg.head_dim + c) * 4 + n_slots * tick_rows * 3 * 4
     timings = {
-        "flash_decode": dict(
-            fn=lambda: decode("flash_decode"), plain=lambda: decode("plain"),
-            library=library, bytes=dec_bytes, flops=dec_flops),
+        "flash_decode": decode_timing(tick_rows, kvl, False),
+        "flash_decode_prefill": decode_timing(prefill_rows, prefill_rows,
+                                              True),
         "se2_project_q": dict(
             fn=lambda: se2_fourier_project(x, pose, enc, "q"),
             plain=lambda: se2_project_plain(x, pose, enc, "q"), library=None,
@@ -802,6 +838,7 @@ def main() -> int:
         return measured[timer, fn]
 
     for name, tm in timings.items():
+        kernel = tm.get("kernel", name)
         ms = time_ms(tm["fn"])
         plain_ms = once(time_ms, tm["plain"])
         library_ms = once(time_ms, tm["library"]) if tm["library"] else None
@@ -811,9 +848,9 @@ def main() -> int:
             device["library_ms"] = once(kernel_ms, tm["library"])
         byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
         flop_ms = tm["flops"] / tm.get("rate", F32_FLOP_PER_S) * 1e3
-        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": launches[name],
-               "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+        rec = {"name": name, "route": "cuda", "source": SOURCES[kernel],
+               "replaces": REPLACES[kernel], "launches": launches[kernel],
+               "max_abs_err": max_err[kernel], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(byte_ms, flop_ms),
                "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
                "library_ms": library_ms,
@@ -821,15 +858,20 @@ def main() -> int:
                "bound_f32_ms": max(byte_ms,
                                    tm["flops"] / F32_FLOP_PER_S * 1e3)}
         records.append(rec)
-        log(json.dumps({"kernel": name, "launches": launches[name],
+        log(json.dumps({"kernel": kernel, "shape": tm.get("shape"),
+                        "launches": launches[kernel],
                         "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms,
                         "bound_ms": rec["bound_ms"],
                         "bound_f32_ms": rec["bound_f32_ms"],
-                        "max_err": max_err[name],
+                        "max_err": max_err[kernel],
                         "device_time_ms": device}))
-    log(f"tick shape: {n_slots} slots x {cfg.num_heads} heads x {tick_rows} "
-        f"query rows, {kvl} live cache rows, c = {c}")
+    # the decode's prefill row rides in its record: one entry a kernel
+    prefill = records.pop([r["name"] for r in records].index(
+        "flash_decode_prefill"))
+    records[0]["prefill"] = {k_: prefill[k_] for k_ in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "bound_f32_ms")}
     log(f"train attention shape: {tb_} scenes x {th_} heads x {ts_} tokens, "
         f"c = {tc_}; {pairs // th_} of {tb_ * ts_ * ts_} (q, k) pairs "
         f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "

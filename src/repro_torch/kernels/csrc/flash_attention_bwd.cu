@@ -134,8 +134,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_shared(smem4, (int)(reinterpret_cast<float*>(s_own + 3 * kOwn) - smem) / 4);
   __syncthreads();
   const int nq = min(kOwn, Sq - q0);
-  load_tile<T>(q + (bh * Sq + q0) * D, nq, D, nullptr, s_q, qs);
-  load_tile<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, nullptr, s_do, vs);
+  load_tile<T>(q + (bh * Sq + q0) * D, nq, D, s_q, qs);
+  load_tile<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, s_do, vs);
   load_owned_meta(s_own, q0, Sq, q_times, q_seg, (size_t)b * Sq);
 
   // this thread's accumulator rows: g and g + 8 of the warp's block
@@ -317,8 +317,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_shared(smem4, (int)(reinterpret_cast<float*>(s_own + 3 * kOwn) - smem) / 4);
   __syncthreads();
   const int nk = min(kOwn, Sk - k0);
-  load_tile<T>(k + (head * Sk + k0) * D, nk, D, nullptr, s_k, ks);
-  load_tile<T>(v + (head * Sk + k0) * Dv, nk, Dv, nullptr, s_v, vs);
+  load_tile<T>(k + (head * Sk + k0) * D, nk, D, s_k, ks);
+  load_tile<T>(v + (head * Sk + k0) * Dv, nk, Dv, s_v, vs);
   load_owned_meta(s_own, k0, Sk, k_times, k_seg, (size_t)b * Sk);
 
   // this thread's accumulator rows: keys g and g + 8 of the warp's block

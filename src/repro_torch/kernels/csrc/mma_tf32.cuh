@@ -199,7 +199,7 @@ __device__ void load_rows(const T* __restrict__ src, int nrows, int width,
       }
     }
   } else {
-    load_tile<T>(src, nrows, width, nullptr, dst, stride);
+    load_tile<T>(src, nrows, width, dst, stride);
   }
 }
 

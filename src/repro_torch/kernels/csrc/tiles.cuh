@@ -5,8 +5,8 @@
 // contiguous run of device memory, whatever the width (200 at the sim arch,
 // not a power of two). load_tile copies such a run into shared memory as
 // 16-byte chunks, several in flight per thread, converting each element to
-// float32 (bf16 -> f32, or int8 * per-row scale) and writing it at its row
-// and column under a shared-memory row stride of the caller's choice.
+// float32 (bf16 -> f32) and writing it at its row and column under a
+// shared-memory row stride of the caller's choice.
 #pragma once
 
 #include <cstdint>
@@ -29,23 +29,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // Unpack one loaded chunk V of elements T starting at element e0 of a
-// (rows, width) tile into shared memory, scaling with per-row scales.
+// (rows, width) tile into shared memory.
 template <typename T, typename V>
 __device__ __forceinline__ void store_chunk(const V& raw, int e0, int width,
-                                            const float* __restrict__ scale,
                                             float* dst, int stride) {
   constexpr int E = sizeof(V) / sizeof(T);
   T vals[E];
   memcpy(vals, &raw, sizeof(V));
   int row = e0 / width, col = e0 - row * width;
-  float s = scale ? scale[row] : 1.f;
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    dst[row * stride + col] = to_f(vals[i]) * s;
+    dst[row * stride + col] = to_f(vals[i]);
     if (++col == width && i + 1 < E) {
       col = 0;
       ++row;
-      s = scale ? scale[row] : 1.f;
     }
   }
 }
@@ -56,8 +53,7 @@ __device__ __forceinline__ void store_chunk(const V& raw, int e0, int width,
 constexpr int kUnroll = 4;
 template <typename T, typename V>
 __device__ void load_chunks(const T* __restrict__ src, int n, int width,
-                            const float* __restrict__ scale, float* dst,
-                            int stride) {
+                            float* dst, int stride) {
   constexpr int E = sizeof(V) / sizeof(T);
   const int nchunks = n / E;
   const V* src_v = reinterpret_cast<const V*>(src);
@@ -71,12 +67,12 @@ __device__ void load_chunks(const T* __restrict__ src, int n, int width,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int c = base + u * blockDim.x;
-      if (c < nchunks) store_chunk<T, V>(buf[u], c * E, width, scale, dst, stride);
+      if (c < nchunks) store_chunk<T, V>(buf[u], c * E, width, dst, stride);
     }
   }
   for (int e = nchunks * E + threadIdx.x; e < n; e += blockDim.x) {
     const int row = e / width;
-    dst[row * stride + e - row * width] = to_f(src[e]) * (scale ? scale[row] : 1.f);
+    dst[row * stride + e - row * width] = to_f(src[e]);
   }
 }
 
@@ -85,30 +81,11 @@ __device__ void load_chunks(const T* __restrict__ src, int n, int width,
 // (widths are multiples of 4 elements, checked by the wrappers).
 template <typename T>
 __device__ void load_tile(const T* __restrict__ src, int nrows, int width,
-                          const float* __restrict__ scale, float* dst, int stride) {
+                          float* dst, int stride) {
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0)
-    load_chunks<T, uint4>(src, nrows * width, width, scale, dst, stride);
+    load_chunks<T, uint4>(src, nrows * width, width, dst, stride);
   else
-    load_chunks<T, uint32_t>(src, nrows * width, width, scale, dst, stride);
-}
-
-// Row stride (floats) of a shared tile whose rows are read one per lane as
-// float4: the width rounded so that the reads of 8 consecutive lanes hit
-// distinct bank groups, i.e. an odd number of 16-byte units. Widths are
-// multiples of 4 (checked by the wrappers).
-__host__ __device__ __forceinline__ int lane_stride(int width) {
-  return 4 * ((width / 4) | 1);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    load_chunks<T, uint32_t>(src, nrows * width, width, dst, stride);
 }
 
 // The attention mask of the flash kernels for query i and key j: causal

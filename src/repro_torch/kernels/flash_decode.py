@@ -77,7 +77,8 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     ``layer=i`` the stacked (L, B, Hkv, S, .) buffers read at layer i;
     ``kv_length`` (B,). The loop runs ``ceil(max(kv_length) / block_k)``
     blocks; the last one clamps its start to ``S - block_k`` and masks the
-    rows an earlier block already folded.
+    rows an earlier block already folded. Computes in float32, or in
+    float64 for float64 queries (an exact yardstick for the kernel).
     """
     b, hq, sq, d = q.shape
     if layer is not None:
@@ -92,16 +93,17 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     kvl = torch.as_tensor(kv_length, device=q.device).reshape(-1)
     kvl = kvl.expand(b).to(torch.int64)
     n_live = (min(int(kvl.max()), sk) + block_k - 1) // block_k
-    qf = q.to(torch.float32)
-    m = torch.full((b, hq, sq), _NEG_INF, device=q.device)
-    l = torch.zeros((b, hq, sq), device=q.device)
-    acc = torch.zeros((b, hq, sq, dv), device=q.device)
+    work = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(work)
+    m = torch.full((b, hq, sq), _NEG_INF, dtype=work, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=work, device=q.device)
+    acc = torch.zeros((b, hq, sq, dv), dtype=work, device=q.device)
     for i in range(n_live):
         start_u = i * block_k
         start = min(start_u, sk - block_k)
         sl = slice(start, start + block_k)
-        kc = k[:, :, sl].to(torch.float32)
-        vc = v[:, :, sl].to(torch.float32)
+        kc = k[:, :, sl].to(work)
+        vc = v[:, :, sl].to(work)
         if k_scale is not None:
             kc = kc * k_scale[:, :, sl][..., None]
         if v_scale is not None:
@@ -138,7 +140,7 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
 # ---------------------------------------------------------------------------
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_TILE_Q, _TILE_K, _MAX_DV = 16, 32, 256
+_MAX_WIDTH = 256
 
 
 def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
@@ -149,7 +151,9 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Shapes as :func:`decode_plain`; returns
     (B, Hq, Sq, Dv) float32. ``num_splits`` (CUDA only) splits each row's
-    key range over that many CTAs; None picks enough to fill the card."""
+    key range over that many CTAs, whose partials a second kernel joins;
+    the kernel holds it to its count of key tiles, and None picks enough
+    to give every SM a CTA."""
     if q.device.type == "cpu":
         return decode_plain(q, k, v, kv_length, k_scale=k_scale,
                             v_scale=v_scale, q_segment_ids=q_segment_ids,
@@ -197,8 +201,8 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
         if t.shape[-1] % 4 or t.data_ptr() % 4:
             raise ValueError(f"{name} row width must be a multiple of 4 "
                              f"and its data 4-byte aligned")
-    if dv > _MAX_DV:
-        raise ValueError(f"value width {dv} > {_MAX_DV}")
+    if max(d, dv) > _MAX_WIDTH:
+        raise ValueError(f"widths {d} / {dv}: at most {_MAX_WIDTH}")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or quant != (v_scale is not None):
         raise ValueError("int8 caches need k_scale and v_scale; other "
@@ -221,12 +225,10 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
         _check_int("k_segment_ids", k_seg, (b, sk), dev)
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
-    tiles = -(-sk // _TILE_K)
     if num_splits is None:
-        base = b * hq * -(-sq // _TILE_Q)
-        num_splits = -(-4 * _sm_count(dev) // max(base, 1))
-    num_splits = max(1, min(int(num_splits), tiles))
-
+        num_splits = _num_splits()(b, hq, hkv, sq, sk, d, dv, 0,
+                                   _sm_count(dev))
+    num_splits = max(1, int(num_splits))
     o_part = torch.empty((b, hq, num_splits, sq, dv), device=dev)
     m_part = torch.empty((b, hq, num_splits, sq), device=dev)
     l_part = torch.empty((b, hq, num_splits, sq), device=dev)
@@ -245,6 +247,15 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _num_splits():
+    """The kernel's own split count for a launch's shapes."""
+    fn = cuda.load("flash_decode").flash_decode_num_splits
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

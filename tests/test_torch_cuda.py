@@ -60,6 +60,115 @@ def test_flash_decode_kernel_matches_plain(dev, cache_dtype):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
 
 
+# chip_smoke.py DECODE_TOL: the decode kernel against its plain version
+DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
+              "bfloat16": dict(atol=8e-3, rtol=8e-3),
+              "int8": dict(atol=2e-4, rtol=2e-3)}
+# name: (b, hq, hkv, sq, s, cursors); c = 200, two layers, read at layer 1
+DECODE_CASES = {
+    # the prefill's 144 rows (64-row CTAs) against ragged cursors
+    "prefill_ragged": (7, 2, 2, 144, 192, [0, 1, 31, 32, 33, 144, 192]),
+    # GQA: 14 rows a kv head (one m16 block), then 24 (a 64-row CTA)
+    "gqa_one_block": (3, 4, 2, 7, 96, [0, 33, 96]),
+    "gqa_two_blocks": (3, 4, 2, 12, 160, [5, 100, 160]),
+}
+# widths off c = 200, (D, Dv): off the k8 step and unequal (widths read at
+# run time, padding columns zeroed), and past 200 (16-key tiles)
+ODD_WIDTHS = {"d20_dv36": (20, 36), "d232": (232, 232)}
+# the tick's rows (one m16 block a kv head) and the prefill's
+ROW_CASES = {"tick": (3, 2, 2, 12, 160, [5, 100, 160]),
+             "prefill": (3, 2, 2, 144, 192, [0, 33, 192])}
+
+
+def _decode_case(dev, shape, cache_dtype, nan_unreached=False,
+                 widths=(200, 200)):
+    """``shape`` (b, hq, hkv, sq, s, cursors) at ``widths`` (D, Dv).
+    Scene-layout times (48 map rows at 0, then 12 a step), query rows at
+    the cache's first positions (prefill) or the newest time, 10% of the
+    keys and queries in segment -1; rows past each cursor hold NaN (int8:
+    NaN scales). With ``nan_unreached``, the V row (int8: both scales) of
+    a key within the cursor that no query reaches is NaN too."""
+    b, hq, hkv, sq, s, cursors = shape
+    d, dv = widths
+    g = torch.Generator(device=dev).manual_seed(3)
+    k = torch.randn((2, b, hkv, s, d), generator=g, device=dev)
+    v = torch.randn((2, b, hkv, s, dv), generator=g, device=dev)
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev)
+    kvl = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    pos = torch.arange(s, device=dev)
+    k_times = torch.where(pos < 48, 0, 1 + (pos - 48) // 12).int()
+    k_times = k_times[None].expand(b, s).contiguous()
+    k_seg = torch.where(torch.rand((b, s), generator=g, device=dev) < 0.1,
+                        -1, 0).int()
+    if sq == 144:
+        q_times, q_seg = k_times[:, :sq].contiguous(), k_seg[:, :sq].clone()
+    else:
+        q_times = torch.full((b, sq), int(k_times.max()) + 1,
+                             dtype=torch.int32, device=dev)
+        q_seg = torch.where(torch.rand((b, sq), generator=g, device=dev)
+                            < 0.1, -1, 0).int()
+    dead = pos[None, :] >= kvl[:, None].long()                 # (b, s)
+    if nan_unreached:
+        unreached = torch.zeros_like(dead)
+        unreached[:, 3] = True
+        k_seg[:, 3] = -1
+        dead = dead | unreached
+    nan = torch.tensor(float("nan"), device=dev)
+    scales = {}
+    if cache_dtype == "int8":
+        (k, ks), (v, vs) = fd.quantize_kv(k), fd.quantize_kv(v)
+        scales = {n: torch.where(dead[None, :, None], nan, x).contiguous()
+                  for n, x in (("k_scale", ks), ("v_scale", vs))}
+    else:
+        dt = getattr(torch, cache_dtype)
+        past = pos[None, :] >= kvl[:, None].long()
+        k = torch.where(past[None, :, None, :, None], nan, k).to(dt)
+        v = torch.where(dead[None, :, None, :, None], nan, v).to(dt)
+    return q, k.contiguous(), v.contiguous(), kvl, dict(
+        q_times=q_times, k_times=k_times, q_segment_ids=q_seg.contiguous(),
+        k_segment_ids=k_seg.contiguous(), **scales)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 5, 64])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES) + ["nan_unreached"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_cases_match_plain(dev, cache_dtype, name, splits):
+    """Each case through the kernel, one split to more than the cache has
+    tiles; a row whose cursor is 0 gives exact zeros, and the output is
+    bitwise repeatable."""
+    nan_unreached = name == "nan_unreached"
+    q, k, v, kvl, opts = _decode_case(
+        dev, DECODE_CASES["gqa_two_blocks" if nan_unreached else name],
+        cache_dtype, nan_unreached)
+    _check_decode(q, k, v, kvl, opts, cache_dtype, splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("rows", sorted(ROW_CASES))
+@pytest.mark.parametrize("widths", sorted(ODD_WIDTHS))
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_odd_widths_match_plain(dev, cache_dtype, widths, rows,
+                                             splits):
+    """The CTA shapes and strides of widths other than c = 200, with the
+    tick's and the prefill's rows, as the cases above."""
+    q, k, v, kvl, opts = _decode_case(dev, ROW_CASES[rows], cache_dtype,
+                                      widths=ODD_WIDTHS[widths])
+    _check_decode(q, k, v, kvl, opts, cache_dtype, splits)
+
+
+def _check_decode(q, k, v, kvl, opts, cache_dtype, splits):
+    got = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
+    again = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
+    want = fd.decode_plain(q, k, v, kvl, layer=1, **opts)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, **DECODE_TOL[cache_dtype])
+    assert torch.equal(got, again)
+    assert not bool(got[kvl == 0].any())
+
+
 @pytest.mark.gpu
 def test_refused_launch_raises(dev):
     """A launch the card refuses (here: more shared memory than an SM has)

@@ -23,6 +23,13 @@ hold out and the live lse rows, emulated so, to a float64 evaluation at
 the forward's float32 tolerance and the lse tolerance the checks on the
 card use, and show that one TF32 product on P V misses the first and one
 on S the second.
+
+``csrc/flash_decode.cu`` takes the decode's S = Q K^T (compensated) and
+O = P V the same way, with a bf16 or int8 cache operand read exactly (no
+small part) and int8's per-row scales applied to S by column and to P by
+row. Its tests emulate it at the rollout's tick and prefill shapes and
+hold it to ``decode_plain`` of float64 inputs at ``chip_smoke.py``'s
+DECODE_TOL, and show that one TF32 product on S misses the float32 one.
 """
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
 
 # the float32 gradient tolerance of the flash kernels (tests/test_kernels.py
 # :162-163, chip_smoke.py FLASH_GRAD_TOL["float32"])
@@ -39,6 +47,10 @@ GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
 # chip_smoke.py FLASH_TOL["float32"]) and that of its live lse rows
 # (chip_smoke.check_flash)
 FWD_TOL = {"out": dict(atol=2e-5, rtol=2e-4), "lse": dict(atol=1e-5, rtol=1e-5)}
+# the decode kernel's tolerances against its plain version (chip_smoke.py
+# DECODE_TOL, tests/test_decode.py:175-177)
+DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
+              "int8": dict(atol=2e-4, rtol=2e-3)}
 
 
 def tf32(x):
@@ -264,3 +276,121 @@ def test_bf16_inputs_have_no_small_part():
     assert not bool(small.any())
     p = torch.exp(x @ x.T / 200.0 - 5.0)
     assert bool(split(p)[1].any())
+
+
+# -- the decode kernel -------------------------------------------------------
+
+def decode_case(shape, seed=0):
+    """The rollout's decode at c = 200 over 2 slots x 8 heads, as
+    chip_smoke.py times it: the tick, 12 new agent rows (the newest time)
+    against 312 live cache rows; the prefill, the scene's first 144 tokens
+    (48 map at time 0, 8 steps of 12 agents) against themselves. Scene
+    times, 10% of the keys (and of the tick's queries) in segment -1."""
+    rng = np.random.default_rng(seed)
+    b, h, c = 2, 8, 200
+    sq, kvl = {"tick": (12, 312), "prefill": (144, 144)}[shape]
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, c)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, kvl, c))
+                             .astype(np.float32)) for _ in range(2))
+    pos = np.arange(kvl)
+    k_times = np.where(pos < 48, 0, 1 + (pos - 48) // 12)
+    k_times = torch.from_numpy(np.tile(k_times, (b, 1)).astype(np.int32))
+    k_seg = torch.from_numpy(np.where(rng.random((b, kvl)) < 0.1, -1, 0)
+                             .astype(np.int32))
+    if shape == "tick":
+        q_times = torch.full((b, sq), int(k_times.max()) + 1,
+                             dtype=torch.int32)
+        q_seg = torch.from_numpy(np.where(rng.random((b, sq)) < 0.1, -1, 0)
+                                 .astype(np.int32))
+    else:
+        q_times, q_seg = k_times[:, -sq:], k_seg[:, -sq:]
+    opts = dict(q_times=q_times, k_times=k_times, q_segment_ids=q_seg,
+                k_segment_ids=k_seg, scale=1.0 / np.sqrt(24.0))
+    mask = ((k_times[:, None, :] <= q_times[:, :, None])
+            & (q_seg[:, :, None] == k_seg[:, None, :])
+            & (k_seg[:, None, :] >= 0))[:, None]
+    return q, k, v, torch.full((b,), kvl, dtype=torch.int32), mask, opts
+
+
+def decode_kernel(q, k, v, mask, scale, mm_scores, mm, k_scale=None,
+                  v_scale=None):
+    """The decode kernel's arithmetic over all live keys at once: S from
+    mm_scores times int8's k_scale by column, P times v_scale by row before
+    P V (masked pairs give P = 0); a row with no live key gives 0."""
+    s = mm_scores(q, k.transpose(-1, -2))
+    if k_scale is not None:
+        s = s * k_scale[..., None, :]
+    s = torch.where(mask, s * scale, torch.full((), -1e30))
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros(()))
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    if v_scale is not None:
+        p = p * v_scale[..., None, :]
+    return mm(p, v) / l[..., None]
+
+
+@pytest.fixture(scope="module", params=["tick", "prefill"])
+def dec(request):
+    """The decode at one shape: exact (decode_plain of float64 inputs) and
+    as the kernel computes it with a float32 cache, with one TF32 product
+    on S or on P V in place of a split one, and with an int8 cache."""
+    q, k, v, kvl, mask, opts = decode_case(request.param)
+    scale = opts["scale"]
+    exact = fd.decode_plain(q.double(), k.double(), v.double(), kvl,
+                            **opts).float()
+    (k8, ks), (v8, vs) = fd.quantize_kv(k), fd.quantize_kv(v)
+    exact8 = fd.decode_plain(q.double(), k8, v8, kvl, k_scale=ks.double(),
+                             v_scale=vs.double(), **opts).float()
+    run = lambda mm_s, mm, *a: decode_kernel(q, k, v, mask, scale, mm_s, mm)  # noqa
+    return dict(
+        exact=exact, split=run(mm_split_compensated, mm_split),
+        single_s=run(mm_tf32, mm_split),
+        single_pv=run(mm_split_compensated, mm_tf32), exact8=exact8,
+        int8=decode_kernel(q, k8.float(), v8.float(), mask, scale,
+                           mm_split_compensated, mm_split, ks, vs))
+
+
+def test_split_tf32_decode_meets_float32_tolerance(dec):
+    got, want = dec["split"], dec["exact"]
+    tol = DECODE_TOL["float32"]
+    assert int((~torch.isclose(got, want, **tol)).sum()) == 0
+    torch.testing.assert_close(got, want, **tol)
+    allowed = tol["atol"] + tol["rtol"] * want.abs()
+    assert float(((got - want).abs() / allowed).max()) < 0.5
+
+
+def test_split_tf32_decode_int8_meets_its_tolerance(dec):
+    """The int8 cache as the kernel reads it: integers exact in TF32, the
+    scales applied outside the products, held to the same cache's float64
+    decode at the int8 tolerance, and in fact at the float32 one."""
+    got, want = dec["int8"], dec["exact8"]
+    torch.testing.assert_close(got, want, **DECODE_TOL["int8"])
+    torch.testing.assert_close(got, want, **DECODE_TOL["float32"])
+
+
+@pytest.mark.parametrize("variant", ["single_s", "single_pv"])
+def test_single_tf32_product_misses_decode_tolerance(dec, variant):
+    """Why the decode splits: one TF32 product on S (|s| ~ 14 before the
+    scale) or on P V puts a large share of the outputs outside the float32
+    tolerance."""
+    got, want = dec[variant], dec["exact"]
+    bad = int((~torch.isclose(got, want, **DECODE_TOL["float32"])).sum())
+    assert bad > want.numel() // 10
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+def test_decode_cache_operands_have_no_small_part(cache_dtype):
+    """A bf16 value or an int8 integer is exact in TF32, so the kernel
+    reads the cache operand as one TF32 part; int8's dequantized values
+    (integer x scale) are not, which is why the scales stay outside."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((64, 200)).astype(np.float32))
+    if cache_dtype == "bfloat16":
+        vals = x.to(torch.bfloat16).float()
+    else:
+        x8, scale = fd.quantize_kv(x)
+        vals = x8.float()
+        assert bool(split(x8.float() * scale[:, None])[1].any())
+    big, small = split(vals)
+    assert torch.equal(big, vals)
+    assert not bool(small.any())
