@@ -1,13 +1,16 @@
-"""Time versions of one of the port's attention CUDA sources in one
-process on one card.
+"""Time versions of one of the port's CUDA sources in one process on one
+card.
 
-    python3 benchmarks/torch_flash_ab.py --kernel fwd|bwd|decode A.cu B.cu [C.cu ...] [--rounds 3]
+    python3 benchmarks/torch_flash_ab.py --kernel fwd|bwd|decode|se2 A.cu B.cu [C.cu ...] [--rounds 3]
         [--splits auto|old|N ...]
 
 With ``--kernel fwd`` each source is a version of ``src/repro_torch/kernels/
 csrc/flash_attention.cu`` (the forward); with ``--kernel bwd`` (the
 default), of ``flash_attention_bwd.cu`` (dq and dk/dv); with ``--kernel
-decode``, of ``flash_decode.cu``. All are built as the port builds that
+decode``, of ``flash_decode.cu``; with ``--kernel se2``, of
+``se2_project.cu`` (its forward modes, through ``se2_project_launch``, whose
+C signature every version keeps; the transposed modes too where every
+source has ``se2_project_t_launch``). All are built as the port builds that
 file (the same nvcc flags, ``csrc/`` on the include path, all builds
 started together) into ``build/ab/`` and run through the port's own
 wrappers: fwd and bwd at the train step's attention shape
@@ -15,7 +18,9 @@ wrappers: fwd and bwd at the train step's attention shape
 c = 200, float32); decode at the rollout's tick (64 slots x 8 heads x 12
 query rows, cursor 312) and prefill (144 query rows, cursor 144,
 block-causal), each with a float32 and an int8 cache, as
-``chip_smoke.py`` phase 6 times the tick. ``--splits`` gives each decode
+``chip_smoke.py`` phase 6 times the tick; se2 in modes "q" and "k" at the
+tick (64 slots x 8 heads x 12 tokens) and at the train step (32 scenes x 8
+heads x 336 tokens), float32. ``--splits`` gives each decode
 source its ``num_splits``: ``auto`` (the kernel's own choice, from the
 source's ``flash_decode_num_splits``, which the CUDA-core decode before
 the tensor-core redesign does not have), ``old`` (the choice of that
@@ -28,7 +33,8 @@ reverse (A, B, B, A for two): CUPTI kernel time per call
 whether they agree within the checks' tolerances (the forward's out within
 ``chip_smoke.FLASH_TOL`` and its live lse rows within 1e-5, the backward's
 gradients within ``chip_smoke.FLASH_GRAD_TOL``, the decode's output within
-``chip_smoke.DECODE_TOL`` of its cache type), whether they are bitwise
+``chip_smoke.DECODE_TOL`` of its cache type, se2 within
+``chip_smoke.SE2_TOL``), whether they are bitwise
 equal, and the largest difference. Prints the card and each build's
 registers and spills, then one JSON line with every round's times; exits
 with 1 when a version's outputs disagree with A's, after timing it all
@@ -49,7 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # the library each --kernel routes, and its wrapper module's name
 SOURCE = {"fwd": "flash_attention", "bwd": "flash_attention_bwd",
-          "decode": "flash_decode"}
+          "decode": "flash_decode", "se2": "se2_project"}
 
 
 def build(sources, out_dir):
@@ -129,6 +135,28 @@ def decode_kernels(cs, torch, dev, cfg, scen, c, gen, splits):
     return kernels
 
 
+def se2_kernels(cs, cfg, scen, enc, dev, gen, transposed):
+    """name -> fn for the se2 forward modes (and with ``transposed`` the
+    transposed ones) at the tick and the train step's shapes; each returns
+    (out,)."""
+    names = ["se2_project_q", "se2_project_k"]
+    if transposed:
+        names += ["se2_project_q_t", "se2_project_k_t"]
+    kernels = {}
+    for shape, b, n in (("tick", cs.N_SLOTS, scen.num_agents),
+                        ("train", cs.TRAIN_BATCH,
+                         scen.num_map + scen.num_steps * scen.num_agents)):
+        for name in names:
+            fn, _, mode, t = cs.se2_mode(name)
+            x, pose = cs.se2_case(gen, dev, b, cfg.num_heads, n,
+                                  enc.expanded_dim if t else cfg.head_dim,
+                                  cfg.pos_scale)
+            kernels[f"{shape} {name[12:]}"] = (
+                lambda fn=fn, x=x, pose=pose, mode=mode:
+                (fn(x, pose, enc, mode),))
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sources", nargs="+", metavar="SOURCE")
@@ -162,6 +190,9 @@ def main() -> int:
                                  model.blocks[0].attn.enc.expanded_dim, gen,
                                  splits)
         shape = "64 slots x 8 heads, c = 200: tick and prefill"
+    elif args.kernel == "se2":
+        kernels = None     # once the builds show which modes every one has
+        shape = "8 heads x 24 <-> 200: tick 64 x 12 tokens, train 32 x 336"
     else:
         q, k, v, do, opts = cs.scene_attention_case(
             gen, dev, model, arch.scenario_config(), cs.TRAIN_BATCH,
@@ -180,6 +211,11 @@ def main() -> int:
                 q, k, v, do, lse, delta, **opts),
         }
     libs = dict(zip(names, build(args.sources, ROOT / "build" / "ab")))
+    if args.kernel == "se2":      # the first design has no transposed modes
+        kernels = se2_kernels(
+            cs, cfg, arch.scenario_config(), model.blocks[0].attn.enc, dev,
+            gen, all(hasattr(ctypes.CDLL(str(p)), "se2_project_t_launch")
+                     for p in libs.values()))
 
     def bound(fn, which):
         return (lambda: fn(which)) if args.kernel == "decode" else fn
@@ -199,6 +235,8 @@ def main() -> int:
                 a, b, tol = a[live], b[live], dict(atol=1e-5, rtol=1e-5)
             elif args.kernel == "decode":
                 tol = cs.DECODE_TOL[list(kernels)[i].split()[-1]]
+            elif args.kernel == "se2":
+                tol = cs.SE2_TOL
             else:
                 tol = (cs.FLASH_TOL if args.kernel == "fwd"
                        else cs.FLASH_GRAD_TOL)["float32"]

@@ -20,23 +20,35 @@ Run from the root of a checkout. Phases, each of which fails the run:
    softcap, GQA, Dv != D, ragged lengths, widths off the tensor cores' k8
    step, bf16), float32 gradients against the plain backward in float64,
    the forward (at the train shape and at odd widths, float32 and bf16)
-   and the backward run twice and required bitwise equal;
+   and the backward run twice and required bitwise equal; the four se2
+   modes (forward "q" and "k", transposed "q_t" and "k_t") at the tick,
+   prefill and train shapes and at odd nb (head_dim 18, ragged tiles),
+   float32 and bf16, each run twice and required bitwise equal, and the
+   gradients of both directions through the kernels against those through
+   the plain versions;
 4. rollout: sim-se2-fourier at full width (seeded random weights) rolls
    out 64 freeform scenes through RolloutEngine with float32 and int8
    caches; launch counts, output shape and finiteness are checked, the
    cached decode is held to the O(S^2) reference forward on two scenes,
-   and so are the flash kernels' forward logits;
+   and so are the flash kernels' forward logits; the profile counts device
+   launches, host-to-device copies and stream synchronizations a tick, and
+   a rollout must call no function of core/encodings.py or core/fourier.py
+   that runs a tensor op (every SE(2) transform goes through the kernels);
 5. training: the behaviour-cloning train step at full width, 32 freeform
    scenes a batch through ShardedIterator, 2 warm-up and 20 timed steps
    with global-norm clip and AdamW on warmup-cosine; the loss must be
-   finite and fall, each flash kernel must launch 6 times a step, the
-   gradients of one batch through the kernels are held to those through
-   the plain versions, open-loop metrics on 2 holdout batches must be
-   finite; steps/s, peak memory and the device profile are printed;
+   finite and fall, each flash kernel must launch 6 times a step and each
+   se2 mode 12 times, the gradients of one batch through the kernels are
+   held to those through the plain versions, open-loop metrics on 2
+   holdout batches must be finite; steps/s, peak memory and the device
+   profile are printed (with the same counts a step), and a step must call
+   no plain SE(2) op;
 6. times: each kernel at its main-path shape beside its plain version, a
    PyTorch library call where one exists, and its bound on this card
    (CUDA events over back-to-back calls; CUPTI kernel time beside them);
    the decode at the tick and, in its record's "prefill", at the prefill;
+   each se2 mode at the tick and, in its record's "train", at the train
+   step's 32 x 8 x 336 rows;
    the tensor-core kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
    share of the pairs the forward's and backward's tiles compute that the
@@ -76,6 +88,17 @@ DECODE_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
               "bfloat16": dict(atol=8e-3, rtol=8e-3),
               "int8": dict(atol=2e-4, rtol=2e-3)}
 SE2_TOL = dict(atol=1e-5, rtol=1e-4)
+# bf16 outputs round to bf16 on both sides (tests/test_torch_cuda.py)
+SE2_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+SE2_MODES = ("se2_project_q", "se2_project_k", "se2_project_q_t",
+             "se2_project_k_t")
+# functions of core/encodings.py and core/fourier.py that read the encoding's
+# configuration and run no tensor op; any other call there is a plain SE(2) op
+SE2_CONFIG_FUNCTIONS = {"expanded_dim", "expanded_v_dim", "num_blocks",
+                        "block_terms", "transforms_values", "scales",
+                        "_log_spaced", "basis_frequencies",
+                        "_quadrature_constants",
+                        "<genexpr>"}   # expanded_dim's sum over the blocks
 MODEL_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
              "int8": dict(atol=8e-2, rtol=8e-2)}
 # flash kernels vs plain versions: tests/test_kernels.py:25-27 (forward)
@@ -93,10 +116,15 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 32, 2, 20, 3e-3
 N_SLOTS, T_HIST = 64, 8
 FAMILIES = ("freeform",)
 
+# the transposed se2 modes have no TPU kernel: they compute what the JAX
+# package computes with untransform_out (also transform_q's VJP) and with
+# JAX autodiff of _expand_k
 REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:115",
     "se2_project_q": "src/repro/kernels/se2_project.py:76",
     "se2_project_k": "src/repro/kernels/se2_project.py:42",
+    "se2_project_q_t": "src/repro/core/encodings.py:443",
+    "se2_project_k_t": "src/repro/core/encodings.py:413",
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:44",
     "flash_attention_dq": "src/repro/kernels/flash_attention_bwd.py:132",
     "flash_attention_dkv": "src/repro/kernels/flash_attention_bwd.py:181",
@@ -105,6 +133,8 @@ SOURCES = {
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "se2_project_q": "src/repro_torch/kernels/csrc/se2_project.cu",
     "se2_project_k": "src/repro_torch/kernels/csrc/se2_project.cu",
+    "se2_project_q_t": "src/repro_torch/kernels/csrc/se2_project.cu",
+    "se2_project_k_t": "src/repro_torch/kernels/csrc/se2_project.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_dq": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_dkv":
@@ -281,13 +311,61 @@ def decode_case(gen, dev, cache_dtype, *, layers, b, h, s, c, sq, cursors,
                 k_times=k_times, q_segment_ids=q_seg, k_segment_ids=k_seg)
 
 
-def se2_case(gen, dev, b, h, n, d, pos_scale):
+def se2_case(gen, dev, b, h, n, width, pos_scale):
+    """x (b, h, n, width) and encoder-scaled poses (b, n, 3) of a scene
+    60 m across."""
     import torch
-    x = torch.randn((b, h, n, d), generator=gen, device=dev)
+    x = torch.randn((b, h, n, width), generator=gen, device=dev)
     xy = (torch.rand((b, n, 2), generator=gen, device=dev) * 2 - 1) * 60.0
     th = (torch.rand((b, n, 1), generator=gen, device=dev) * 2 - 1) * math.pi
     pose = torch.cat([xy * pos_scale, th], -1).contiguous()
     return x, pose
+
+
+def se2_mode(name):
+    """(kernel, plain version, mode, transposed) of an se2 record name."""
+    from repro_torch.kernels import se2_project as sp
+    mode = name.split("_")[2]
+    if name.endswith("_t"):
+        return sp.se2_fourier_project_t, sp.se2_project_t_plain, mode, True
+    return sp.se2_fourier_project, sp.se2_project_plain, mode, False
+
+
+def se2_flops(name, tokens, rows, nb, nf):
+    """FLOPs an se2 mode needs (sin/cos not counted): the pose's
+    coefficients once a token ("k": the 2F nodes' arguments and the 4F x 2F
+    projection sums, a block; "q": the basis' arguments and v_x, v_y), and
+    each row's expansion or contraction."""
+    per_token = (nb * (8 * nf + 16 * nf * nf) if "_k" in name
+                 else nf + 8 * nb)
+    per_row = {"se2_project_k": 12 * nf + 6, "se2_project_q": 4 * nf + 18,
+               "se2_project_k_t": 16 * nf + 6,
+               "se2_project_q_t": 8 * nf + 18}[name]
+    return tokens * per_token + rows * nb * per_row
+
+
+def plain_se2_calls(fn):
+    """Calls, on every thread, into functions of core/encodings.py and
+    core/fourier.py that run tensor ops (all but SE2_CONFIG_FUNCTIONS) over
+    ``fn()``: the plain SE(2) ops a path still runs, by function name."""
+    import collections
+    import threading
+    import torch
+    files = ("repro_torch/core/encodings.py", "repro_torch/core/fourier.py")
+    hits = collections.Counter()
+
+    def hook(frame, event, arg):
+        code = frame.f_code
+        if (event == "call" and code.co_filename.endswith(files)
+                and code.co_name not in SE2_CONFIG_FUNCTIONS):
+            hits[code.co_name] += 1
+    threading.setprofile_all_threads(hook)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        threading.setprofile_all_threads(None)
+    return hits
 
 
 def scene_attention_case(gen, dev, model, scen, n, scale):
@@ -387,13 +465,25 @@ def device_profile(run, wall_s, per, what):
          if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
     device_ms = sum(ms for ms, _, _ in per_kernel)
     n_kernels = sum(count for _, count, _ in per_kernel)
+    runtime = {e.key: e.count for e in prof.key_averages()
+               if e.key.startswith("cuda")}
+    htod = sum(count for _, count, key in per_kernel
+               if key.startswith("Memcpy HtoD"))
+    units = per[1]()
+    log(f"profile {what}: per {per[0]}: {n_kernels / units:.1f} device "
+        f"launches, {htod / units:.2f} host-to-device copies, "
+        f"{runtime.get('cudaStreamSynchronize', 0) / units:.2f} "
+        f"cudaStreamSynchronize, "
+        f"{runtime.get('cudaDeviceSynchronize', 0) / units:.2f} "
+        f"cudaDeviceSynchronize" + ("" if "cudaLaunchKernel" in runtime else
+                                    " (no CUDA runtime calls recorded)"))
     if device_ms <= 0:
         log(f"profile {what}: no device time recorded (device busy share "
             f"not measured)")
         return None
     busy = device_ms / (wall_s * 1e3)
     log(f"profile {what}: {device_ms:.2f} ms of device time in "
-        f"{n_kernels} kernels ({n_kernels / per[1]():.0f} per {per[0]}) over "
+        f"{n_kernels} kernels ({n_kernels / units:.0f} per {per[0]}) over "
         f"a {wall_s * 1e3:.2f} ms unprofiled run: busy {busy:.1%}, idle "
         f"{1 - busy:.1%}")
     for ms, count, key in per_kernel[:15]:
@@ -414,8 +504,11 @@ def main() -> int:
     import numpy as np
     from repro_torch import configs, scenarios
     from repro_torch.kernels import cuda, ops
+    from repro_torch.core.encodings import SE2Fourier
     from repro_torch.kernels.se2_project import (se2_fourier_project,
-                                                 se2_project_plain)
+                                                 se2_fourier_project_t,
+                                                 se2_project_plain,
+                                                 se2_project_t_plain)
     from repro_torch.data import ShardedIterator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -470,6 +563,7 @@ def main() -> int:
     s_max = -(-(scen.num_map + scen.num_steps * scen.num_agents) // 128) * 128
     tick_rows, prefill_rows = scen.num_agents, \
         scen.num_map + t_hist * scen.num_agents
+    train_tokens = scen.num_map + scen.num_steps * scen.num_agents
     log(f"arch {arch.name}: d_model {cfg.d_model}, {cfg.num_layers} layers, "
         f"{cfg.num_heads} heads x {cfg.head_dim}, F {cfg.fourier_terms}, "
         f"c {c}, max_len {s_max}, "
@@ -511,19 +605,65 @@ def main() -> int:
                 max_err["flash_decode"] = max(max_err["flash_decode"], err)
                 log(f"flash_decode {what} splits={splits}: max abs err "
                     f"{err:.3e}, bitwise repeatable")
-    for n in (tick_rows, prefill_rows):
-        x, pose = se2_case(gen, dev, n_slots, cfg.num_heads, n,
-                           cfg.head_dim, cfg.pos_scale)
-        for mode in ("q", "k"):
-            got = se2_fourier_project(x, pose, enc, mode)
-            torch.cuda.synchronize()
-            err = close_or_raise(f"se2_project_{mode} n={n}", got,
-                                 se2_project_plain(x, pose, enc, mode),
-                                 **SE2_TOL)
-            max_err[f"se2_project_{mode}"] = max(
-                max_err[f"se2_project_{mode}"], err)
-            log(f"se2_project_{mode} rows {tuple(x.shape[:3])}: "
-                f"max abs err {err:.3e}")
+    # the four se2 modes at the tick, prefill and train shapes, and at odd
+    # nb (head_dim 18: rows off 16-byte boundaries) with ragged tiles
+    odd_enc = SE2Fourier(head_dim=18, num_terms=cfg.fourier_terms)
+    se2_cases = [(enc, n_slots, tick_rows), (enc, n_slots, prefill_rows),
+                 (enc, TRAIN_BATCH, train_tokens), (odd_enc, 5, 37)]
+    for enc_, b_, n_ in se2_cases:
+        errs = dict.fromkeys(SE2_MODES, 0.0)
+        for name in SE2_MODES:
+            kernel, plain, mode, transposed = se2_mode(name)
+            width = enc_.expanded_dim if transposed else enc_.head_dim
+            for dtype in (torch.float32, torch.bfloat16):
+                x, pose = se2_case(gen, dev, b_, cfg.num_heads, n_, width,
+                                   cfg.pos_scale)
+                x = x.to(dtype)
+                got = kernel(x, pose, enc_, mode)
+                again = kernel(x, pose, enc_, mode)
+                want = plain(x, pose, enc_, mode)
+                torch.cuda.synchronize()
+                f32 = dtype == torch.float32
+                err = close_or_raise(
+                    f"{name} {b_}x{cfg.num_heads}x{n_} head_dim "
+                    f"{enc_.head_dim} {dtype}", got, want,
+                    **(SE2_TOL if f32 else SE2_BF16_TOL))
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {b_}x{n_} {dtype}: not "
+                                         f"bitwise repeatable")
+                if f32:
+                    errs[name] = err
+                    max_err[name] = max(max_err[name], err)
+        log(f"se2 rows {b_}x{cfg.num_heads}x{n_}, head_dim {enc_.head_dim}: "
+            f"f32 and bf16 within tolerance, bitwise repeatable; f32 max "
+            f"abs err " + ", ".join(f"{k_[12:]} {e:.3e}"
+                                    for k_, e in errs.items()))
+    # gradients through the kernels (each direction's backward is the
+    # other's kernel) against autograd through the plain versions
+    x, pose = se2_case(gen, dev, TRAIN_BATCH, cfg.num_heads, train_tokens,
+                       cfg.head_dim, cfg.pos_scale)
+    g_, _ = se2_case(gen, dev, TRAIN_BATCH, cfg.num_heads, train_tokens, c,
+                     cfg.pos_scale)
+    for mode in ("q", "k"):
+        grads = []
+        for fwd, bwd in ((se2_fourier_project, se2_fourier_project_t),
+                         (se2_project_plain, se2_project_t_plain)):
+            xr = x.clone().requires_grad_(True)
+            gr = g_.clone().requires_grad_(True)
+            loss = ((fwd(xr, pose, enc, mode) * g_).sum()
+                    + (bwd(gr, pose, enc, mode) * x).sum())
+            grads.append(torch.autograd.grad(loss, (xr, gr)))
+        err = max(close_or_raise(f"se2 {mode} gradient", a, b, **SE2_TOL)
+                  for a, b in zip(*grads))
+        log(f"se2 {mode}: gradients of both directions through the kernels "
+            f"vs the plain versions at the train shape: max abs err "
+            f"{err:.3e}")
+    del x, g_, grads
+    calls = plain_se2_calls(lambda: se2_project_plain(
+        *se2_case(gen, dev, 1, 1, 4, cfg.head_dim, cfg.pos_scale), enc, "k"))
+    if not calls:
+        raise AssertionError("plain_se2_calls saw no call of the plain "
+                             "version")
     attn_scale = 1.0 / math.sqrt(cfg.head_dim)
     train_case = scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
                                       attn_scale)
@@ -596,6 +736,7 @@ def main() -> int:
                                                      - t_hist)}
     want_counts["se2_project_q"] = want_counts["flash_decode"]
     want_counts["se2_project_k"] = 2 * want_counts["flash_decode"]
+    want_counts["se2_project_q_t"] = want_counts["flash_decode"]
     launches = dict.fromkeys(REPLACES, 0)
     for cache_dtype in ("float32", "int8"):
         engine = RolloutEngine(model, scen, num_slots=n_slots,
@@ -634,6 +775,12 @@ def main() -> int:
                                       seed=0),
                    f32_secs, ("prefill or tick", lambda: 1 + engine.ticks),
                    "float32 rollout")
+    calls = plain_se2_calls(lambda: engine.run(scenes, t_hist=t_hist,
+                                               n_samples=1, seed=0))
+    if calls:
+        raise AssertionError(f"the rollout ran plain SE(2) ops: {calls}")
+    log("rollout: no call into core/encodings.py or core/fourier.py that "
+        "runs a tensor op")
 
     # 5. training -----------------------------------------------------------------
     phase("5. training")
@@ -663,11 +810,15 @@ def main() -> int:
     train_secs = time.perf_counter() - t0
     counts = dict(cuda.LAUNCHES)
     losses = [float(x) for x in losses]
+    # a layer: q~ and untransform_out forward ("q", "q_t") and backward
+    # ("q_t", "q"), k~ and v~ forward ("k" twice) and backward ("k_t" twice)
     per_step = {"flash_attention_fwd": cfg.num_layers,
                 "flash_attention_dq": cfg.num_layers,
                 "flash_attention_dkv": cfg.num_layers,
-                "se2_project_q": cfg.num_layers,
-                "se2_project_k": 2 * cfg.num_layers}
+                "se2_project_q": 2 * cfg.num_layers,
+                "se2_project_q_t": 2 * cfg.num_layers,
+                "se2_project_k": 2 * cfg.num_layers,
+                "se2_project_k_t": 2 * cfg.num_layers}
     want_counts = {k_: n * TRAIN_STEPS for k_, n in per_step.items()}
     if counts != want_counts:
         raise AssertionError(f"train launches {counts} != {want_counts}")
@@ -723,6 +874,11 @@ def main() -> int:
         state, _ = train_step(state, host_batch)
     device_profile(one_step, train_secs / TRAIN_STEPS, ("train step", lambda: 1),
                    "one train step")
+    calls = plain_se2_calls(one_step)
+    if calls:
+        raise AssertionError(f"the train step ran plain SE(2) ops: {calls}")
+    log("train step: no call into core/encodings.py or core/fourier.py that "
+        "runs a tensor op")
     data.close()
 
     # 6. times at the main-path shapes ------------------------------------------
@@ -764,23 +920,31 @@ def main() -> int:
                   f"heads x {sq} query rows, {cursor} live cache rows, "
                   f"{int(mask.sum())} of {b_ * sq * cursor} (q, k) pairs "
                   f"admitted a head")
-    x, pose = se2_case(gen, dev, n_slots, cfg.num_heads, tick_rows,
-                       cfg.head_dim, cfg.pos_scale)
-    rows = n_slots * cfg.num_heads * tick_rows
-    nb, nf = enc.num_blocks, enc.num_terms
-    se2_bytes = rows * (cfg.head_dim + c) * 4 + n_slots * tick_rows * 3 * 4
+    def se2_timing(name, b_, n_):
+        """An se2 mode at b_ scenes x n_ tokens, all heads, float32; each
+        input read once and each output written once, bounded by bytes."""
+        kernel, plain, mode, transposed = se2_mode(name)
+        width = c if transposed else cfg.head_dim
+        x, pose = se2_case(gen, dev, b_, cfg.num_heads, n_, width,
+                           cfg.pos_scale)
+        rows = b_ * cfg.num_heads * n_
+        return dict(
+            fn=lambda: kernel(x, pose, enc, mode),
+            plain=lambda: plain(x, pose, enc, mode), library=None,
+            bytes=rows * (cfg.head_dim + c) * 4 + b_ * n_ * 3 * 4,
+            flops=se2_flops(name, b_ * n_, rows, enc.num_blocks,
+                            enc.num_terms),
+            kernel=name, shape=f"{b_} scenes x {cfg.num_heads} heads x {n_} "
+                               f"tokens")
+
+    # se2 at the tick (the record) and at the train step (its "train")
     timings = {
         "flash_decode": decode_timing(tick_rows, kvl, False),
-        "flash_decode_prefill": decode_timing(prefill_rows, prefill_rows,
-                                              True),
-        "se2_project_q": dict(
-            fn=lambda: se2_fourier_project(x, pose, enc, "q"),
-            plain=lambda: se2_project_plain(x, pose, enc, "q"), library=None,
-            bytes=se2_bytes, flops=rows * (nb * (4 * nf + 24) + 2 * nf)),
-        "se2_project_k": dict(
-            fn=lambda: se2_fourier_project(x, pose, enc, "k"),
-            plain=lambda: se2_project_plain(x, pose, enc, "k"), library=None,
-            bytes=se2_bytes, flops=rows * nb * (16 * nf * nf + 24 * nf + 8)),
+        "flash_decode_prefill": dict(
+            decode_timing(prefill_rows, prefill_rows, True), nest="prefill"),
+        **{name: se2_timing(name, n_slots, tick_rows) for name in SE2_MODES},
+        **{f"{name}_train": dict(se2_timing(name, TRAIN_BATCH, train_tokens),
+                                 nest="train") for name in SE2_MODES},
     }
     # the flash kernels at the train step's attention shape; FLOPs count
     # only the (q, k) pairs this run's mask admits, bounded at the tensor
@@ -866,12 +1030,15 @@ def main() -> int:
                         "bound_f32_ms": rec["bound_f32_ms"],
                         "max_err": max_err[kernel],
                         "device_time_ms": device}))
-    # the decode's prefill row rides in its record: one entry a kernel
-    prefill = records.pop([r["name"] for r in records].index(
-        "flash_decode_prefill"))
-    records[0]["prefill"] = {k_: prefill[k_] for k_ in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "bound_f32_ms")}
+    # the decode's prefill row and the se2 train rows ride in their kernel's
+    # record: one entry a kernel
+    for nested in [r for r in records if timings[r["name"]].get("nest")]:
+        records.remove(nested)
+        owner = next(r for r in records
+                     if r["name"] == timings[nested["name"]]["kernel"])
+        owner[timings[nested["name"]]["nest"]] = {k_: nested[k_] for k_ in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_f32_ms")}
     log(f"train attention shape: {tb_} scenes x {th_} heads x {ts_} tokens, "
         f"c = {tc_}; {pairs // th_} of {tb_ * ts_ * ts_} (q, k) pairs "
         f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "

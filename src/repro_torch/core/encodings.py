@@ -20,8 +20,10 @@ import torch
 from repro_torch.core import fourier
 
 
-def _as_f32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32)
+def _as_compute(x: torch.Tensor) -> torch.Tensor:
+    """The encodings compute in float32; float64 stays float64 (the exact
+    yardstick of the projection's adjoint and gradient tests)."""
+    return x if x.dtype == torch.float64 else x.to(torch.float32)
 
 
 def _rotate_pairs(x0, x1, cos, sin):
@@ -129,13 +131,13 @@ class SE2Fourier(GroupEncoding):
         return True
 
     def _split_blocks(self, x):
-        return _as_f32(x).reshape(*x.shape[:-1], self.num_blocks, 6)
+        return _as_compute(x).reshape(*x.shape[:-1], self.num_blocks, 6)
 
     def _scaled_xy(self, pose):
         """Per-block scaled (x, y), each (..., nb), and theta (...,)."""
-        scales = torch.as_tensor(self.scales(), dtype=torch.float32,
+        p = _as_compute(pose)
+        scales = torch.as_tensor(self.scales(), dtype=p.dtype,
                                  device=pose.device)
-        p = _as_f32(pose)
         return p[..., 0:1] * scales, p[..., 1:2] * scales, p[..., 2]
 
     # -- query side ----------------------------------------------------------
@@ -207,7 +209,8 @@ class SE2Fourier(GroupEncoding):
         if self.adaptive_terms:
             return self._untransform_blocks(o, pose)
         nf = self.num_terms
-        of = _as_f32(o).reshape(*o.shape[:-1], self.num_blocks, 4 * nf + 2)
+        of = _as_compute(o).reshape(*o.shape[:-1], self.num_blocks,
+                                    4 * nf + 2)
         v_x, v_y, b, theta = self._query_pieces(pose)
         # [top_x, bot_x, top_y, bot_y] per block: the basis contractions
         tb = (of[..., :4 * nf].unflatten(-1, (4, nf))
@@ -225,7 +228,7 @@ class SE2Fourier(GroupEncoding):
     def _untransform_blocks(self, o, pose):
         """``untransform_out`` block by block, as the reference writes it
         (blocks may differ in basis size)."""
-        of = _as_f32(o)
+        of = _as_compute(o)
         v_x, v_y, b_full, theta = self._query_pieces(pose)
         ct, st = torch.cos(theta), torch.sin(theta)
         outs = []

@@ -26,7 +26,8 @@ from repro_torch.core.encodings import SE2Fourier, make_encoding
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import canonical_cache_dtype, quantize_kv
-from repro_torch.kernels.se2_project import se2_fourier_project
+from repro_torch.kernels.se2_project import (se2_fourier_project,
+                                             se2_fourier_project_t)
 from repro_torch.nn.attention import _merge_heads, _split_heads
 from repro_torch.nn.layers import Dense, RMSNorm
 from repro_torch.nn.mlp import GatedMLP
@@ -115,7 +116,9 @@ class SimAttention(nn.Module):
                 se2_fourier_project(v, pose, self.enc, "k"))
 
     def _finish(self, out, pose):
-        out = self.enc.untransform_out(out, pose[:, None])
+        """phi_q o~ (``untransform_out``, the transposed "q" projection),
+        then the output projection."""
+        out = se2_fourier_project_t(out.contiguous(), pose, self.enc, "q")
         return self.o(_merge_heads(out))
 
     def forward(self, x, pose, times, segment_ids):

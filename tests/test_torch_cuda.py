@@ -23,21 +23,114 @@ def dev():
     return torch.device("cuda")
 
 
+# (head_dim, F): the main path's compiled widths, and odd nb (c = 3 (4F + 2)
+# and head_dim 18 not multiples of 4, so rows are not 16-byte aligned)
+SE2_WIDTHS = [(24, 12), (18, 5), (30, 7)]
+# (B, H, n): whole 16-token tiles; ragged last tiles and a head count that
+# is no power of two; few tokens, so the heads split over CTAs
+SE2_SHAPES = [(2, 8, 32), (3, 3, 37), (5, 8, 12)]
+
+
+def _se2_case(dev, head_dim, num_terms, shape, transposed, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = SE2Fourier(head_dim=head_dim, num_terms=num_terms)
+    b, h, n = shape
+    width = enc.expanded_dim if transposed else head_dim
+    x = torch.randn((b, h, n, width), generator=g, device=dev)
+    pose = torch.cat([torch.rand((b, n, 2), generator=g, device=dev) * 6 - 3,
+                      torch.rand((b, n, 1), generator=g, device=dev) * 6.3
+                      - 3.15], -1).contiguous()
+    return enc, x.to(getattr(torch, dtype)), pose
+
+
+def _se2_run(x, pose, enc, mode, transposed):
+    fn = sp.se2_fourier_project_t if transposed else sp.se2_fourier_project
+    return fn(x, pose, enc, mode)
+
+
+def _se2_plain(x, pose, enc, mode, transposed):
+    fn = sp.se2_project_t_plain if transposed else sp.se2_project_plain
+    return fn(x, pose, enc, mode)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("mode", ["q", "k"])
-def test_se2_project_kernel_matches_plain(dev, mode, x_dtype):
-    g = torch.Generator(device=dev).manual_seed(0)
-    enc = SE2Fourier(head_dim=24, num_terms=12)
-    x = torch.randn((3, 2, 5, 24), generator=g, device=dev)
-    pose = torch.randn((3, 5, 3), generator=g, device=dev)
-    x = x.to(getattr(torch, x_dtype))
-    got = sp.se2_fourier_project(x, pose, enc, mode)
-    want = sp.se2_project_plain(x, pose, enc, mode)
-    assert got.dtype == x.dtype
+@pytest.mark.parametrize("widths", SE2_WIDTHS)
+@pytest.mark.parametrize("shape", SE2_SHAPES)
+def test_se2_project_kernel_matches_plain(dev, mode, x_dtype, transposed,
+                                          widths, shape):
+    """All four modes against their plain versions, run twice and required
+    bitwise equal."""
+    enc, x, pose = _se2_case(dev, *widths, shape, transposed, x_dtype)
+    got = _se2_run(x, pose, enc, mode, transposed)
+    again = _se2_run(x, pose, enc, mode, transposed)
+    want = _se2_plain(x, pose, enc, mode, transposed)
+    assert got.dtype == x.dtype and got.shape == want.shape
     tol = dict(atol=1e-5, rtol=1e-4) if x_dtype == "float32" else \
         dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("mode", ["q", "k"])
+def test_se2_project_unaligned_and_flat_inputs(dev, mode, transposed):
+    """An input that starts off a 16-byte boundary, and the flat (T, d)
+    layout, give the aligned (B, H, n, d) call's result."""
+    enc, x, pose = _se2_case(dev, 18, 5, (1, 1, 37), transposed, "float32")
+    buf = torch.empty(x.numel() + 1, device=dev)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    want = _se2_run(x, pose, enc, mode, transposed)
+    assert torch.equal(_se2_run(shifted, pose, enc, mode, transposed), want)
+    flat = _se2_run(x[0, 0], pose[0], enc, mode, transposed)
+    assert torch.equal(flat, want[0, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["q", "k"])
+def test_se2_project_gradients_match_plain(dev, mode):
+    """Gradients through the kernels (each direction's backward is the
+    other's kernel) against autograd through the plain versions."""
+    enc, x, pose = _se2_case(dev, 24, 12, (3, 3, 37), False, "float32")
+    _, g, _ = _se2_case(dev, 24, 12, (3, 3, 37), True, "float32", seed=1)
+    grads = []
+    for fwd, bwd in ((sp.se2_fourier_project, sp.se2_fourier_project_t),
+                     (sp.se2_project_plain, sp.se2_project_t_plain)):
+        sp.cuda.reset_launches()
+        xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        y = fwd(xr, pose, enc, mode)
+        o = bwd(gr, pose, enc, mode)
+        grads.append(torch.autograd.grad((y * g).sum() + (o * x).sum(),
+                                         (xr, gr)))
+        if not grads[1:]:       # through the kernels: 2 launches each
+            assert sp.cuda.LAUNCHES == {f"se2_project_{mode}": 2,
+                                        f"se2_project_{mode}_t": 2}
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_se2_project_raises_on_what_it_does_not_take(dev):
+    """Nothing falls back to the plain version on a CUDA tensor."""
+    enc = SE2Fourier(head_dim=24, num_terms=12)
+    x = torch.zeros((2, 3, 5, 24), device=dev)
+    pose = torch.zeros((2, 5, 3), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.se2_fourier_project(x.transpose(1, 2), pose, enc, "q")
+    with pytest.raises(ValueError, match="feature dim"):
+        sp.se2_fourier_project_t(x, pose, enc, "q")
+    with pytest.raises(TypeError, match="float32"):
+        sp.se2_fourier_project(x.half(), pose, enc, "k")
+    with pytest.raises(ValueError, match="pose"):
+        sp.se2_fourier_project(x, pose[:, :4].contiguous(), enc, "k")
+    with pytest.raises(ValueError, match="adaptive"):
+        sp.se2_fourier_project_t(
+            torch.zeros((1, 1, 1, 156), device=dev), pose[:1, :1],
+            SE2Fourier(head_dim=24, num_terms=12, adaptive_terms=True), "k")
 
 
 @pytest.mark.gpu
@@ -171,9 +264,10 @@ def _check_decode(q, k, v, kvl, opts, cache_dtype, splits):
 
 @pytest.mark.gpu
 def test_refused_launch_raises(dev):
-    """A launch the card refuses (here: more shared memory than an SM has)
-    raises with CUDA's message; nothing falls back to the plain version."""
-    enc = SE2Fourier(head_dim=48, num_terms=64)
+    """A launch the card refuses (here: more shared memory than an SM has,
+    the constants alone at F = 128 taking 265 KB) raises with CUDA's
+    message; nothing falls back to the plain version."""
+    enc = SE2Fourier(head_dim=48, num_terms=128)
     x = torch.zeros((1, 1, 32, 48), device=dev)
     pose = torch.zeros((1, 32, 3), device=dev)
     with pytest.raises(RuntimeError, match="CUDA error"):
