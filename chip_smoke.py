@@ -34,12 +34,15 @@ Run from the root of a checkout. Phases, each of which fails the run:
    launches, host-to-device copies and stream synchronizations a tick, and
    a rollout must call no function of core/encodings.py or core/fourier.py
    that runs a tensor op (every SE(2) transform goes through the kernels);
+   a highway and a pedestrian_crossing scene with padded agents are held
+   to the reference forward too, on their valid agents;
 5. training: the behaviour-cloning train step at full width, 32 freeform
    scenes a batch through ShardedIterator, 2 warm-up and 20 timed steps
    with global-norm clip and AdamW on warmup-cosine; the loss must be
    finite and fall, each flash kernel must launch 6 times a step and each
-   se2 mode 12 times, the gradients of one batch through the kernels are
-   held to those through the plain versions, open-loop metrics on 2
+   se2 mode 12 times, the gradients of one freeform batch and of one
+   batch of all seven families through the kernels are held to those
+   through the plain versions, open-loop metrics on 2
    holdout batches must be finite; steps/s, peak memory and the device
    profile are printed (with the same counts a step), and a step must call
    no plain SE(2) op;
@@ -52,7 +55,14 @@ Run from the root of a checkout. Phases, each of which fails the run:
    the tensor-core kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
    share of the pairs the forward's and backward's tiles compute that the
-   mask admits.
+   mask admits;
+7. evaluation: evaluate_families with phase 5's trained model over all
+   seven scenario families (16 scenes each, 4 samples, 64 slots): exact
+   launch counts, every family's metrics finite with a kinematic
+   infeasibility rate of 0, tables bitwise equal at 48 slots, no plain
+   SE(2) op; wall seconds of scene generation, rollouts and scoring, and
+   the host seconds of a mixed and a freeform training batch. Its
+   launches join the kernels' record.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -115,6 +125,12 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 32, 2, 20, 3e-3
 # the rollout: scene slots, and steps of history written by the prefill
 N_SLOTS, T_HIST = 64, 8
 FAMILIES = ("freeform",)
+# the decode against the full forward on scenes with padded agents
+MIXED_PAIR = ("highway", "pedestrian_crossing")
+# the evaluation: every family, scenes a family, samples a scene, and the
+# slot counts of the two runs that must give bitwise-equal tables
+EVAL_SCENES, EVAL_SAMPLES, EVAL_SLOTS = 16, 4, (64, 48)
+EVAL_SCENE_SEED = 777         # evaluate_families' default scene seed
 
 # the transposed se2 modes have no TPU kernel: they compute what the JAX
 # package computes with untransform_out (also transform_q's VJP) and with
@@ -491,6 +507,27 @@ def device_profile(run, wall_s, per, what):
     return busy
 
 
+class Replay:
+    """The engine surface ``evaluate_scenes`` reads (``run``, ``scen``),
+    returning futures already rolled out: the scoring alone."""
+
+    def __init__(self, futures, scen):
+        self.futures, self.scen = futures, scen
+
+    def run(self, scenes, **_):
+        return self.futures
+
+
+def same_tables(a, b) -> bool:
+    """Evaluation tables equal bitwise, NaN (no vehicle to score) equal to
+    NaN."""
+    return a.keys() == b.keys() and all(
+        a[f].keys() == b[f].keys() and all(
+            x == y or (math.isnan(x) and math.isnan(y))
+            for x, y in ((a[f][k], b[f][k]) for k in a[f]))
+        for f in a)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,8 +550,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.nn.agent_sim import AgentSimModel, action_nll
-    from repro_torch.runtime import RolloutEngine
-    from repro_torch.training.data import holdout_batches, make_batch_fn
+    from repro_torch.runtime import (EvalConfig, RolloutEngine,
+                                     evaluate_families, evaluate_scenes)
+    from repro_torch.training.data import (holdout_batches, make_batch_fn,
+                                           make_sim_batch)
     from repro_torch.training.steps import (bc_optimizer, loss_summary,
                                             make_sim_train_step,
                                             open_loop_metrics)
@@ -698,37 +737,51 @@ def main() -> int:
     phase("4. rollout")
     scenes = [scenarios.generate_scene("freeform", 0, i, scen)
               for i in range(n_slots)]
-    batch = {k_: torch.as_tensor(np.stack([s.tensors[k_] for s in scenes[:2]]),
-                                 device=dev)
-             for k_ in ("map_feats", "map_pose", "map_valid", "agent_feats",
-                        "agent_pose", "agent_valid")}
+    # two freeform scenes, all agents valid, and a highway and a
+    # pedestrian_crossing scene with padded (segment-masked, frozen) agents
+    padded = [next(s for s in (scenarios.generate_scene(f, 0, i, scen)
+                               for i in range(100))
+                   if s.num_valid_agents < scen.num_agents)
+              for f in MIXED_PAIR]
     ref_model = AgentSimModel(dataclasses.replace(cfg, attn_impl="ref"),
                               generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        full = ref_model(batch)
-        err = close_or_raise("flash forward vs reference forward", model(batch),
-                             full, **MODEL_TOL["float32"])
-    log(f"full forward through the flash kernels vs the O(S^2) reference: "
-        f"max abs logit err {err:.3e}")
+    for what, pair in (("freeform", scenes[:2]),
+                       (" + ".join(MIXED_PAIR), padded)):
+        batch = {k_: torch.as_tensor(np.stack([s.tensors[k_] for s in pair]),
+                                     device=dev)
+                 for k_ in ("map_feats", "map_pose", "map_valid",
+                            "agent_feats", "agent_pose", "agent_valid")}
+        valid = batch["agent_valid"]          # logits compared on valid agents
+        with torch.no_grad():
+            full = ref_model(batch)
+            err = close_or_raise(f"flash forward vs reference forward "
+                                 f"({what})", model(batch)[valid],
+                                 full[valid], **MODEL_TOL["float32"])
+        log(f"{what} (valid agents {[s.num_valid_agents for s in pair]} of "
+            f"{scen.num_agents}): full forward through the flash kernels vs "
+            f"the O(S^2) reference: max abs logit err {err:.3e}")
+        for cache_dtype in ("float32", "int8"):
+            cache = model.init_cache(2, s_max, cache_dtype)
+            hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
+                    for k_, v_ in batch.items()}
+            got, cache = model.prefill(cache, hist)
+            err = close_or_raise(
+                f"prefill vs full forward ({what}, {cache_dtype})",
+                got[valid[:, :t_hist]], full[:, :t_hist][valid[:, :t_hist]],
+                **MODEL_TOL[cache_dtype])
+            for t in range(t_hist, scen.num_steps):
+                lt, cache = model.step(cache, batch["agent_feats"][:, t],
+                                       batch["agent_pose"][:, t],
+                                       valid[:, t],
+                                       torch.full((2,), t, dtype=torch.int32,
+                                                  device=dev))
+                err = max(err, close_or_raise(
+                    f"step {t} vs full forward ({what}, {cache_dtype})",
+                    lt[valid[:, t]], full[:, t][valid[:, t]],
+                    **MODEL_TOL[cache_dtype]))
+            log(f"{what}: cached decode vs full forward, {cache_dtype} "
+                f"cache: max abs logit err {err:.3e}")
     del ref_model
-    for cache_dtype in ("float32", "int8"):
-        cache = model.init_cache(2, s_max, cache_dtype)
-        hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
-                for k_, v_ in batch.items()}
-        got, cache = model.prefill(cache, hist)
-        err = close_or_raise(f"prefill vs full forward ({cache_dtype})",
-                             got, full[:, :t_hist], **MODEL_TOL[cache_dtype])
-        for t in range(t_hist, scen.num_steps):
-            lt, cache = model.step(cache, batch["agent_feats"][:, t],
-                                   batch["agent_pose"][:, t],
-                                   batch["agent_valid"][:, t],
-                                   torch.full((2,), t, dtype=torch.int32,
-                                              device=dev))
-            err = max(err, close_or_raise(
-                f"step {t} vs full forward ({cache_dtype})", lt, full[:, t],
-                **MODEL_TOL[cache_dtype]))
-        log(f"cached decode vs full forward, {cache_dtype} cache: "
-            f"max abs logit err {err:.3e}")
 
     RolloutEngine(model, scen, num_slots=n_slots).run(
         scenes, t_hist=t_hist, n_samples=1, seed=0)          # warm-up
@@ -841,27 +894,34 @@ def main() -> int:
     log(f"train data: one {TRAIN_BATCH}-scene batch from the iterator in "
         f"{time.perf_counter() - t0:.3f} s of host time")
 
-    # gradients of one batch: the kernels against the plain versions
+    # gradients of one batch: the kernels against the plain versions, on a
+    # freeform batch and on one mixed batch of all seven families
     pmodel = AgentSimModel(dataclasses.replace(cfg, attn_impl="plain"),
                            generator=torch.Generator().manual_seed(0))
     pmodel.load_state_dict(tmodel.state_dict())
     pmodel.requires_grad_(True)
-    gb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in host_batch.items()}
-    grads = []
-    for m_ in (tmodel, pmodel):
-        loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
-        names, leaves = zip(*m_.named_parameters())
-        grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
-    worst = 0.0
-    for name, g_plain in grads[1].items():
-        scale_ = float(g_plain.abs().max())
-        err = float((grads[0][name] - g_plain).abs().max())
-        if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
-            raise AssertionError(f"train grad {name}: kernels vs plain max "
-                                 f"abs err {err:.3e}, tensor max {scale_:.3e}")
-        worst = max(worst, err / max(scale_, 1e-30))
-    log(f"train step gradients, kernels vs plain versions: worst max abs "
-        f"err / tensor max {worst:.3e} over {len(grads[1])} tensors")
+    for what, host_b in (("freeform", host_batch),
+                         ("seven families", make_sim_batch(
+                             0, 0, TRAIN_BATCH, scen, families=None))):
+        gb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in host_b.items()}
+        grads = []
+        for m_ in (tmodel, pmodel):
+            loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
+            names, leaves = zip(*m_.named_parameters())
+            grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+        worst = 0.0
+        for name, g_plain in grads[1].items():
+            scale_ = float(g_plain.abs().max())
+            err = float((grads[0][name] - g_plain).abs().max())
+            if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
+                raise AssertionError(
+                    f"train grad {name} ({what}): kernels vs plain max abs "
+                    f"err {err:.3e}, tensor max {scale_:.3e}")
+            worst = max(worst, err / max(scale_, 1e-30))
+        log(f"train step gradients, kernels vs plain versions, {what} batch "
+            f"({int(gb['agent_valid'][:, 0].sum())} of "
+            f"{TRAIN_BATCH * scen.num_agents} agents valid): worst max abs "
+            f"err / tensor max {worst:.3e} over {len(grads[1])} tensors")
     del pmodel, grads
     ol = open_loop_metrics(tmodel, holdout_batches(scen, TRAIN_BATCH, 2,
                                                    families=FAMILIES))
@@ -1053,6 +1113,112 @@ def main() -> int:
         log(f"{name}: its {own} x {walk} tiles compute {computed} (q, k) "
             f"pairs a head, of which the mask admits {pairs // th_} "
             f"({pairs / th_ / computed:.1%})")
+
+    # 7. evaluation ---------------------------------------------------------
+    phase("7. evaluation")
+    eval_cfg = EvalConfig(t_hist=t_hist, n_samples=EVAL_SAMPLES, seed=0)
+    fams = scenarios.registry.names()
+    t0 = time.perf_counter()
+    eval_scenes = [scenarios.generate_scene(f, EVAL_SCENE_SEED, i, scen)
+                   for f in fams for i in range(EVAL_SCENES)]
+    gen_secs = time.perf_counter() - t0
+    chunks = -(-len(eval_scenes) * EVAL_SAMPLES // EVAL_SLOTS[0])
+    per_chunk = cfg.num_layers * (1 + scen.num_steps - t_hist)
+    want_counts = {"flash_decode": chunks * per_chunk,
+                   "se2_project_q": chunks * per_chunk,
+                   "se2_project_k": 2 * chunks * per_chunk,
+                   "se2_project_q_t": chunks * per_chunk}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    tables = evaluate_families(tmodel, scen, eval_cfg, families=None,
+                               n_scenes_per_family=EVAL_SCENES,
+                               scene_seed=EVAL_SCENE_SEED,
+                               num_slots=EVAL_SLOTS[0])
+    torch.cuda.synchronize()
+    eval_secs = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    if counts != want_counts:
+        raise AssertionError(f"evaluation launches {counts} != {want_counts}")
+    for name, n in counts.items():
+        launches[name] += n
+    log(f"evaluate_families: {len(fams)} families x {EVAL_SCENES} scenes x "
+        f"{EVAL_SAMPLES} samples, {EVAL_SLOTS[0]} slots ({chunks} chunks of "
+        f"1 prefill + {scen.num_steps - t_hist} ticks) in {eval_secs:.3f} s "
+        f"= {len(eval_scenes) / eval_secs:.1f} scenes/s end to end, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({resident / 2**30:.2f} GiB resident before), launches {counts}")
+    # where its time goes: scene generation (host), the rollouts (the card),
+    # the scoring (host) over the same futures, which must give the same
+    # tables
+    engine = RolloutEngine(tmodel, scen, num_slots=EVAL_SLOTS[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futures = engine.run(eval_scenes, t_hist=t_hist, n_samples=EVAL_SAMPLES,
+                         seed=eval_cfg.seed)
+    roll_secs = time.perf_counter() - t0
+    device_profile(lambda: engine.run(eval_scenes, t_hist=t_hist,
+                                      n_samples=EVAL_SAMPLES,
+                                      seed=eval_cfg.seed),
+                   roll_secs, ("prefill or tick", lambda: chunks * (
+                       1 + scen.num_steps - t_hist)), "evaluation rollouts")
+    del engine
+    t0 = time.perf_counter()
+    scored = evaluate_scenes(Replay(futures, scen), eval_scenes, eval_cfg)
+    score_secs = time.perf_counter() - t0
+    if not same_tables(scored, tables):
+        raise AssertionError("the timed rollout and scoring gave other "
+                             "tables than evaluate_families")
+    log(f"evaluation host time: scene generation {gen_secs:.3f} s for "
+        f"{len(eval_scenes)} scenes")
+    log(f"evaluation rollouts: {roll_secs:.3f} s for "
+        f"{len(eval_scenes) * EVAL_SAMPLES} lanes "
+        f"({len(eval_scenes) / roll_secs:.1f} scenes/s)")
+    log(f"evaluation scoring (host-side scene_metrics): {score_secs:.3f} s")
+    for what, fam_ in (("seven families", None), ("freeform", FAMILIES)):
+        t0 = time.perf_counter()
+        make_sim_batch(0, 0, TRAIN_BATCH, scen, families=fam_)
+        log(f"train data, {what}: one {TRAIN_BATCH}-scene make_sim_batch in "
+            f"{time.perf_counter() - t0:.3f} s of host time")
+    log("evaluation table (agent-weighted means):")
+    for fam, row in tables.items():
+        log(f"  {fam:24s} " + ", ".join(f"{k_} {v_:.6g}"
+                                        for k_, v_ in row.items()))
+    road_vehicles = {f: any(
+        s.lane_graph is not None and bool(
+            ((s.tensors["agent_type"] == scenarios.AGENT_TYPE["vehicle"])
+             & s.tensors["agent_valid"][0]).any())
+        for s in eval_scenes if s.family == f) for f in fams}
+    if sorted(tables) != sorted(fams + ["overall"]):
+        raise AssertionError(f"evaluation rows {sorted(tables)}")
+    for fam, row in tables.items():
+        want_n = EVAL_SCENES * (len(fams) if fam == "overall" else 1)
+        finite = ["min_ade", "miss_rate", "collision_rate",
+                  "kinematic_infeasibility_rate"]
+        if fam == "overall" or road_vehicles[fam]:
+            finite.append("offroad_rate")
+        bad = [k_ for k_ in finite if not math.isfinite(row[k_])]
+        if (bad or row["kinematic_infeasibility_rate"] != 0.0
+                or row["n_scenes"] != want_n):
+            raise AssertionError(f"evaluation {fam}: not finite {bad}, "
+                                 f"row {row}")
+    again = {}
+    calls = plain_se2_calls(lambda: again.update(evaluate_families(
+        tmodel, scen, eval_cfg, families=None,
+        n_scenes_per_family=EVAL_SCENES, scene_seed=EVAL_SCENE_SEED,
+        num_slots=EVAL_SLOTS[1])))
+    if calls:
+        raise AssertionError(f"the evaluation ran plain SE(2) ops: {calls}")
+    if not same_tables(again, tables):
+        raise AssertionError(f"evaluation at {EVAL_SLOTS[1]} slots gave "
+                             f"other tables: {again}")
+    log(f"evaluation: tables bitwise equal at {EVAL_SLOTS[0]} and "
+        f"{EVAL_SLOTS[1]} slots; no call into core/encodings.py or "
+        f"core/fourier.py that runs a tensor op")
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
 
     phase("done")
     log(json.dumps({"kernels": records}))

@@ -17,9 +17,12 @@ def _is_torch(x) -> bool:
     return isinstance(x, torch.Tensor)
 
 
-def wrap_angle(theta):
-    """Wrap angles to (-pi, pi], numpy or torch alike."""
-    xp = torch if _is_torch(theta) else np
+def wrap_angle(theta, xp=None):
+    """Wrap angles to (-pi, pi], numpy or torch alike. ``xp`` overrides the
+    array namespace (``np`` or ``torch``); by default it follows
+    ``theta``."""
+    if xp is None:
+        xp = torch if _is_torch(theta) else np
     return xp.arctan2(xp.sin(theta), xp.cos(theta))
 
 

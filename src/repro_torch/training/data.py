@@ -7,10 +7,8 @@ arguments, so the stream is deterministic and restartable from its integer
 cursor. Families are interleaved by index, every scene pads to the config's
 static shapes, and validity masks carry the per-scene variation.
 
-``families=None`` means every registered family. Only ``freeform`` is
-registered in the port so far (see ROADMAP.md), so ``None`` draws freeform
-scenes only, where the reference would mix all seven families; pass
-``families=("freeform",)`` to both packages to compare them.
+``families=None`` means every registered family: the seven the reference
+registers, so both packages draw bit-identical mixed batches.
 """
 from __future__ import annotations
 

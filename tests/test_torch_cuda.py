@@ -434,3 +434,58 @@ def test_flash_kernels_raise_on_what_they_do_not_take(dev):
     q = torch.zeros((1, 2, 8, 32), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.attention(q, q, q, impl="flash")
+
+
+# chip_smoke.py MODEL_TOL: the model's logits through the kernels against
+# the plain versions
+MODEL_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
+             "int8": dict(atol=8e-2, rtol=8e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_decode_over_mixed_families_matches_plain(dev, cache_dtype):
+    """Prefill and every step at the reduced arch over one scene of each of
+    the seven families (most of them with padded, segment-masked agents):
+    the card's kernels against the plain versions on the CPU, on valid
+    agents."""
+    import numpy as np
+    from repro_torch import configs, scenarios
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.agent_sim import AgentSimModel
+    arch = configs.get_sim_arch("sim-se2-fourier").reduced()
+    scen = arch.scenario_config()
+    scenes = [scenarios.generate_scene(f, 0, 1, scen)
+              for f in scenarios.registry.names()]
+    assert min(s.num_valid_agents for s in scenes) < scen.num_agents
+    batch = {k: np.stack([s.tensors[k] for s in scenes])
+             for k in ("map_feats", "map_pose", "map_valid", "agent_feats",
+                       "agent_pose", "agent_valid")}
+    valid = torch.as_tensor(batch["agent_valid"])
+    t_hist = scen.num_steps // 2
+    logits = {}
+    for device in (dev, torch.device("cpu")):
+        model = AgentSimModel(arch.agent_sim_config(), device=device,
+                              generator=torch.Generator().manual_seed(0))
+        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        cache = model.init_cache(len(scenes), 128, cache_dtype)
+        hist = {k: (v[:, :t_hist] if k.startswith("agent") else v)
+                for k, v in b.items()}
+        cuda.reset_launches()
+        with torch.no_grad():
+            out, cache = model.prefill(cache, hist)
+            steps = [out]
+            for t in range(t_hist, scen.num_steps):
+                lt, cache = model.step(
+                    cache, b["agent_feats"][:, t], b["agent_pose"][:, t],
+                    b["agent_valid"][:, t],
+                    torch.full((len(scenes),), t, dtype=torch.int32,
+                               device=device))
+                steps.append(lt[:, None])
+        logits[device.type] = torch.cat(steps, 1).cpu()
+        if device.type == "cuda":
+            assert cuda.LAUNCHES["flash_decode"] == arch.num_layers * (
+                1 + scen.num_steps - t_hist)
+    got, want = logits["cuda"][valid], logits["cpu"][valid]
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **MODEL_TOL[cache_dtype])
