@@ -14,9 +14,10 @@ Run from the root of a checkout. Phases, each of which fails the run:
    the rollout's shapes, including ragged cursors, stale NaN rows past the
    cursor and every cache dtype, the decode also with the prefill's
    block-causal mask and required bitwise repeatable at every split
-   count; the flash-attention forward, dq and dk/dv
+   count, at sim-se2-fourier's c = 200 and at the other arches' c = 24;
+   the flash-attention forward, dq and dk/dv
    at the train step's shape (32 scenes, the scenes' own times and segment
-   ids, -1 rows included) and on a feature matrix (index causal, window,
+   ids, -1 rows included; c = 200 and 24) and on a feature matrix (index causal, window,
    softcap, GQA, Dv != D, ragged lengths, widths off the tensor cores' k8
    step, bf16), float32 gradients against the plain backward in float64,
    the forward (at the train shape and at odd widths, float32 and bf16)
@@ -51,7 +52,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (CUDA events over back-to-back calls; CUPTI kernel time beside them);
    the decode at the tick and, in its record's "prefill", at the prefill;
    each se2 mode at the tick and, in its record's "train", at the train
-   step's 32 x 8 x 336 rows;
+   step's 32 x 8 x 336 rows; the decode (tick and prefill) and the flash
+   kernels again at c = 24, in their records' "c24" and "c24_prefill";
    the tensor-core kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
    share of the pairs the forward's and backward's tiles compute that the
@@ -62,7 +64,23 @@ Run from the root of a checkout. Phases, each of which fails the run:
    infeasibility rate of 0, tables bitwise equal at 48 slots, no plain
    SE(2) op; wall seconds of scene generation, rollouts and scoring, and
    the host seconds of a mixed and a freeform training batch. Its
-   launches join the kernels' record.
+   launches join the kernels' record;
+8. Table-I arches: sim-absolute, sim-rope2d and sim-se2-repr at full width
+   (seeded random weights), each through phase 4's checks against the
+   reference forward and its float32 and int8 rollouts (exactly the
+   decode's launches, no se2 kernel), phase 5's training (the flash
+   kernels 6 times a step, gradients through the kernels against the
+   plain versions, pose_proj included), open-loop metrics and an
+   evaluation of 7 families x 4 scenes x 4 samples (launches exact, rates
+   finite, kinematic infeasibility 0); the plain transforms' calls and
+   launches of rope2d and se2_repr are reported, not gated; the action
+   probabilities of a freeform scene re-posed by z must hold within 5e-4
+   (se2_repr, rope2d under a translation) or move by more than 1e-4
+   (absolute); phase 5's sim-se2-fourier weights run the same evaluation,
+   and one Table-I line an arch is printed; Algorithm 2 through the flash
+   forward is held to Algorithm 1 for rope2d, se2_repr and se2_fourier,
+   and the peak memory of each is printed at N = M = 1024 and 4096
+   (Algorithm 1 only where it needs at most half the card).
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -72,6 +90,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -111,6 +130,15 @@ SE2_CONFIG_FUNCTIONS = {"expanded_dim", "expanded_v_dim", "num_blocks",
                         "<genexpr>"}   # expanded_dim's sum over the blocks
 MODEL_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
              "int8": dict(atol=8e-2, rtol=8e-2)}
+# encodings whose int8-cache decode drifts past MODEL_TOL["int8"] from the
+# full forward in the reference too: se2_repr caches psi(p) k, whose
+# translation column carries raw positions (tens of encoder units at
+# metric poses), so one row's absmax scale coarsens its other entries.
+# On phase 4's freeform pair at full width the reference's int8 decode
+# drifts 0.116 and the port's 0.116. Their int8 decode through the kernels
+# is held to the plain versions on the same int8 cache instead, and the
+# drift is printed.
+INT8_DRIFT_REPORTED = ("se2_repr",)
 # flash kernels vs plain versions: tests/test_kernels.py:25-27 (forward)
 # and :162-163 (gradients); bf16 outputs round to bf16 on both sides
 FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
@@ -131,6 +159,21 @@ MIXED_PAIR = ("highway", "pedestrian_crossing")
 # slot counts of the two runs that must give bitwise-equal tables
 EVAL_SCENES, EVAL_SAMPLES, EVAL_SLOTS = 16, 4, (64, 48)
 EVAL_SCENE_SEED = 777         # evaluate_families' default scene seed
+# phase 8: the other three Table-I arches, each rolled out, trained and
+# scored as phases 4, 5 and 7 do (scenes a family of its evaluation), then
+# held to SE(2) invariance under the re-posings z and Algorithm 1 against
+# Algorithm 2
+TABLE1_ARCHS = ("sim-absolute", "sim-rope2d", "sim-se2-repr")
+TABLE1_EVAL_SCENES = 4
+# tests/test_se2.py:154 (se2_repr, exact up to float32) and :168 (the
+# absolute baseline must move); rope2d is re-posed by translations only
+INVARIANCE_Z = {"se2_repr": (3.0, -2.0, 0.7), "rope2d": (3.0, -2.0, 0.0),
+                "absolute": (3.0, -2.0, 0.7), "se2_fourier": (3.0, -2.0, 0.7)}
+EXACT_INVARIANCE_BOUND, ABSOLUTE_MOVES = 5e-4, 1e-4
+# Algorithm 2 against Algorithm 1: tests/test_encodings.py:50; shapes of
+# the comparison and of the memory readings, and the poses' extent (m)
+ALG_TOL = {"rope2d": 2e-5, "se2_repr": 2e-5, "se2_fourier": 5e-3}
+ALG_HEADS, ALG_N, ALG_MEM_N, ALG_EXTENT_M = 8, 256, (1024, 4096), 30.0
 
 # the transposed se2 modes have no TPU kernel: they compute what the JAX
 # package computes with untransform_out (also transform_q's VJP) and with
@@ -384,7 +427,7 @@ def plain_se2_calls(fn):
     return hits
 
 
-def scene_attention_case(gen, dev, model, scen, n, scale):
+def scene_attention_case(gen, dev, model, scen, n, scale, c):
     """Random q~, k~, v~ and output cotangent at the train step's attention
     shape (n scenes, all heads, c wide) with the scenes' own times and
     segment ids; a few agents and map tokens are marked invalid, so the
@@ -396,9 +439,7 @@ def scene_attention_case(gen, dev, model, scen, n, scale):
     batch["map_valid"][1::4, -6:] = False
     _, times, seg = model.tokenize({k: torch.as_tensor(v, device=dev)
                                     for k, v in batch.items()})
-    cfg = model.cfg
-    c = model.blocks[0].attn.enc.expanded_dim
-    shape = (n, cfg.num_heads, times.shape[1], c)
+    shape = (n, model.cfg.num_heads, times.shape[1], c)
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                    for _ in range(4))
     return q, k, v, do, dict(causal=True, scale=scale, q_times=times,
@@ -528,6 +569,521 @@ def same_tables(a, b) -> bool:
         for f in a)
 
 
+SCENE_KEYS = ("map_feats", "map_pose", "map_valid", "agent_feats",
+              "agent_pose", "agent_valid")
+
+
+def scene_batch(scenes, dev):
+    """The model's input tensors of a list of scenes, on ``dev``."""
+    import numpy as np
+    import torch
+    return {k: torch.as_tensor(np.stack([s.tensors[k] for s in scenes]),
+                               device=dev) for k in SCENE_KEYS}
+
+
+def check_against_reference(model, scen, pairs, t_hist, s_max):
+    """On each (name, scenes) pair's valid agents: the full forward through
+    the flash kernels against the O(S^2) reference forward (the same
+    weights at attn_impl "ref"), and prefill plus every step with float32
+    and int8 caches against that reference."""
+    import torch
+    from repro_torch.nn.agent_sim import AgentSimModel
+    dev = model.device
+    ref_model = AgentSimModel(dataclasses.replace(model.cfg, attn_impl="ref"),
+                              device=dev)
+    ref_model.load_state_dict(model.state_dict())
+    for what, pair in pairs:
+        batch = scene_batch(pair, dev)
+        valid = batch["agent_valid"]          # logits compared on valid agents
+        n = len(pair)
+        with torch.no_grad():
+            full = ref_model(batch)
+            err = close_or_raise(f"flash forward vs reference forward "
+                                 f"({what})", model(batch)[valid],
+                                 full[valid], **MODEL_TOL["float32"])
+        log(f"{what} (valid agents {[s.num_valid_agents for s in pair]} of "
+            f"{scen.num_agents}): full forward through the flash kernels vs "
+            f"the O(S^2) reference: max abs logit err {err:.3e}")
+        hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
+                for k_, v_ in batch.items()}
+        for cache_dtype in ("float32", "int8"):
+            reported = (cache_dtype == "int8"
+                        and model.cfg.encoding in INT8_DRIFT_REPORTED)
+            decoded = {}
+            for impl in ("auto", "plain") if reported else ("auto",):
+                cache = model.init_cache(n, s_max, cache_dtype)
+                with torch.no_grad():
+                    steps_ = [model.prefill(cache, hist, impl=impl)[0]]
+                    for t in range(t_hist, scen.num_steps):
+                        steps_.append(model.step(
+                            cache, batch["agent_feats"][:, t],
+                            batch["agent_pose"][:, t], valid[:, t],
+                            torch.full((n,), t, dtype=torch.int32,
+                                       device=dev), impl=impl)[0][:, None])
+                decoded[impl] = torch.cat(steps_, 1)
+            got = decoded["auto"]
+            if reported:
+                err = close_or_raise(
+                    f"cached decode through the kernels vs the plain "
+                    f"versions ({what}, {cache_dtype})", got[valid],
+                    decoded["plain"][valid], **MODEL_TOL[cache_dtype])
+                drift = float((got - full)[valid].abs().max())
+                log(f"{what}: cached decode through the kernels vs the "
+                    f"plain versions, {cache_dtype} cache: max abs logit err "
+                    f"{err:.3e}; drift from the full forward {drift:.3e} "
+                    f"(not gated: int8 rows of {model.cfg.encoding})")
+                continue
+            err = close_or_raise(
+                f"cached decode vs full forward ({what}, {cache_dtype})",
+                got[valid], full[valid], **MODEL_TOL[cache_dtype])
+            log(f"{what}: cached decode vs full forward, {cache_dtype} "
+                f"cache: max abs logit err {err:.3e}")
+
+
+def rollouts(model, scen, scenes, t_hist, want_counts, launches, what):
+    """One warm-up, then one RolloutEngine.run of ``scenes`` (a slot each)
+    with float32 and with int8 caches: the output shaped and finite, the
+    launches exactly ``want_counts`` (added to ``launches``); then the
+    float32 run's device profile. Returns a float32 engine."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import RolloutEngine
+    n_slots = len(scenes)
+    RolloutEngine(model, scen, num_slots=n_slots).run(
+        scenes, t_hist=t_hist, n_samples=1, seed=0)          # warm-up
+    for cache_dtype in ("float32", "int8"):
+        engine = RolloutEngine(model, scen, num_slots=n_slots,
+                               cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        fut = engine.run(scenes, t_hist=t_hist, n_samples=1, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        want_shape = (n_slots, 1, scen.num_steps - t_hist, scen.num_agents,
+                      3)
+        if fut.shape != want_shape or not np.isfinite(fut).all():
+            raise AssertionError(f"rollout output {fut.shape} (want "
+                                 f"{want_shape}), finite "
+                                 f"{np.isfinite(fut).all()}")
+        if counts != want_counts:
+            raise AssertionError(f"{what}{cache_dtype} launches {counts} != "
+                                 f"{want_counts}")
+        for name, n in counts.items():
+            launches[name] += n
+        log(f"{what}rollout {cache_dtype}: {n_slots} scenes x "
+            f"{engine.ticks} ticks in {secs:.3f} s = "
+            f"{engine.ticks / secs:.1f} ticks/s, {n_slots / secs:.1f} "
+            f"scenes/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB resident before), launches "
+            f"{counts}")
+        if cache_dtype == "float32":
+            f32_secs = secs
+    # where the rollout's time goes: device time by kernel (torch.profiler)
+    # against the unprofiled wall time of the same float32 run
+    engine = RolloutEngine(model, scen, num_slots=n_slots)
+    device_profile(lambda: engine.run(scenes, t_hist=t_hist, n_samples=1,
+                                      seed=0),
+                   f32_secs, ("prefill or tick", lambda: 1 + engine.ticks),
+                   f"{what}float32 rollout")
+    return engine
+
+
+def train(model, scen, per_step, launches, what, mixed_grads):
+    """Phase 5's training of ``model``: 32 freeform scenes a batch through
+    ShardedIterator, bc_optimizer(3e-3, 22), 2 warm-up and 20 timed steps;
+    the loss finite and falling and the launches exactly ``per_step`` a
+    step (added to ``launches``); the gradients of one batch (with
+    ``mixed_grads`` also of one batch of all seven families) through the
+    kernels against those through the plain versions; open-loop metrics on
+    2 holdout batches finite; the device profile of one step. Returns
+    (one more train step as a function, the open-loop metrics, the batch
+    iterator, which the caller closes)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import ShardedIterator
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.agent_sim import AgentSimModel, action_nll
+    from repro_torch.training.data import (holdout_batches, make_batch_fn,
+                                           make_sim_batch)
+    from repro_torch.training.steps import (bc_optimizer, loss_summary,
+                                            make_sim_train_step,
+                                            open_loop_metrics)
+    dev = model.device
+    data = ShardedIterator(make_batch_fn(scen, FAMILIES),
+                           batch_size=TRAIN_BATCH, seed=0)
+    opt = bc_optimizer(lr=TRAIN_LR, steps=TRAIN_WARMUP + TRAIN_STEPS)
+    train_step = make_sim_train_step(model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = train_step(state, next(data))
+    torch.cuda.synchronize()
+    log(f"{what}train warm-up: {TRAIN_WARMUP} steps in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, next(data))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    train_secs = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    losses = [float(x) for x in losses]
+    want_counts = {k_: n * TRAIN_STEPS for k_, n in per_step.items()}
+    if counts != want_counts:
+        raise AssertionError(f"{what}train launches {counts} != "
+                             f"{want_counts}")
+    for name, n in counts.items():
+        launches[name] += n
+    summary = loss_summary(losses)
+    if not (np.isfinite(losses).all()
+            and summary["loss_last"] < summary["loss_first"]):
+        raise AssertionError(f"{what}train loss did not fall: {losses}")
+    log(f"{what}train: {TRAIN_STEPS} steps x {TRAIN_BATCH} scenes in "
+        f"{train_secs:.3f} s = {TRAIN_STEPS / train_secs:.2f} steps/s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({resident / 2**30:.2f} GiB of it resident before the loop: "
+        f"weights, optimizer state, earlier phases' tensors), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({summary}), grad_norm "
+        f"{float(metrics['grad_norm']):.3f}, accuracy "
+        f"{float(metrics['accuracy']):.3f}, launches {counts}")
+    t0 = time.perf_counter()
+    host_batch = next(data)
+    log(f"{what}train data: one {TRAIN_BATCH}-scene batch from the iterator "
+        f"in {time.perf_counter() - t0:.3f} s of host time")
+
+    # gradients of one batch: the kernels against the plain versions
+    pmodel = AgentSimModel(dataclasses.replace(model.cfg, attn_impl="plain"),
+                           device=dev)
+    pmodel.load_state_dict(model.state_dict())
+    pmodel.requires_grad_(True)
+    grad_batches = [("freeform", host_batch)]
+    if mixed_grads:
+        grad_batches.append(("seven families", make_sim_batch(
+            0, 0, TRAIN_BATCH, scen, families=None)))
+    for bname, host_b in grad_batches:
+        gb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in host_b.items()}
+        grads = []
+        for m_ in (model, pmodel):
+            loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
+            names, leaves = zip(*m_.named_parameters())
+            grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
+        worst = 0.0
+        for name, g_plain in grads[1].items():
+            scale_ = float(g_plain.abs().max())
+            err = float((grads[0][name] - g_plain).abs().max())
+            if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
+                raise AssertionError(
+                    f"{what}train grad {name} ({bname}): kernels vs plain max "
+                    f"abs err {err:.3e}, tensor max {scale_:.3e}")
+            worst = max(worst, err / max(scale_, 1e-30))
+        log(f"{what}train step gradients, kernels vs plain versions, {bname} "
+            f"batch ({int(gb['agent_valid'][:, 0].sum())} of "
+            f"{TRAIN_BATCH * scen.num_agents} agents valid): worst max abs "
+            f"err / tensor max {worst:.3e} over {len(grads[1])} tensors")
+    del pmodel, grads
+    ol = open_loop_metrics(model, holdout_batches(scen, TRAIN_BATCH, 2,
+                                                  families=FAMILIES))
+    if not all(math.isfinite(x) for x in ol.values()):
+        raise AssertionError(f"{what}open-loop metrics not finite: {ol}")
+    log(f"{what}open-loop metrics on 2 holdout batches: {ol}")
+
+    def one_step():
+        nonlocal state
+        state, _ = train_step(state, host_batch)
+    device_profile(one_step, train_secs / TRAIN_STEPS, ("train step", lambda: 1),
+                   f"{what}one train step")
+    return one_step, ol, data
+
+
+def check_tables(tables, eval_scenes, n_scenes, what):
+    """An evaluation's table: a row for each family and "overall", each
+    with its scene count, every rate finite (off-road where the family has
+    a vehicle on a lane graph) and a kinematic infeasibility rate of 0."""
+    from repro_torch import scenarios
+    fams = scenarios.registry.names()
+    road_vehicles = {f: any(
+        s.lane_graph is not None and bool(
+            ((s.tensors["agent_type"] == scenarios.AGENT_TYPE["vehicle"])
+             & s.tensors["agent_valid"][0]).any())
+        for s in eval_scenes if s.family == f) for f in fams}
+    if sorted(tables) != sorted(fams + ["overall"]):
+        raise AssertionError(f"{what}evaluation rows {sorted(tables)}")
+    for fam, row in tables.items():
+        want_n = n_scenes * (len(fams) if fam == "overall" else 1)
+        finite = ["min_ade", "miss_rate", "collision_rate",
+                  "kinematic_infeasibility_rate"]
+        if fam == "overall" or road_vehicles[fam]:
+            finite.append("offroad_rate")
+        bad = [k_ for k_ in finite if not math.isfinite(row[k_])]
+        if (bad or row["kinematic_infeasibility_rate"] != 0.0
+                or row["n_scenes"] != want_n):
+            raise AssertionError(f"{what}evaluation {fam}: not finite {bad}, "
+                                 f"row {row}")
+
+
+def action_shift(model, scene, z):
+    """The largest change of an action probability of a valid agent at the
+    scene's last step under a global re-pose of every pose by z (a full
+    forward each way)."""
+    import torch
+    from repro_torch.core import se2
+    batch = scene_batch([scene], model.device)
+    moved = dict(batch)
+    zt = torch.tensor(z, device=model.device)
+    for key in ("map_pose", "agent_pose"):
+        moved[key] = se2.compose(zt, batch[key])
+    with torch.no_grad():
+        base, after = (torch.softmax(model(b)[:, -1], -1)
+                       for b in (batch, moved))
+    valid = batch["agent_valid"][:, -1]
+    return float((after - base)[valid].abs().max())
+
+
+def launches_in(fn):
+    """Device launches (kernels and copies) of one ``fn()`` call, by
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def peak_bytes(fn):
+    """Device memory ``fn()`` holds at its peak above what was allocated
+    before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
+                 launches):
+    """Phase 8: the other three Table-I arches at full width, each with
+    seeded random weights: (a) the rollout, its checks against the
+    reference forward and its plain-transform calls; (b) the train loop;
+    (c) open-loop metrics and a small evaluation over the seven families
+    (``tmodel``, phase 5's sim-se2-fourier, runs the same evaluation); (d)
+    SE(2) invariance of the action probabilities; then (e) Algorithm 2
+    through the flash forward against Algorithm 1, and the peak memory of
+    each. Main-path launches join ``launches``."""
+    import torch
+    from repro_torch import configs, scenarios
+    from repro_torch.core import attention
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.agent_sim import AgentSimModel, build_sim_encoding
+    from repro_torch.runtime import EvalConfig, evaluate_families
+    dev = tmodel.device
+    fams = scenarios.registry.names()
+    eval_cfg = EvalConfig(t_hist=t_hist, n_samples=EVAL_SAMPLES, seed=0)
+    eval_scenes = [scenarios.generate_scene(f, EVAL_SCENE_SEED, i, scen)
+                   for f in fams for i in range(TABLE1_EVAL_SCENES)]
+    num_layers = tmodel.cfg.num_layers
+    per_rollout = num_layers * (1 + scen.num_steps - t_hist)
+    per_eval = -(-len(eval_scenes) * EVAL_SAMPLES // EVAL_SLOTS[0]) \
+        * per_rollout
+
+    def small_eval(model, want_counts, what):
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        tables = evaluate_families(model, scen, eval_cfg, families=None,
+                                   n_scenes_per_family=TABLE1_EVAL_SCENES,
+                                   scene_seed=EVAL_SCENE_SEED,
+                                   num_slots=EVAL_SLOTS[0])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        if counts != want_counts:
+            raise AssertionError(f"{what}evaluation launches {counts} != "
+                                 f"{want_counts}")
+        for name, n in counts.items():
+            launches[name] += n
+        check_tables(tables, eval_scenes, TABLE1_EVAL_SCENES, what)
+        log(f"{what}evaluate_families: {len(fams)} families x "
+            f"{TABLE1_EVAL_SCENES} scenes x {EVAL_SAMPLES} samples, "
+            f"{EVAL_SLOTS[0]} slots, in {secs:.3f} s; rates finite, "
+            f"kinematic infeasibility 0; launches {counts}")
+        return tables
+
+    rows, shifts = {}, {}
+    for arch_name in TABLE1_ARCHS:
+        arch = configs.get_sim_arch(arch_name)
+        cfg, name = arch.agent_sim_config(), arch.encoding
+        phase(f"8. Table-I arch {arch_name}")
+        torch.cuda.empty_cache()
+        model = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
+        enc = model.blocks[0].attn.enc
+        log(f"arch {arch_name}: d_model {cfg.d_model}, {cfg.num_layers} "
+            f"layers, {cfg.num_heads} heads x {cfg.head_dim}, cache widths "
+            f"{model.blocks[0].attn.cache_dims}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters")
+        what = f"{arch_name} "
+        # a. rollout
+        check_against_reference(model, scen, pairs, t_hist, s_max)
+        engine = rollouts(model, scen, scenes, t_hist,
+                          {"flash_decode": per_rollout}, launches, what)
+        calls = plain_se2_calls(lambda: engine.run(scenes, t_hist=t_hist,
+                                                   n_samples=1, seed=0))
+        del engine
+        if enc is not None:
+            # a layer's plain transforms at the tick, as SimAttention calls
+            # them: q and k (rope2d), also v and the output (se2_repr)
+            x = torch.randn((N_SLOTS, cfg.num_heads, scen.num_agents,
+                             cfg.head_dim), device=dev)
+            p4 = torch.zeros((N_SLOTS, 1, scen.num_agents, enc.pose_dim),
+                             device=dev)
+
+            def transforms():
+                enc.transform_q(x, p4)
+                enc.transform_k(x, p4)
+                if enc.transforms_values:
+                    enc.transform_v(x, p4)
+                    enc.untransform_out(x, p4)
+            per_layer = launches_in(transforms)
+            log(f"{what}plain transforms ({type(enc).__name__}): "
+                f"{sum(calls.values())} calls into core/encodings.py a "
+                f"rollout ({dict(calls)}); {per_layer} device launches a "
+                f"layer of a tick, {per_layer * cfg.num_layers} a tick")
+        elif calls:
+            raise AssertionError(f"{what}rollout ran plain SE(2) ops: "
+                                 f"{calls}")
+        # b. training
+        per_step = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                                  "flash_attention_dkv"), cfg.num_layers)
+        one_step, ol, data = train(model, scen, per_step, launches, what,
+                                   mixed_grads=False)
+        calls = plain_se2_calls(one_step)
+        data.close()
+        log(f"{what}train step: {sum(calls.values())} calls into "
+            f"core/encodings.py ({dict(calls)})")
+        if enc is None and calls:
+            raise AssertionError(f"{what}train step ran plain SE(2) ops")
+        # c. scoring
+        rows[name] = (ol, small_eval(model, {"flash_decode": per_eval},
+                                     what)["overall"])
+        # d. invariance of the action probabilities under a re-pose
+        shifts[name] = action_shift(model, scenes[0], INVARIANCE_Z[name])
+        log(f"{what}action probabilities under z = {INVARIANCE_Z[name]}: "
+            f"max shift {shifts[name]:.3e}")
+        if name == "absolute":
+            if not shifts[name] > ABSOLUTE_MOVES:
+                raise AssertionError(f"{what}did not move under a re-pose: "
+                                     f"{shifts[name]:.3e}")
+        elif not shifts[name] <= EXACT_INVARIANCE_BOUND:
+            raise AssertionError(f"{what}moved {shifts[name]:.3e} under a "
+                                 f"re-pose (bound {EXACT_INVARIANCE_BOUND})")
+        del model, one_step
+    phase("8. Table-I lines")
+    rows["se2_fourier"] = (se2_fourier_ol, small_eval(tmodel, {
+        "flash_decode": per_eval, "se2_project_q": per_eval,
+        "se2_project_k": 2 * per_eval, "se2_project_q_t": per_eval},
+        "sim-se2-fourier ")["overall"])
+    shifts["se2_fourier"] = action_shift(tmodel, scenes[0],
+                                         INVARIANCE_Z["se2_fourier"])
+    log(f"sim-se2-fourier action probabilities under z = "
+        f"{INVARIANCE_Z['se2_fourier']}: max shift "
+        f"{shifts['se2_fourier']:.3e} (not gated: the F = 12 truncation)")
+    log(f"Table I after {TRAIN_WARMUP + TRAIN_STEPS} train steps from random "
+        f"weights (printed, not compared: so few steps order nothing); "
+        f"open loop on 2 holdout batches, closed loop over {len(fams)} "
+        f"families x {TABLE1_EVAL_SCENES} scenes x {EVAL_SAMPLES} samples:")
+    for name in ("absolute", "rope2d", "se2_repr", "se2_fourier"):
+        ol, row = rows[name]
+        log(f"  Table-I {name:12s} nll {ol['nll']:.4f} accuracy "
+            f"{ol['accuracy']:.4f} minADE {row['min_ade']:.4f} miss "
+            f"{row['miss_rate']:.4f} collision {row['collision_rate']:.4f} "
+            f"off-road {row['offroad_rate']:.4f} | invariance shift "
+            f"{shifts[name]:.3e}")
+
+    # e. Algorithm 2 (through the flash forward) against Algorithm 1
+    phase("8. Algorithm 1 against Algorithm 2")
+    encs = {"rope2d": build_sim_encoding(
+                configs.get_sim_arch("sim-rope2d").agent_sim_config()),
+            "se2_repr": build_sim_encoding(
+                configs.get_sim_arch("sim-se2-repr").agent_sim_config()),
+            "se2_fourier": tmodel.blocks[0].attn.enc}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    half_card = torch.cuda.get_device_properties(dev).total_memory / 2
+    d = tmodel.cfg.head_dim
+
+    def inputs(n, pose_dim):
+        q, k, v = (torch.randn((1, ALG_HEADS, n, d), generator=gen,
+                               device=dev) for _ in range(3))
+        xy = (torch.rand((1, 1, n, 2), generator=gen, device=dev) * 2 - 1) \
+            * ALG_EXTENT_M * tmodel.cfg.pos_scale
+        th = (torch.rand((1, 1, n, 1), generator=gen, device=dev) * 2 - 1) \
+            * math.pi
+        pose = torch.cat([xy, th], -1)[..., :pose_dim]
+        return q, k, v, pose
+
+    for name, enc in encs.items():
+        q, k, v, pose = inputs(ALG_N, enc.pose_dim)
+        grid = pose.expand(1, ALG_HEADS, ALG_N, enc.pose_dim)
+        cuda.reset_launches()
+        with torch.no_grad():
+            lin = attention.relative_attention_linear(
+                enc, q, k, v, pose, pose, sdpa_fn=attention.flash_sdpa)
+            torch.cuda.synchronize()
+            if cuda.LAUNCHES != {"flash_attention_fwd": 1}:
+                raise AssertionError(f"Algorithm 2 ({name}) launched "
+                                     f"{cuda.LAUNCHES}")
+            quad = attention.relative_attention_quadratic(enc, q, k, v, grid,
+                                                          grid)
+        err = close_or_raise(f"Algorithm 2 vs Algorithm 1 ({name})", lin,
+                             quad, atol=ALG_TOL[name], rtol=ALG_TOL[name])
+        log(f"Algorithm 2 through the flash forward vs Algorithm 1, {name}, "
+            f"B 1, H {ALG_HEADS}, N = M = {ALG_N}, d {d}, c "
+            f"{enc.expanded_dim}: max abs err {err:.3e} (tolerance "
+            f"{ALG_TOL[name]})")
+        prev_n, prev_peak = None, None
+        for n in (ALG_N,) + ALG_MEM_N:
+            q, k, v, pose = inputs(n, enc.pose_dim)
+            grid = pose.expand(1, ALG_HEADS, n, enc.pose_dim)
+            with torch.no_grad():
+                lin_b = peak_bytes(lambda: attention.relative_attention_linear(
+                    enc, q, k, v, pose, pose, sdpa_fn=attention.flash_sdpa))
+                # the (N, M) tensors Algorithm 1 holds at once: phi(p_rel) k
+                # (and v), the relative poses, the logits and the weights
+                pair_floats = d * (2 if enc.transforms_values else 1) \
+                    + enc.pose_dim + 2
+                need = ALG_HEADS * n * n * pair_floats * 4
+                if prev_peak is not None:
+                    need = max(need, prev_peak * (n / prev_n) ** 2)
+                if need > half_card:
+                    quad_text = (f"quadratic not run: needs about "
+                                 f"{need / 2**30:.1f} GiB, over half the "
+                                 f"card ({half_card / 2**30:.1f} GiB)")
+                else:
+                    prev_n, prev_peak = n, peak_bytes(
+                        lambda: attention.relative_attention_quadratic(
+                            enc, q, k, v, grid, grid))
+                    quad_text = (f"quadratic {prev_peak / 2**20:.1f} MiB "
+                                 f"(estimated {need / 2**20:.1f})")
+            if n in ALG_MEM_N:
+                log(f"peak memory, {name}, N = M = {n}: linear "
+                    f"{lin_b / 2**20:.1f} MiB, {quad_text}")
+        del q, k, v, pose, grid, lin, quad
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -546,17 +1102,12 @@ def main() -> int:
                                                  se2_fourier_project_t,
                                                  se2_project_plain,
                                                  se2_project_t_plain)
-    from repro_torch.data import ShardedIterator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    from repro_torch.nn.agent_sim import AgentSimModel, action_nll
+    from repro_torch.nn.agent_sim import AgentSimModel
     from repro_torch.runtime import (EvalConfig, RolloutEngine,
                                      evaluate_families, evaluate_scenes)
-    from repro_torch.training.data import (holdout_batches, make_batch_fn,
-                                           make_sim_batch)
-    from repro_torch.training.steps import (bc_optimizer, loss_summary,
-                                            make_sim_train_step,
-                                            open_loop_metrics)
+    from repro_torch.training.data import make_sim_batch
 
     # 1. the card ------------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -615,18 +1166,22 @@ def main() -> int:
     cursors = np.concatenate([[0, 1, 127, 128, s_max],
                               np.random.default_rng(0).integers(
                                   0, s_max + 1, n_slots - 5)])
-    for cache_dtype in ("float32", "bfloat16", "int8"):
+    # the decode at sim-se2-fourier's c = 200 and at the other Table-I
+    # arches' c = head_dim = 24
+    for cache_dtype, width in itertools.product(
+            ("float32", "bfloat16", "int8"), (c, cfg.head_dim)):
         for sq, prefill in ((tick_rows, False), (prefill_rows, False),
                             (prefill_rows, True)):
             case = decode_case(gen, dev, cache_dtype, layers=cfg.num_layers,
-                               b=n_slots, h=cfg.num_heads, s=s_max, c=c,
+                               b=n_slots, h=cfg.num_heads, s=s_max, c=width,
                                sq=sq, cursors=cursors,
                                num_map=scen.num_map,
                                num_agents=scen.num_agents, prefill=prefill)
             q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
             want = ops.decode_attention(q, k, v, impl="plain", layer=3,
                                         **case)
-            what = f"{cache_dtype:8s} Sq={sq:3d}{' prefill mask' * prefill}"
+            what = (f"{cache_dtype:8s} c={width:3d} Sq={sq:3d}"
+                    f"{' prefill mask' * prefill}")
             for splits in (None, 1, 5):
                 got = ops.decode_attention(q, k, v, impl="flash_decode",
                                            layer=3, num_splits=splits,
@@ -705,20 +1260,26 @@ def main() -> int:
                              "version")
     attn_scale = 1.0 / math.sqrt(cfg.head_dim)
     train_case = scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
-                                      attn_scale)
-    first = check_flash("train shape " + "x".join(
-        map(str, train_case[0].shape)), *train_case, max_err)
-    again = fab.flash_attention_bwd(*train_case[:3], *fa.flash_attention_fwd(
-        *train_case[:3], **train_case[4]), train_case[3], **train_case[4])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        raise AssertionError("flash backward is not bitwise repeatable")
-    log("flash backward at the train shape: bitwise repeatable")
+                                      attn_scale, c)
+    # and at the other Table-I arches' width, c = head_dim = 24
+    train_case_24 = scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
+                                         attn_scale, cfg.head_dim)
+    for case_ in (train_case, train_case_24):
+        what = "train shape " + "x".join(map(str, case_[0].shape))
+        first = check_flash(what, *case_, max_err)
+        again = fab.flash_attention_bwd(*case_[:3], *fa.flash_attention_fwd(
+            *case_[:3], **case_[4]), case_[3], **case_[4])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"flash backward at the {what}: not "
+                                 f"bitwise repeatable")
+        log(f"flash backward at the {what}: bitwise repeatable")
     for name in FLASH_FEATURES:
         for dtype in (torch.float32, torch.bfloat16):
             check_flash(f"{name} {str(dtype)[6:]}",
                         *feature_case(gen, dev, name, dtype), max_err)
-    repeat_cases = {"train shape": train_case}
+    repeat_cases = {"train shape": train_case,
+                    "train shape c=24": train_case_24}
     for dtype in (torch.float32, torch.bfloat16):
         repeat_cases[f"odd_widths {str(dtype)[6:]}"] = feature_case(
             gen, dev, "odd_widths", dtype)
@@ -743,91 +1304,15 @@ def main() -> int:
                                for i in range(100))
                    if s.num_valid_agents < scen.num_agents)
               for f in MIXED_PAIR]
-    ref_model = AgentSimModel(dataclasses.replace(cfg, attn_impl="ref"),
-                              generator=torch.Generator().manual_seed(0))
-    for what, pair in (("freeform", scenes[:2]),
-                       (" + ".join(MIXED_PAIR), padded)):
-        batch = {k_: torch.as_tensor(np.stack([s.tensors[k_] for s in pair]),
-                                     device=dev)
-                 for k_ in ("map_feats", "map_pose", "map_valid",
-                            "agent_feats", "agent_pose", "agent_valid")}
-        valid = batch["agent_valid"]          # logits compared on valid agents
-        with torch.no_grad():
-            full = ref_model(batch)
-            err = close_or_raise(f"flash forward vs reference forward "
-                                 f"({what})", model(batch)[valid],
-                                 full[valid], **MODEL_TOL["float32"])
-        log(f"{what} (valid agents {[s.num_valid_agents for s in pair]} of "
-            f"{scen.num_agents}): full forward through the flash kernels vs "
-            f"the O(S^2) reference: max abs logit err {err:.3e}")
-        for cache_dtype in ("float32", "int8"):
-            cache = model.init_cache(2, s_max, cache_dtype)
-            hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
-                    for k_, v_ in batch.items()}
-            got, cache = model.prefill(cache, hist)
-            err = close_or_raise(
-                f"prefill vs full forward ({what}, {cache_dtype})",
-                got[valid[:, :t_hist]], full[:, :t_hist][valid[:, :t_hist]],
-                **MODEL_TOL[cache_dtype])
-            for t in range(t_hist, scen.num_steps):
-                lt, cache = model.step(cache, batch["agent_feats"][:, t],
-                                       batch["agent_pose"][:, t],
-                                       valid[:, t],
-                                       torch.full((2,), t, dtype=torch.int32,
-                                                  device=dev))
-                err = max(err, close_or_raise(
-                    f"step {t} vs full forward ({what}, {cache_dtype})",
-                    lt[valid[:, t]], full[:, t][valid[:, t]],
-                    **MODEL_TOL[cache_dtype]))
-            log(f"{what}: cached decode vs full forward, {cache_dtype} "
-                f"cache: max abs logit err {err:.3e}")
-    del ref_model
-
-    RolloutEngine(model, scen, num_slots=n_slots).run(
-        scenes, t_hist=t_hist, n_samples=1, seed=0)          # warm-up
+    pairs = (("freeform", scenes[:2]), (" + ".join(MIXED_PAIR), padded))
+    check_against_reference(model, scen, pairs, t_hist, s_max)
     want_counts = {"flash_decode": cfg.num_layers * (1 + scen.num_steps
                                                      - t_hist)}
     want_counts["se2_project_q"] = want_counts["flash_decode"]
     want_counts["se2_project_k"] = 2 * want_counts["flash_decode"]
     want_counts["se2_project_q_t"] = want_counts["flash_decode"]
     launches = dict.fromkeys(REPLACES, 0)
-    for cache_dtype in ("float32", "int8"):
-        engine = RolloutEngine(model, scen, num_slots=n_slots,
-                               cache_dtype=cache_dtype)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launches()
-        t0 = time.perf_counter()
-        fut = engine.run(scenes, t_hist=t_hist, n_samples=1, seed=0)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = dict(cuda.LAUNCHES)
-        want_shape = (n_slots, 1, scen.num_steps - t_hist, scen.num_agents, 3)
-        if fut.shape != want_shape or not np.isfinite(fut).all():
-            raise AssertionError(f"rollout output {fut.shape} (want "
-                                 f"{want_shape}), finite "
-                                 f"{np.isfinite(fut).all()}")
-        if counts != want_counts:
-            raise AssertionError(f"{cache_dtype} launches {counts} != "
-                                 f"{want_counts}")
-        for name, n in counts.items():
-            launches[name] += n
-        log(f"rollout {cache_dtype}: {n_slots} scenes x {engine.ticks} ticks "
-            f"in {secs:.3f} s = {engine.ticks / secs:.1f} ticks/s, "
-            f"{n_slots / secs:.1f} scenes/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"launches {counts}")
-
-        if cache_dtype == "float32":
-            f32_secs = secs
-
-    # where the rollout's time goes: device time by kernel (torch.profiler)
-    # against the unprofiled wall time of the same float32 run
-    engine = RolloutEngine(model, scen, num_slots=n_slots)
-    device_profile(lambda: engine.run(scenes, t_hist=t_hist, n_samples=1,
-                                      seed=0),
-                   f32_secs, ("prefill or tick", lambda: 1 + engine.ticks),
-                   "float32 rollout")
+    engine = rollouts(model, scen, scenes, t_hist, want_counts, launches, "")
     calls = plain_se2_calls(lambda: engine.run(scenes, t_hist=t_hist,
                                                n_samples=1, seed=0))
     if calls:
@@ -840,29 +1325,6 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     tmodel = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
-    data = ShardedIterator(make_batch_fn(scen, FAMILIES),
-                           batch_size=TRAIN_BATCH, seed=0)
-    opt = bc_optimizer(lr=TRAIN_LR, steps=TRAIN_WARMUP + TRAIN_STEPS)
-    train_step = make_sim_train_step(tmodel, opt)
-    state = opt.init(dict(tmodel.named_parameters()))
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        state, metrics = train_step(state, next(data))
-    torch.cuda.synchronize()
-    log(f"train warm-up: {TRAIN_WARMUP} steps in "
-        f"{time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, next(data))
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    train_secs = time.perf_counter() - t0
-    counts = dict(cuda.LAUNCHES)
-    losses = [float(x) for x in losses]
     # a layer: q~ and untransform_out forward ("q", "q_t") and backward
     # ("q_t", "q"), k~ and v~ forward ("k" twice) and backward ("k_t" twice)
     per_step = {"flash_attention_fwd": cfg.num_layers,
@@ -872,68 +1334,8 @@ def main() -> int:
                 "se2_project_q_t": 2 * cfg.num_layers,
                 "se2_project_k": 2 * cfg.num_layers,
                 "se2_project_k_t": 2 * cfg.num_layers}
-    want_counts = {k_: n * TRAIN_STEPS for k_, n in per_step.items()}
-    if counts != want_counts:
-        raise AssertionError(f"train launches {counts} != {want_counts}")
-    for name, n in counts.items():
-        launches[name] += n
-    summary = loss_summary(losses)
-    if not (np.isfinite(losses).all()
-            and summary["loss_last"] < summary["loss_first"]):
-        raise AssertionError(f"train loss did not fall: {losses}")
-    log(f"train: {TRAIN_STEPS} steps x {TRAIN_BATCH} scenes in "
-        f"{train_secs:.3f} s = {TRAIN_STEPS / train_secs:.2f} steps/s, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"({resident / 2**30:.2f} GiB of it resident before the loop: "
-        f"weights, optimizer state, the kernel phase's inputs), "
-        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({summary}), grad_norm "
-        f"{float(metrics['grad_norm']):.3f}, accuracy "
-        f"{float(metrics['accuracy']):.3f}, launches {counts}")
-    t0 = time.perf_counter()
-    host_batch = next(data)
-    log(f"train data: one {TRAIN_BATCH}-scene batch from the iterator in "
-        f"{time.perf_counter() - t0:.3f} s of host time")
-
-    # gradients of one batch: the kernels against the plain versions, on a
-    # freeform batch and on one mixed batch of all seven families
-    pmodel = AgentSimModel(dataclasses.replace(cfg, attn_impl="plain"),
-                           generator=torch.Generator().manual_seed(0))
-    pmodel.load_state_dict(tmodel.state_dict())
-    pmodel.requires_grad_(True)
-    for what, host_b in (("freeform", host_batch),
-                         ("seven families", make_sim_batch(
-                             0, 0, TRAIN_BATCH, scen, families=None))):
-        gb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in host_b.items()}
-        grads = []
-        for m_ in (tmodel, pmodel):
-            loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
-            names, leaves = zip(*m_.named_parameters())
-            grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
-        worst = 0.0
-        for name, g_plain in grads[1].items():
-            scale_ = float(g_plain.abs().max())
-            err = float((grads[0][name] - g_plain).abs().max())
-            if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
-                raise AssertionError(
-                    f"train grad {name} ({what}): kernels vs plain max abs "
-                    f"err {err:.3e}, tensor max {scale_:.3e}")
-            worst = max(worst, err / max(scale_, 1e-30))
-        log(f"train step gradients, kernels vs plain versions, {what} batch "
-            f"({int(gb['agent_valid'][:, 0].sum())} of "
-            f"{TRAIN_BATCH * scen.num_agents} agents valid): worst max abs "
-            f"err / tensor max {worst:.3e} over {len(grads[1])} tensors")
-    del pmodel, grads
-    ol = open_loop_metrics(tmodel, holdout_batches(scen, TRAIN_BATCH, 2,
-                                                   families=FAMILIES))
-    if not all(math.isfinite(x) for x in ol.values()):
-        raise AssertionError(f"open-loop metrics not finite: {ol}")
-    log(f"open-loop metrics on 2 holdout batches: {ol}")
-
-    def one_step():
-        nonlocal state
-        state, _ = train_step(state, host_batch)
-    device_profile(one_step, train_secs / TRAIN_STEPS, ("train step", lambda: 1),
-                   "one train step")
+    one_step, ol, data = train(tmodel, scen, per_step, launches, "",
+                               mixed_grads=True)
     calls = plain_se2_calls(one_step)
     if calls:
         raise AssertionError(f"the train step ran plain SE(2) ops: {calls}")
@@ -945,12 +1347,13 @@ def main() -> int:
     phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
 
-    def decode_timing(sq, cursor, prefill):
+    def decode_timing(sq, cursor, prefill, c):
         """flash_decode at the tick (sq new rows at the newest time against
         ``cursor`` live rows) or the prefill (the first sq tokens against
-        themselves, block-causal), float32 cache; SDPA over the live prefix
-        with the same mask. FLOPs count the (q, k) pairs the mask admits,
-        bounded at the tensor cores' rate for float32-accurate products."""
+        themselves, block-causal), float32 cache c wide; SDPA over the live
+        prefix with the same mask. FLOPs count the (q, k) pairs the mask
+        admits, bounded at the tensor cores' rate for float32-accurate
+        products."""
         case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
                            b=n_slots, h=cfg.num_heads, s=s_max, c=c, sq=sq,
                            cursors=[cursor] * n_slots, num_map=scen.num_map,
@@ -977,7 +1380,7 @@ def main() -> int:
             flops=2 * int(mask.sum()) * h_ * 2 * c,
             rate=SPLIT_TF32_FLOP_PER_S, kernel="flash_decode",
             shape=f"{'prefill' if prefill else 'tick'}: {b_} slots x {h_} "
-                  f"heads x {sq} query rows, {cursor} live cache rows, "
+                  f"heads x {sq} query rows x {c}, {cursor} live cache rows, "
                   f"{int(mask.sum())} of {b_ * sq * cursor} (q, k) pairs "
                   f"admitted a head")
     def se2_timing(name, b_, n_):
@@ -997,61 +1400,82 @@ def main() -> int:
             kernel=name, shape=f"{b_} scenes x {cfg.num_heads} heads x {n_} "
                                f"tokens")
 
-    # se2 at the tick (the record) and at the train step (its "train")
+    # se2 at the tick (the record) and at the train step (its "train");
+    # the decode at c = 200 (the record, its "prefill") and at the other
+    # Table-I arches' c = 24 ("c24", "c24_prefill")
     timings = {
-        "flash_decode": decode_timing(tick_rows, kvl, False),
+        "flash_decode": decode_timing(tick_rows, kvl, False, c),
         "flash_decode_prefill": dict(
-            decode_timing(prefill_rows, prefill_rows, True), nest="prefill"),
+            decode_timing(prefill_rows, prefill_rows, True, c),
+            nest="prefill"),
+        "flash_decode_c24": dict(
+            decode_timing(tick_rows, kvl, False, cfg.head_dim), nest="c24"),
+        "flash_decode_prefill_c24": dict(
+            decode_timing(prefill_rows, prefill_rows, True, cfg.head_dim),
+            nest="c24_prefill"),
         **{name: se2_timing(name, n_slots, tick_rows) for name in SE2_MODES},
         **{f"{name}_train": dict(se2_timing(name, TRAIN_BATCH, train_tokens),
                                  nest="train") for name in SE2_MODES},
     }
-    # the flash kernels at the train step's attention shape; FLOPs count
-    # only the (q, k) pairs this run's mask admits, bounded at the tensor
-    # cores' rate for float32-accurate products
-    tq, tk, tv, tdo, topts = train_case
-    tout, tlse = fa.flash_attention_fwd(tq, tk, tv, **topts)
-    tdelta = torch.sum(tdo * tout, dim=-1)
-    times_, seg_ = topts["q_times"], topts["q_segment_ids"]
-    pair_mask = ((times_[:, None, :] <= times_[:, :, None])
-                 & (seg_[:, :, None] == seg_[:, None, :])
-                 & (seg_[:, None, :] >= 0))                 # (B, Sq, Sk)
-    tb_, th_, ts_, tc_ = tq.shape
-    pairs = int(pair_mask.sum()) * th_
-    elem, row = tb_ * th_ * ts_ * tc_ * 4, tb_ * th_ * ts_ * 4
-    masks_bytes = 4 * tb_ * ts_ * 4
-    sdpa_mask = pair_mask[:, None]
-    lq, lk, lv = (t_.detach().clone().requires_grad_(True)
-                  for t_ in (tq, tk, tv))
-    lout = torch.nn.functional.scaled_dot_product_attention(
-        lq, lk, lv, attn_mask=sdpa_mask, scale=attn_scale)
-    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        lout, (lq, lk, lv), tdo, retain_graph=True)
-    plain_bwd = lambda: fab.flash_bwd_plain(  # noqa: E731
-        tq, tk, tv, tout, tlse, tdo, **topts)
-    timings.update({
-        "flash_attention_fwd": dict(
-            fn=lambda: fa.flash_attention_fwd(tq, tk, tv, **topts),
-            plain=lambda: fa.flash_fwd_plain(tq, tk, tv, **topts),
-            library=lambda: torch.nn.functional.scaled_dot_product_attention(
-                tq, tk, tv, attn_mask=sdpa_mask, scale=attn_scale),
-            bytes=4 * elem + row + masks_bytes,
-            flops=2 * pairs * (tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S),
-        # one plain backward and one SDPA backward compute dq, dk and dv
-        # together: both rows carry the same combined plain_ms/library_ms
-        "flash_attention_dq": dict(
-            fn=lambda: fab.flash_attention_dq(tq, tk, tv, tdo, tlse, tdelta,
-                                              **topts),
-            plain=plain_bwd, library=sdpa_bwd,
-            bytes=5 * elem + 2 * row + masks_bytes,
-            flops=2 * pairs * (2 * tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S),
-        "flash_attention_dkv": dict(
-            fn=lambda: fab.flash_attention_dkv(tq, tk, tv, tdo, tlse,
-                                               tdelta, **topts),
-            plain=plain_bwd, library=sdpa_bwd,
-            bytes=6 * elem + 2 * row + masks_bytes,
-            flops=2 * pairs * (2 * tc_ + 2 * tc_), rate=SPLIT_TF32_FLOP_PER_S),
-    })
+    def flash_timings(case):
+        """The flash forward, dq and dk/dv at the train step's attention
+        shape; FLOPs count only the (q, k) pairs this run's mask admits,
+        bounded at the tensor cores' rate for float32-accurate products.
+        Returns the three timings and the (B, Sq, Sk) pair mask."""
+        tq, tk, tv, tdo, topts = case
+        tout, tlse = fa.flash_attention_fwd(tq, tk, tv, **topts)
+        tdelta = torch.sum(tdo * tout, dim=-1)
+        times_, seg_ = topts["q_times"], topts["q_segment_ids"]
+        pair_mask = ((times_[:, None, :] <= times_[:, :, None])
+                     & (seg_[:, :, None] == seg_[:, None, :])
+                     & (seg_[:, None, :] >= 0))             # (B, Sq, Sk)
+        tb_, th_, ts_, tc_ = tq.shape
+        pairs = int(pair_mask.sum()) * th_
+        elem, row = tb_ * th_ * ts_ * tc_ * 4, tb_ * th_ * ts_ * 4
+        masks_bytes = 4 * tb_ * ts_ * 4
+        sdpa_mask = pair_mask[:, None]
+        lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                      for t_ in (tq, tk, tv))
+        lout = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=sdpa_mask, scale=attn_scale)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lout, (lq, lk, lv), tdo, retain_graph=True)
+        plain_bwd = lambda: fab.flash_bwd_plain(  # noqa: E731
+            tq, tk, tv, tout, tlse, tdo, **topts)
+        shape = f"{tb_} scenes x {th_} heads x {ts_} tokens x {tc_}"
+        return {
+            "flash_attention_fwd": dict(
+                fn=lambda: fa.flash_attention_fwd(tq, tk, tv, **topts),
+                plain=lambda: fa.flash_fwd_plain(tq, tk, tv, **topts),
+                library=lambda: torch.nn.functional
+                .scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_mask,
+                                              scale=attn_scale),
+                bytes=4 * elem + row + masks_bytes,
+                flops=2 * pairs * (tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S,
+                shape=shape),
+            # one plain backward and one SDPA backward compute dq, dk and dv
+            # together: both rows carry the same combined plain/library ms
+            "flash_attention_dq": dict(
+                fn=lambda: fab.flash_attention_dq(tq, tk, tv, tdo, tlse,
+                                                  tdelta, **topts),
+                plain=plain_bwd, library=sdpa_bwd,
+                bytes=5 * elem + 2 * row + masks_bytes,
+                flops=2 * pairs * (2 * tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S,
+                shape=shape),
+            "flash_attention_dkv": dict(
+                fn=lambda: fab.flash_attention_dkv(tq, tk, tv, tdo, tlse,
+                                                   tdelta, **topts),
+                plain=plain_bwd, library=sdpa_bwd,
+                bytes=6 * elem + 2 * row + masks_bytes,
+                flops=2 * pairs * (2 * tc_ + 2 * tc_),
+                rate=SPLIT_TF32_FLOP_PER_S, shape=shape),
+        }, pair_mask
+
+    flash_200, pair_mask = flash_timings(train_case)
+    flash_24, _ = flash_timings(train_case_24)
+    timings.update(flash_200)
+    timings.update({f"{name}_c24": dict(tm, kernel=name, nest="c24")
+                    for name, tm in flash_24.items()})
     records = []
     measured = {}
 
@@ -1099,11 +1523,13 @@ def main() -> int:
         owner[timings[nested["name"]]["nest"]] = {k_: nested[k_] for k_ in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_f32_ms")}
+    tb_, th_, ts_, _ = train_case[0].shape
+    admitted = int(pair_mask.sum()) * th_
     log(f"train attention shape: {tb_} scenes x {th_} heads x {ts_} tokens, "
-        f"c = {tc_}; {pairs // th_} of {tb_ * ts_ * ts_} (q, k) pairs "
-        f"admitted ({pairs / (th_ * tb_ * ts_ * ts_):.1%}); the plain_ms and "
-        f"library_ms of flash_attention_dq and _dkv are one backward that "
-        f"computes dq, dk and dv together")
+        f"c = {c} and {cfg.head_dim}; {admitted // th_} of {tb_ * ts_ * ts_} "
+        f"(q, k) pairs admitted ({admitted / (th_ * tb_ * ts_ * ts_):.1%}); the "
+        f"plain_ms and library_ms of flash_attention_dq and _dkv are one "
+        f"backward that computes dq, dk and dv together")
     for name, own_mask, own, walk in (
             ("flash_attention_fwd", pair_mask, FWD_TILE_OWN, FWD_TILE_WALK),
             ("flash_attention_dq", pair_mask, BWD_TILE_OWN, BWD_TILE_WALK),
@@ -1111,8 +1537,8 @@ def main() -> int:
              BWD_TILE_WALK)):
         computed = computed_pairs(own_mask, own, walk)
         log(f"{name}: its {own} x {walk} tiles compute {computed} (q, k) "
-            f"pairs a head, of which the mask admits {pairs // th_} "
-            f"({pairs / th_ / computed:.1%})")
+            f"pairs a head, of which the mask admits {admitted // th_} "
+            f"({admitted / th_ / computed:.1%})")
 
     # 7. evaluation ---------------------------------------------------------
     phase("7. evaluation")
@@ -1186,24 +1612,7 @@ def main() -> int:
     for fam, row in tables.items():
         log(f"  {fam:24s} " + ", ".join(f"{k_} {v_:.6g}"
                                         for k_, v_ in row.items()))
-    road_vehicles = {f: any(
-        s.lane_graph is not None and bool(
-            ((s.tensors["agent_type"] == scenarios.AGENT_TYPE["vehicle"])
-             & s.tensors["agent_valid"][0]).any())
-        for s in eval_scenes if s.family == f) for f in fams}
-    if sorted(tables) != sorted(fams + ["overall"]):
-        raise AssertionError(f"evaluation rows {sorted(tables)}")
-    for fam, row in tables.items():
-        want_n = EVAL_SCENES * (len(fams) if fam == "overall" else 1)
-        finite = ["min_ade", "miss_rate", "collision_rate",
-                  "kinematic_infeasibility_rate"]
-        if fam == "overall" or road_vehicles[fam]:
-            finite.append("offroad_rate")
-        bad = [k_ for k_ in finite if not math.isfinite(row[k_])]
-        if (bad or row["kinematic_infeasibility_rate"] != 0.0
-                or row["n_scenes"] != want_n):
-            raise AssertionError(f"evaluation {fam}: not finite {bad}, "
-                                 f"row {row}")
+    check_tables(tables, eval_scenes, EVAL_SCENES, "")
     again = {}
     calls = plain_se2_calls(lambda: again.update(evaluate_families(
         tmodel, scen, eval_cfg, families=None,
@@ -1217,6 +1626,9 @@ def main() -> int:
     log(f"evaluation: tables bitwise equal at {EVAL_SLOTS[0]} and "
         f"{EVAL_SLOTS[1]} slots; no call into core/encodings.py or "
         f"core/fourier.py that runs a tensor op")
+
+    # 8. the other three Table-I arches ------------------------------------
+    table1_phase(tmodel, ol, scen, scenes, pairs, t_hist, s_max, launches)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

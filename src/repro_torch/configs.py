@@ -1,10 +1,9 @@
 """Agent-simulation architectures (port of ``repro/configs/base.py:193-247``
 and the ``sim-*`` rows of ``repro/configs/archs.py``).
 
-One arch per Table-I attention mechanism, identical everywhere else. The
-four names are registered as in the reference; only ``sim-se2-fourier``
-builds a model in the port so far (the other encodings raise
-``NotImplementedError``).
+One arch per Table-I attention mechanism, identical everywhere else
+(``absolute`` adds its pose embedding's projection). The four names are
+the reference's, and each builds a model in the port.
 """
 from __future__ import annotations
 

@@ -6,24 +6,46 @@ queries with ``phi_q^T`` and keys/values with ``phi_k``, runs a standard
 attention, and post-transforms the output with ``phi_q``. ``apply_phi`` is
 the exact ``phi(p_rel) @ vec`` of Algorithm 1.
 
-This slice ports the paper's ``se2_fourier`` encoding; the other Table-I
-encodings come in a later slice (``make_encoding`` says so).
+The encodings of the paper's Table I and one more:
+
+* :class:`AbsoluteEncoding`: no transform; the model adds a pose embedding
+  to the token features instead (the non-invariant baseline).
+* :class:`Rope1D`: G = R, rotary embeddings in the "split half" layout.
+* :class:`Rope2D`: G = R^2, a Rope1D on each half of the width (x, then
+  y): translation invariant, not rotation invariant.
+* :class:`SE2Repr`: G = SE(2) through the 3x3 homogeneous matrix of each
+  3-wide block (exact; the scores hold raw positions).
+* :class:`SE2Fourier`: G = SE(2), the paper's linear-memory encoding.
+
+Transforms act on the trailing feature dimension and broadcast over the
+leading ones; poses have trailing dimension ``pose_dim``. Float64 inputs
+compute in float64, everything else in float32.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import fourier
+from repro_torch.core import fourier, se2
 
 
 def _as_compute(x: torch.Tensor) -> torch.Tensor:
     """The encodings compute in float32; float64 stays float64 (the exact
     yardstick of the projection's adjoint and gradient tests)."""
     return x if x.dtype == torch.float64 else x.to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder(values: Tuple[float, ...], dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """A float64 ladder (frequencies, scales) as a ``dtype`` tensor on
+    ``device``, copied there once: a copy from host memory in every call
+    would make the host wait for the card in every layer."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _rotate_pairs(x0, x1, cos, sin):
@@ -72,6 +94,173 @@ class GroupEncoding:
     @property
     def transforms_values(self) -> bool:
         return False
+
+
+@dataclasses.dataclass(frozen=True)
+class AbsoluteEncoding(GroupEncoding):
+    """No relative encoding; the model adds a pose embedding upstream."""
+
+    head_dim: int = 0
+    pose_dim: int = 3
+    name: str = "absolute"
+
+
+def rope_frequencies(num_freqs: int, base: float = 10000.0,
+                     max_freq: float = 1.0) -> np.ndarray:
+    """RoFormer's ladder ``max_freq * base^(-2i / d)``, i in [0, d/2), in
+    float64."""
+    if num_freqs == 1:
+        return np.array([max_freq])
+    i = np.arange(num_freqs)
+    return max_freq * (base ** (-2.0 * i / (2.0 * num_freqs)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Rope1D(GroupEncoding):
+    """Rotary embeddings for G = R (a token index or any scalar
+    coordinate), in the "split half" layout: feature ``i`` pairs with
+    feature ``i + head_dim // 2``. The score picks up
+    ``rho(p_m - p_n)``."""
+
+    head_dim: int = 64
+    base: float = 10000.0
+    max_freq: float = 1.0
+    pose_dim: int = 1
+    name: str = "rope1d"
+
+    def __post_init__(self):
+        if self.head_dim % 2 != 0:
+            raise ValueError(f"rope1d head_dim must be even, got "
+                             f"{self.head_dim}")
+
+    def _rotate(self, x, pose):
+        xc = _as_compute(x)
+        # the float64 ladder cast to the compute dtype, then multiplied
+        freqs = _ladder(tuple(rope_frequencies(
+            self.head_dim // 2, self.base, self.max_freq)), xc.dtype,
+            x.device)
+        ang = pose[..., 0:1].to(xc.dtype) * freqs
+        h = self.head_dim // 2
+        r0, r1 = _rotate_pairs(xc[..., :h], xc[..., h:], torch.cos(ang),
+                               torch.sin(ang))
+        return torch.cat([r0, r1], -1).to(x.dtype)
+
+    def transform_q(self, q, pose):
+        return self._rotate(q, pose)
+
+    def transform_k(self, k, pose):
+        return self._rotate(k, pose)
+
+    def apply_phi(self, p_rel, vec):
+        return self._rotate(vec, p_rel)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rope2D(GroupEncoding):
+    """Axis-aligned rotary embeddings for G = R^2 (paper Sec. II-D): the
+    first half of the width encodes x, the second y, each a
+    :class:`Rope1D` of half the width."""
+
+    head_dim: int = 64
+    base: float = 100.0
+    max_freq: float = 1.0
+    pose_dim: int = 2
+    name: str = "rope2d"
+
+    def __post_init__(self):
+        if self.head_dim % 4 != 0:
+            raise ValueError(f"rope2d head_dim must be divisible by 4, got "
+                             f"{self.head_dim}")
+
+    def _rotate(self, x, pose):
+        sub = Rope1D(head_dim=self.head_dim // 2, base=self.base,
+                     max_freq=self.max_freq)
+        h = self.head_dim // 2
+        return torch.cat([sub.transform_q(x[..., :h], pose[..., 0:1]),
+                          sub.transform_q(x[..., h:], pose[..., 1:2])], -1)
+
+    def transform_q(self, q, pose):
+        return self._rotate(q, pose)
+
+    def transform_k(self, k, pose):
+        return self._rotate(k, pose)
+
+    def apply_phi(self, p_rel, vec):
+        return self._rotate(vec, p_rel)
+
+
+@dataclasses.dataclass(frozen=True)
+class SE2Repr(GroupEncoding):
+    """SE(2) through the homogeneous 3x3 representation (paper Sec. II-E):
+    ``phi(p) = psi(p)``, ``phi_q(p_n) = psi(p_n^{-1})``,
+    ``phi_k(p_m) = psi(p_m)``, on each 3-wide block with the block's
+    position scale. Exact, with c = d.
+
+    ``psi`` of a block pose (X, Y, t) maps (x0, x1, x2) to
+    ``(c x0 - s x1 + X x2, s x0 + c x1 + Y x2, x2)``; the transforms are
+    written in that closed form, not as 3x3 matrix products.
+    """
+
+    head_dim: int = 48
+    min_scale: float = 0.25
+    max_scale: float = 1.0
+    pose_dim: int = 3
+    name: str = "se2_repr"
+
+    def __post_init__(self):
+        if self.head_dim % 3 != 0:
+            raise ValueError(f"se2_repr head_dim must be divisible by 3, got "
+                             f"{self.head_dim}")
+
+    @property
+    def num_blocks(self) -> int:
+        return self.head_dim // 3
+
+    def scales(self) -> np.ndarray:
+        """Per-block position scales (float64)."""
+        return _log_spaced(self.num_blocks, self.min_scale, self.max_scale)
+
+    def _apply_psi(self, x, pose, inverse: bool, transpose: bool):
+        """psi of each block's scaled pose (of its inverse with
+        ``inverse``, transposed with ``transpose``) applied blockwise to
+        the trailing dim."""
+        xb = _as_compute(x).reshape(*x.shape[:-1], self.num_blocks, 3)
+        p = _as_compute(pose)
+        scales = _ladder(tuple(self.scales()), p.dtype, pose.device)
+        tx, ty = p[..., 0:1] * scales, p[..., 1:2] * scales   # (..., nb)
+        if inverse:
+            tx, ty, t = se2.inverse(torch.stack(
+                torch.broadcast_tensors(tx, ty, p[..., 2:3]), -1)).unbind(-1)
+        else:
+            t = p[..., 2:3]
+        c, s = torch.cos(t), torch.sin(t)
+        x0, x1, x2 = xb.unbind(-1)
+        if transpose:       # psi^T: [[c, s, 0], [-s, c, 0], [X, Y, 1]]
+            out = (c * x0 + s * x1, -s * x0 + c * x1,
+                   tx * x0 + ty * x1 + x2)
+        else:
+            out = (c * x0 - s * x1 + tx * x2, s * x0 + c * x1 + ty * x2, x2)
+        return torch.stack(out, -1).flatten(-2).to(x.dtype)
+
+    def transform_q(self, q, pose):
+        # q~ = phi_q(p)^T q = psi(p^{-1})^T q
+        return self._apply_psi(q, pose, inverse=True, transpose=True)
+
+    def transform_k(self, k, pose):
+        return self._apply_psi(k, pose, inverse=False, transpose=False)
+
+    def transform_v(self, v, pose):
+        return self._apply_psi(v, pose, inverse=False, transpose=False)
+
+    def untransform_out(self, o, pose):
+        return self._apply_psi(o, pose, inverse=True, transpose=False)
+
+    def apply_phi(self, p_rel, vec):
+        return self._apply_psi(vec, p_rel, inverse=False, transpose=False)
+
+    @property
+    def transforms_values(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,16 +451,19 @@ class SE2Fourier(GroupEncoding):
         return res.reshape(*res.shape[:-2], -1).to(vec.dtype)
 
 
-#: Table-I encoding names; only ``se2_fourier`` is ported so far
-ENCODINGS = ("absolute", "rope1d", "rope2d", "se2_repr", "se2_fourier")
+ENCODINGS: Dict[str, type] = {
+    "absolute": AbsoluteEncoding,
+    "rope1d": Rope1D,
+    "rope2d": Rope2D,
+    "se2_repr": SE2Repr,
+    "se2_fourier": SE2Fourier,
+}
 
 
 def make_encoding(name: str, head_dim: int, **kwargs) -> GroupEncoding:
     if name not in ENCODINGS:
         raise ValueError(f"unknown encoding {name!r}; options: "
                          f"{sorted(ENCODINGS)}")
-    if name != "se2_fourier":
-        raise NotImplementedError(
-            f"encoding {name!r} is not ported to repro_torch yet; "
-            f"see ROADMAP.md")
-    return SE2Fourier(head_dim=head_dim, **kwargs)
+    if name == "absolute":
+        return AbsoluteEncoding(head_dim=head_dim)
+    return ENCODINGS[name](head_dim=head_dim, **kwargs)

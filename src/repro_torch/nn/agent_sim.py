@@ -4,7 +4,20 @@ Scene tokens are [map..., agents@t0, agents@t1, ...], each with an SE(2)
 pose; attention is block-causal over times (map tokens have time 0, agents
 at step t time t + 1) with segment ids masking invalid tokens. The model
 predicts a categorical distribution over the action grid for every agent
-token. This slice ports the ``se2_fourier`` row of the paper's Table I.
+token. The attention mechanism is one of the four rows of the paper's
+Table I:
+
+* ``absolute``: a Fourier-feature pose embedding added to the token
+  features, standard attention;
+* ``rope2d``: translation invariant only (Sec. II-D): q and k rotated by
+  the token's (x, y), values untransformed;
+* ``se2_repr``: the homogeneous-matrix SE(2) representation (Sec. II-E):
+  q, k and v transformed, the output untransformed;
+* ``se2_fourier``: the paper's encoding (Sec. III), whose transforms run
+  in the SE(2) projection kernels in both directions.
+
+``rope2d`` and ``se2_repr`` transform in plain PyTorch (the reference
+computes them outside any TPU kernel).
 
 Incremental decode: a cached key/value row is ``phi_k(p_m) k`` / ``phi_k(p_m)
 v``, which depends only on token m's own pose, and a token's output never
@@ -17,12 +30,13 @@ layer's index. Nothing copies a layer slice or the whole cache in a tick.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.encodings import SE2Fourier, make_encoding
+from repro_torch.core.encodings import GroupEncoding, make_encoding
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import canonical_cache_dtype, quantize_kv
@@ -58,10 +72,20 @@ class AgentSimConfig:
     dtype: str = "float32"
 
 
-def build_sim_encoding(cfg: AgentSimConfig) -> SE2Fourier:
-    return make_encoding(cfg.encoding, cfg.head_dim,
-                         num_terms=cfg.fourier_terms,
-                         min_scale=cfg.min_scale, max_scale=cfg.max_scale)
+def build_sim_encoding(cfg: AgentSimConfig) -> Optional[GroupEncoding]:
+    """The attention's encoding with the reference's own settings; None
+    for ``absolute``, whose attention transforms nothing."""
+    if cfg.encoding == "absolute":
+        return None
+    kwargs: Dict[str, Any] = {}
+    if cfg.encoding == "se2_fourier":
+        kwargs = dict(num_terms=cfg.fourier_terms, min_scale=cfg.min_scale,
+                      max_scale=cfg.max_scale)
+    elif cfg.encoding == "se2_repr":
+        kwargs = dict(min_scale=cfg.min_scale, max_scale=cfg.max_scale)
+    elif cfg.encoding == "rope2d":
+        kwargs = dict(max_freq=cfg.max_scale, base=100.0)
+    return make_encoding(cfg.encoding, cfg.head_dim, **kwargs)
 
 
 def _row_index(cursor: torch.Tensor, n: int) -> torch.Tensor:
@@ -101,24 +125,45 @@ class SimAttention(nn.Module):
     @property
     def cache_dims(self) -> Tuple[int, int]:
         """(key_dim, value_dim) of one cached row (post-transform)."""
+        if self.enc is None:
+            return self.cfg.head_dim, self.cfg.head_dim
         return self.enc.expanded_dim, self.enc.expanded_v_dim
 
     def _qkv(self, x, pose):
-        """q~, k~, v~ (B, H, n, c) for new tokens x (B, n, d_model) at
-        encoder-scaled poses (B, n, 3): the SE(2) projection kernel in mode
-        "q" for queries and mode "k" for keys and values."""
+        """q~, k~, v~ (B, H, n, .) for new tokens x (B, n, d_model) at
+        encoder-scaled poses (B, n, 3). ``se2_fourier``: the SE(2)
+        projection kernel in mode "q" for queries and mode "k" for keys and
+        values; ``rope2d`` / ``se2_repr``: the encoding's transforms
+        (``rope2d`` reads (x, y) and leaves values alone); ``absolute``:
+        none."""
         h, hd = self.cfg.num_heads, self.cfg.head_dim
         q = _split_heads(self.q(x), h, hd).contiguous()
         k = _split_heads(self.k(x), h, hd).contiguous()
         v = _split_heads(self.v(x), h, hd).contiguous()
-        return (se2_fourier_project(q, pose, self.enc, "q"),
-                se2_fourier_project(k, pose, self.enc, "k"),
-                se2_fourier_project(v, pose, self.enc, "k"))
+        if self.cfg.encoding == "se2_fourier":
+            return (se2_fourier_project(q, pose, self.enc, "q"),
+                    se2_fourier_project(k, pose, self.enc, "k"),
+                    se2_fourier_project(v, pose, self.enc, "k"))
+        if self.enc is None:
+            return q, k, v
+        p4 = pose[:, None]                                  # (B, 1, n, 3)
+        if self.enc.pose_dim == 2:
+            p4 = p4[..., :2]
+        q = self.enc.transform_q(q, p4).contiguous()
+        k = self.enc.transform_k(k, p4).contiguous()
+        if self.enc.transforms_values:
+            v = self.enc.transform_v(v, p4).contiguous()
+        return q, k, v
 
     def _finish(self, out, pose):
-        """phi_q o~ (``untransform_out``, the transposed "q" projection),
+        """phi_q o~ where the encoding transforms values (``se2_fourier``:
+        the transposed "q" projection; ``se2_repr``: ``untransform_out``),
         then the output projection."""
-        out = se2_fourier_project_t(out.contiguous(), pose, self.enc, "q")
+        if self.cfg.encoding == "se2_fourier":
+            out = se2_fourier_project_t(out.contiguous(), pose, self.enc,
+                                        "q")
+        elif self.enc is not None and self.enc.transforms_values:
+            out = self.enc.untransform_out(out, pose[:, None])
         return self.o(_merge_heads(out))
 
     def forward(self, x, pose, times, segment_ids):
@@ -175,6 +220,9 @@ class AgentSimModel(nn.Module):
     CPU generator seeded 0).
     """
 
+    #: frequencies of the ``absolute`` baseline's pose embedding
+    pose_freqs = 16
+
     def __init__(self, cfg: AgentSimConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -190,6 +238,12 @@ class AgentSimModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(d, device=dev)
         self.head = Dense((d,), (cfg.num_actions,), dev)
+        if cfg.encoding == "absolute":
+            # the absolute baseline's Fourier pose embedding
+            self.pose_proj = Dense((3 * self.pose_freqs,), (d,), dev)
+            self.register_buffer("pose_ladder", torch.as_tensor(
+                2.0 ** np.arange(self.pose_freqs // 2), dtype=torch.float32,
+                device=dev), persistent=False)
         self.register_buffer("pose_scale", torch.tensor(
             [cfg.pos_scale, cfg.pos_scale, 1.0], device=dev), persistent=False)
         init_params(self, generator if generator is not None
@@ -198,6 +252,24 @@ class AgentSimModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.head.kernel.device
+
+    def _pose_embedding(self, pose):
+        """Fourier features of the raw (x, y, theta), x and y times
+        ``pos_scale``, projected to d_model (``absolute`` only)."""
+        s = self.cfg.pos_scale
+        scaled = torch.cat([pose[..., 0:1] * s, pose[..., 1:2] * s,
+                            pose[..., 2:3]], -1)
+        ang = scaled[..., None] * self.pose_ladder        # (..., 3, PF/2)
+        feats = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        return self.pose_proj(feats.reshape(*pose.shape[:-1],
+                                            3 * self.pose_freqs))
+
+    def _with_pose(self, x, pose):
+        """Token features plus the pose embedding where the encoding is
+        ``absolute``."""
+        if self.cfg.encoding == "absolute":
+            return x + self._pose_embedding(pose.to(torch.float32))
+        return x
 
     def _enc_pose(self, pose):
         return (pose.to(torch.float32) * self.pose_scale).contiguous()
@@ -233,7 +305,7 @@ class AgentSimModel(nn.Module):
         b, m, _ = batch["map_feats"].shape
         _, t, a, _ = batch["agent_feats"].shape
         pose, times, seg = self.tokenize(batch)
-        x = self._embed(batch)
+        x = self._with_pose(self._embed(batch), pose)
         enc_pose = self._enc_pose(pose)
         for blk in self.blocks:
             x = x + blk.attn(blk.norm1(x), enc_pose, times, seg)
@@ -302,8 +374,9 @@ class AgentSimModel(nn.Module):
         b, m, _ = batch["map_feats"].shape
         _, t, a, _ = batch["agent_feats"].shape
         pose, times, seg = self.tokenize(batch)
-        logits, cache = self._extend(cache, self._embed(batch), pose, times,
-                                     seg, impl=impl)
+        logits, cache = self._extend(
+            cache, self._with_pose(self._embed(batch), pose), pose, times,
+            seg, impl=impl)
         return logits[:, m:].reshape(b, t, a, self.cfg.num_actions), cache
 
     def step(self, cache, agent_feats, agent_pose, agent_valid, step_time,
@@ -315,7 +388,8 @@ class AgentSimModel(nn.Module):
         time t + 1). Returns (logits (B, A, num_actions), cache).
         """
         b, a, _ = agent_feats.shape
-        x = self.agent_enc(agent_feats.to(torch.float32))
+        x = self._with_pose(self.agent_enc(agent_feats.to(torch.float32)),
+                            agent_pose)
         times = (step_time.to(torch.int32) + 1)[:, None].expand(b, a) \
             .contiguous()
         seg = torch.where(agent_valid, 0, -1).to(torch.int32)

@@ -1,11 +1,14 @@
 """Parity: the port's agent-sim model against the JAX reference on shared
 weights, on the CPU.
 
-A 2-layer se2_fourier model (d_model 48, head_dim 24) with the reference's
-weights carried across by ``repro_torch.params.from_reference``: full
-forward logits, and prefill plus every ``step`` against the reference's
-prefill and ``step`` per tick. Tolerances are tests/test_decode.py's:
-atol 2e-4 / rtol 2e-3 in f32, and atol = rtol = 8e-2 for an int8 cache.
+A 2-layer model (d_model 48, head_dim 24) of each Table-I encoding
+(absolute, rope2d, se2_repr, se2_fourier) with the reference's weights
+carried across by ``repro_torch.params.from_reference``: full forward
+logits, and prefill plus every ``step`` against the reference's prefill
+and ``step`` per tick, on freeform scenes at their metric poses (the
+absolute baseline's pose embedding reads them raw). Tolerances are
+tests/test_decode.py's: atol 2e-4 / rtol 2e-3 in f32, and atol = rtol =
+8e-2 for an int8 cache.
 """
 import numpy as np
 import pytest
@@ -28,12 +31,17 @@ CFG = dict(d_model=48, num_layers=2, num_heads=2, head_dim=24, d_ff=96,
            num_actions=SCEN.num_actions, fourier_terms=8)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jsim.AgentSimConfig(**CFG, attn_impl="ref")
+ENCODINGS = ["absolute", "rope2d", "se2_fourier", "se2_repr"]
+
+
+@pytest.fixture(scope="module", params=ENCODINGS)
+def models(request):
+    jcfg = jsim.AgentSimConfig(**CFG, encoding=request.param,
+                               attn_impl="ref")
     jmodel = jsim.AgentSimModel(jcfg)
     jparams = jmodule.init_params(jmodel.specs(), jax.random.key(0))
-    tmodel = tsim.AgentSimModel(tsim.AgentSimConfig(**CFG), device="cpu")
+    tmodel = tsim.AgentSimModel(
+        tsim.AgentSimConfig(**CFG, encoding=request.param), device="cpu")
     tmodel.load_state_dict(tparams.from_reference(
         jax.tree.map(np.asarray, jparams)))
     return jmodel, jparams, tmodel
@@ -134,3 +142,6 @@ def test_parameter_count_matches_reference(models):
     jmodel, _, tmodel = models
     assert sum(p.numel() for p in tmodel.parameters()) == \
         jmodule.count_params(jmodel.specs())
+    assert tmodel.blocks[0].attn.cache_dims == jmodel.attn.cache_dims
+    assert hasattr(tmodel, "pose_proj") == (jmodel.cfg.encoding ==
+                                            "absolute")

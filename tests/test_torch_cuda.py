@@ -251,6 +251,20 @@ def test_flash_decode_odd_widths_match_plain(dev, cache_dtype, widths, rows,
     _check_decode(q, k, v, kvl, opts, cache_dtype, splits)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 5])
+@pytest.mark.parametrize("rows", sorted(ROW_CASES))
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_c24_matches_plain(dev, cache_dtype, rows, splits):
+    """The width of the absolute, rope2d and se2_repr arches' caches (24:
+    bf16 rows of 48 bytes, int8 rows of 24, not 16-byte aligned), at the
+    tick's and the prefill's rows, with the wrapper's own split count
+    too."""
+    q, k, v, kvl, opts = _decode_case(dev, ROW_CASES[rows], cache_dtype,
+                                      widths=(24, 24))
+    _check_decode(q, k, v, kvl, opts, cache_dtype, splits)
+
+
 def _check_decode(q, k, v, kvl, opts, cache_dtype, splits):
     got = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
     again = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
@@ -289,6 +303,8 @@ FLASH_CASES = {
     "odd_widths": (2, 4, 2, 37, 53, 20, 36, dict(causal=True)),
     "times_segments": (2, 2, 2, 64, 64, 200, 200, "scene"),
     "sim_width": (2, 8, 8, 336, 336, 200, 200, "scene"),
+    # the absolute / rope2d / se2_repr arches' width
+    "sim_c24": (2, 8, 8, 336, 336, 24, 24, "scene"),
 }
 
 
@@ -347,6 +363,23 @@ def test_flash_backward_is_bitwise_repeatable(dev):
     from repro_torch.kernels import flash_attention_bwd as fab
     q, k, v, do, opts = _flash_case(dev, "causal_gqa")
     out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    first = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    second = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_are_bitwise_repeatable_at_c24(dev, dtype):
+    """Forward and backward at the Table-I arches' width, on the scene
+    mask."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    q, k, v, do, opts = _flash_case(dev, "sim_c24", getattr(torch, dtype))
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    again = fa.flash_attention_fwd(q, k, v, **opts)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     first = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
     second = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
     for a, b in zip(first, second):
@@ -449,11 +482,27 @@ def test_decode_over_mixed_families_matches_plain(dev, cache_dtype):
     the seven families (most of them with padded, segment-masked agents):
     the card's kernels against the plain versions on the CPU, on valid
     agents."""
+    _check_mixed_family_decode(dev, "sim-se2-fourier", cache_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("arch_name", ["sim-absolute", "sim-rope2d",
+                                       "sim-se2-repr"])
+def test_table1_arch_decode_over_mixed_families_matches_plain(
+        dev, arch_name, cache_dtype):
+    """The same for the other three Table-I arches, whose decode runs at
+    c = 24 (and whose transforms, if any, are plain PyTorch on both
+    sides)."""
+    _check_mixed_family_decode(dev, arch_name, cache_dtype)
+
+
+def _check_mixed_family_decode(dev, arch_name, cache_dtype):
     import numpy as np
     from repro_torch import configs, scenarios
     from repro_torch.kernels import cuda
     from repro_torch.nn.agent_sim import AgentSimModel
-    arch = configs.get_sim_arch("sim-se2-fourier").reduced()
+    arch = configs.get_sim_arch(arch_name).reduced()
     scen = arch.scenario_config()
     scenes = [scenarios.generate_scene(f, 0, 1, scen)
               for f in scenarios.registry.names()]

@@ -121,9 +121,85 @@ def test_projection_shares_pose_across_heads(mode):
                                   want.numpy())
 
 
-@pytest.mark.parametrize("name", ["absolute", "rope2d", "se2_repr"])
-def test_unported_encodings_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tenc.make_encoding(name, 24)
-    with pytest.raises(ValueError):
+# the five encodings as the model builds them (AgentSimConfig's defaults)
+ALL = {"absolute": {}, "rope1d": {}, "rope2d": dict(max_freq=1.0, base=100.0),
+       "se2_repr": dict(min_scale=0.25, max_scale=1.0),
+       "se2_fourier": dict(num_terms=12)}
+EXACT_TOL = dict(atol=1e-6, rtol=0)
+
+
+def _any_pose(seed, lead, pose_dim):
+    """Poses of each kind: a scalar coordinate up to 64 (rope1d), (x, y)
+    within +-3 (rope2d), SE(2) poses within +-3 at any heading."""
+    rng = np.random.default_rng(seed)
+    if pose_dim == 1:
+        return rng.uniform(0, 64, lead + (1,)).astype(np.float32)
+    if pose_dim == 2:
+        return rng.uniform(-3, 3, lead + (2,)).astype(np.float32)
+    return _inputs(seed, lead, 6)[1]
+
+
+@pytest.mark.parametrize("method", ["transform_q", "transform_k",
+                                    "transform_v", "untransform_out",
+                                    "apply_phi"])
+@pytest.mark.parametrize("name", sorted(ALL))
+def test_every_encoding_matches_reference(name, method):
+    """Each transform of each encoding within 1e-6 abs in float32 (the
+    same formulas on both sides; values up to about 8). se2_fourier's
+    ``untransform_out`` contracts 2F products a pair in another order than
+    the reference (all blocks at once), so it is held to 1e-6 abs plus
+    1e-6 of the value (values up to 10: some 3 ulp)."""
+    je = jenc.make_encoding(name, 24, **ALL[name])
+    te = tenc.make_encoding(name, 24, **ALL[name])
+    rng = np.random.default_rng(sorted(ALL).index(name))
+    width = te.expanded_dim if method == "untransform_out" else 24
+    x = rng.normal(size=(2, 3, 5, width)).astype(np.float32)
+    pose = _any_pose(5, (2, 3, 5), te.pose_dim)
+    args = (x, pose) if method != "apply_phi" else (pose, x)
+    want = getattr(je, method)(*map(jnp.asarray, args))
+    got = getattr(te, method)(*map(torch.from_numpy, args))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    tol = dict(EXACT_TOL)
+    if (name, method) == ("se2_fourier", "untransform_out"):
+        tol["rtol"] = 1e-6
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    assert (te.expanded_dim, te.expanded_v_dim, te.transforms_values,
+            te.pose_dim) == (je.expanded_dim, je.expanded_v_dim,
+                             je.transforms_values, je.pose_dim)
+
+
+@pytest.mark.parametrize("name", ["rope1d", "rope2d", "se2_repr"])
+def test_encodings_keep_float64_and_compute_bfloat16_in_float32(name):
+    """float64 computes in float64 (to 1e-12 of the float32 result's
+    exact counterpart); bfloat16 computes in float32 and rounds once."""
+    te = tenc.make_encoding(name, 24, **ALL[name])
+    x = np.random.default_rng(1).normal(size=(4, 24))
+    pose = _any_pose(2, (4,), te.pose_dim).astype(np.float64)
+    wide = te.transform_q(torch.from_numpy(x), torch.from_numpy(pose))
+    assert wide.dtype == torch.float64
+    f32 = te.transform_q(torch.from_numpy(x).float(),
+                         torch.from_numpy(pose).float())
+    np.testing.assert_allclose(wide.numpy(), f32.numpy(), atol=1e-5)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = te.transform_q(xb, torch.from_numpy(pose).float())
+    assert got.dtype == torch.bfloat16
+    want = te.transform_q(xb.float(), torch.from_numpy(pose).float())
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("name", sorted(ALL))
+def test_every_encoding_builds(name):
+    enc = tenc.make_encoding(name, 24, **ALL[name])
+    assert enc.name == name and enc.head_dim == 24
+    assert type(enc).__name__ == type(
+        jenc.make_encoding(name, 24, **ALL[name])).__name__
+    assert tenc.ENCODINGS[name] is type(enc)
+
+
+def test_unknown_encoding_raises():
+    with pytest.raises(ValueError, match="unknown encoding"):
         tenc.make_encoding("nope", 24)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        tenc.make_encoding("rope2d", 18)
+    with pytest.raises(ValueError, match="divisible by 3"):
+        tenc.make_encoding("se2_repr", 20)

@@ -7,9 +7,12 @@ counters into Gumbel noise, the reference draws from ``jax.random``), so
 per-family tables are compared teacher-forced: the reference engine's
 sampled actions are replayed through the port's kinematics and decode, and
 the port scores the futures that come out. The port's ``evaluate_families``
-then runs end to end on the CPU over all seven families, and an SE(2)
-property test holds the port's action probabilities under a global re-pose
-of every family's scenes to the reference's.
+then runs end to end on the CPU over all seven families, and SE(2)
+property tests hold the port's action probabilities under a global re-pose
+of every family's scenes to the reference's: se2_fourier within its
+truncation bound, se2_repr and rope2d (translations only) within 5e-4
+(tests/test_se2.py's bound for the exact encodings), and the absolute
+baseline moving by more than 1e-4 (its bound there).
 """
 import numpy as np
 import pytest
@@ -46,6 +49,7 @@ RATES = ("miss_rate", "collision_rate", "offroad_rate",
 # angle), with the port's and the reference's shifts within 3.0e-7 of
 # each other
 INVARIANCE_BOUND = 5e-2
+EXACT_BOUND, ABSOLUTE_MOVES = 5e-4, 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -195,9 +199,29 @@ def test_evaluate_families_refuses_the_cpu_unless_asked(setup):
                                 n_scenes_per_family=1)
 
 
-def _action_probs(setup, z):
+@pytest.fixture(scope="module")
+def table1(setup):
+    """(port model, reference model, reference weights) of the three other
+    Table-I encodings at the setup's arch, weights shared."""
+    out = {}
+    for i, enc in enumerate(("absolute", "rope2d", "se2_repr")):
+        jmodel = jsim.AgentSimModel(jsim.AgentSimConfig(
+            **CFG, num_actions=setup["scen_j"].num_actions, encoding=enc))
+        jparams = jmodule.init_params(jmodel.specs(), jax.random.key(10 + i))
+        tmodel = tsim.AgentSimModel(tsim.AgentSimConfig(
+            **CFG, num_actions=setup["scen_t"].num_actions, encoding=enc),
+            device="cpu")
+        tmodel.load_state_dict(tparams.from_reference(
+            jax.tree.map(np.asarray, jparams)))
+        out[enc] = dict(tmodel=tmodel, jmodel=jmodel, jparams=jparams)
+    return out
+
+
+def _action_probs(setup, z, models=None):
     """Action probabilities of every valid agent token, port and reference,
-    after re-posing each family's scenes by the global transform z."""
+    after re-posing each family's scenes by the global transform z (with
+    ``models`` the port and reference models of another encoding)."""
+    models = models or setup
     scenes_t = [tscen.transform_scene(s, z) for s in setup["scenes_t"]]
     scenes_j = [jscen.transform_scene(s, z) for s in setup["scenes_j"]]
     keys = ("map_feats", "map_pose", "map_valid", "agent_feats",
@@ -205,22 +229,39 @@ def _action_probs(setup, z):
     bt = tscen.stack_scenes(scenes_t)
     bj = jscen.stack_scenes(scenes_j)
     with torch.no_grad():
-        pt = torch.softmax(setup["tmodel"](
+        pt = torch.softmax(models["tmodel"](
             {k: torch.from_numpy(bt[k]) for k in keys}), -1).numpy()
-    logits, _ = setup["jmodel"](setup["jparams"],
+    logits, _ = models["jmodel"](models["jparams"],
                                 {k: jnp.asarray(bj[k]) for k in keys})
     pj = np.asarray(jax.nn.softmax(logits, -1))
     valid = bj["agent_valid"]
     return pt[valid], pj[valid]
 
 
-def _check_invariance(setup, zx, zy, zth):
-    base_t, base_j = _action_probs(setup, (0.0, 0.0, 0.0))
-    moved_t, moved_j = _action_probs(setup, (zx, zy, zth))
+def _shifts(setup, z, models=None):
+    """The largest change of an action probability under z, port and
+    reference, which agree change for change within 1e-5."""
+    base_t, base_j = _action_probs(setup, (0.0, 0.0, 0.0), models)
+    moved_t, moved_j = _action_probs(setup, z, models)
     np.testing.assert_allclose(moved_t - base_t, moved_j - base_j,
                                atol=1e-5, rtol=0)
-    assert np.abs(moved_t - base_t).max() < INVARIANCE_BOUND
-    assert np.abs(moved_j - base_j).max() < INVARIANCE_BOUND
+    return np.abs(moved_t - base_t).max(), np.abs(moved_j - base_j).max()
+
+
+def _check_invariance(setup, zx, zy, zth):
+    assert max(_shifts(setup, (zx, zy, zth))) < INVARIANCE_BOUND
+
+
+def _check_table1(setup, table1, zx, zy, zth):
+    """se2_repr under z, rope2d under z's translation: within the exact
+    encodings' bound; absolute: moved, where z moves the scene enough."""
+    assert max(_shifts(setup, (zx, zy, zth), table1["se2_repr"])) \
+        < EXACT_BOUND
+    assert max(_shifts(setup, (zx, zy, 0.0), table1["rope2d"])) \
+        < EXACT_BOUND
+    if abs(zx) + abs(zy) > 1.0 or abs(zth) > 0.5:
+        assert min(_shifts(setup, (zx, zy, zth), table1["absolute"])) \
+            > ABSOLUTE_MOVES
 
 
 try:
@@ -237,8 +278,20 @@ try:
     @given(zx=_transl, zy=_transl, zth=_angle)
     def test_action_probs_se2_invariant_all_families(setup, zx, zy, zth):
         _check_invariance(setup, zx, zy, zth)
+
+    @settings(max_examples=3, deadline=None, derandomize=True)
+    @given(zx=_transl, zy=_transl, zth=_angle)
+    def test_table1_action_probs_under_a_global_repose(setup, table1, zx, zy,
+                                                       zth):
+        _check_table1(setup, table1, zx, zy, zth)
 except ImportError:            # hypothesis is an optional dev dependency
     @pytest.mark.parametrize("zx,zy,zth", [(30.0, 20.0, -2.5),
                                            (-12.0, 4.0, 1.3)])
     def test_action_probs_se2_invariant_all_families(setup, zx, zy, zth):
         _check_invariance(setup, zx, zy, zth)
+
+    @pytest.mark.parametrize("zx,zy,zth", [(30.0, 20.0, -2.5),
+                                           (-12.0, 4.0, 1.3)])
+    def test_table1_action_probs_under_a_global_repose(setup, table1, zx, zy,
+                                                       zth):
+        _check_table1(setup, table1, zx, zy, zth)

@@ -1,6 +1,7 @@
 """The port's package contract: it imports nothing of JAX or of the JAX
 package, its entry points refuse to run on the CPU unless asked, and the
 weight bridge round-trips exactly."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -56,26 +57,43 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         RolloutEngine(model, arch.scenario_config(), num_slots=2)
 
 
-def test_sim_archs_registered_and_only_se2_fourier_builds():
-    assert sorted(configs.SIM_ARCHS) == ["sim-absolute", "sim-rope2d",
-                                         "sim-se2-fourier", "sim-se2-repr"]
-    full = configs.get_sim_arch("sim-se2-fourier")
+SIM_ARCHS = ["sim-absolute", "sim-rope2d", "sim-se2-fourier",
+             "sim-se2-repr"]
+
+
+@pytest.mark.parametrize("name", SIM_ARCHS)
+def test_sim_arch_registered_and_builds(name):
+    """Every sim arch builds, at full width and with the reference's
+    parameter count and cache widths, and refuses the CPU unless asked."""
+    assert sorted(configs.SIM_ARCHS) == SIM_ARCHS
+    full = configs.get_sim_arch(name)
     assert (full.d_model, full.num_layers, full.num_heads, full.head_dim,
             full.d_ff, full.fourier_terms) == (256, 6, 8, 24, 1024, 12)
-    for name in ("sim-absolute", "sim-rope2d", "sim-se2-repr"):
-        cfg = configs.get_sim_arch(name).reduced().agent_sim_config()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsim.AgentSimModel(cfg, device="cpu")
+    cfg = full.agent_sim_config()
+    model = tsim.AgentSimModel(cfg, device="cpu")
+    jmodel = jsim.AgentSimModel(jsim.AgentSimConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name not in ("attn_impl", "decode_impl")}))
+    assert sum(p.numel() for p in model.parameters()) == \
+        jmodule.count_params(jmodel.specs())
+    assert model.blocks[0].attn.cache_dims == jmodel.attn.cache_dims
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tsim.AgentSimModel(cfg)
+
+
+def _reference_tree(arch, seed):
+    jmodel = jsim.AgentSimModel(jsim.AgentSimConfig(
+        **{f: getattr(arch.agent_sim_config(), f) for f in (
+            "d_model", "num_layers", "num_heads", "head_dim", "d_ff",
+            "num_actions", "fourier_terms", "encoding")}))
+    return jax.tree.map(np.asarray, jmodule.init_params(jmodel.specs(),
+                                                        jax.random.key(seed)))
 
 
 def test_params_round_trip_exact():
     arch = configs.get_sim_arch("sim-se2-fourier").reduced()
-    jmodel = jsim.AgentSimModel(jsim.AgentSimConfig(
-        **{f: getattr(arch.agent_sim_config(), f) for f in (
-            "d_model", "num_layers", "num_heads", "head_dim", "d_ff",
-            "num_actions", "fourier_terms")}))
-    tree = jax.tree.map(np.asarray, jmodule.init_params(jmodel.specs(),
-                                                        jax.random.key(3)))
+    tree = _reference_tree(arch, 3)
     model = tsim.AgentSimModel(arch.agent_sim_config(), device="cpu")
     model.load_state_dict(params.from_reference(tree), strict=True)
     back = params.to_reference(model)
@@ -85,6 +103,23 @@ def test_params_round_trip_exact():
     for path, arr in want.items():
         assert got[path].dtype == arr.dtype and got[path].shape == arr.shape
         np.testing.assert_array_equal(got[path], arr, err_msg=str(path))
+
+
+def test_params_round_trip_carries_pose_proj():
+    """The absolute baseline's top-level ``pose_proj`` Dense crosses over
+    both ways bit for bit."""
+    arch = configs.get_sim_arch("sim-absolute").reduced()
+    tree = _reference_tree(arch, 4)
+    model = tsim.AgentSimModel(arch.agent_sim_config(), device="cpu")
+    model.load_state_dict(params.from_reference(tree), strict=True)
+    np.testing.assert_array_equal(model.pose_proj.kernel.numpy(),
+                                  tree["pose_proj"]["kernel"])
+    back = params.to_reference(model)
+    assert sorted(back) == sorted(tree)
+    assert back["pose_proj"].keys() == tree["pose_proj"].keys()
+    for key, arr in tree["pose_proj"].items():
+        assert back["pose_proj"][key].dtype == arr.dtype
+        np.testing.assert_array_equal(back["pose_proj"][key], arr)
 
 
 def test_seeded_init_is_deterministic_and_shaped():

@@ -279,3 +279,43 @@ def test_eval_step_and_open_loop_metrics_match_reference(setup):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
     assert tsteps.open_loop_metrics(model, [])["nll"] != \
         tsteps.open_loop_metrics(model, [])["nll"]       # nan
+
+
+@pytest.mark.parametrize("arch", ["sim-absolute", "sim-rope2d",
+                                  "sim-se2-repr"])
+def test_train_step_of_each_table1_arch_matches_reference(arch):
+    """The other three Table-I arches at the reduced size: the loss and
+    every gradient of the port's default path (the plain flash forward and
+    backward, the encoding's plain transforms; ``pose_proj`` for
+    absolute) against ``jax.value_and_grad`` of the reference at
+    ``attn_impl="ref"``, and one ``make_sim_train_step`` reporting the
+    same loss and gradient norm."""
+    jarch = jconfigs.get_sim_arch(arch).reduced()
+    tarch = tconfigs.get_sim_arch(arch).reduced()
+    scen = tarch.scenario_config()
+    jmodel = jsim.AgentSimModel(jarch.agent_sim_config())
+    jparams = jmodule.init_params(jmodel.specs(), jax.random.key(1))
+    batch = _batch(scen, True)
+    want_loss, want_grads = _jax_loss_and_grads(
+        jmodel, jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = _port_model(tarch, jparams).requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = tsim.action_nll(model(tb), tb["actions"], tb["agent_valid"])
+    names, leaves = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(loss.item(), float(want_loss), **LOSS_TOL)
+    want = tparams.from_reference(_np_tree(want_grads))
+    assert set(want) == set(grads)
+    assert ("pose_proj.kernel" in grads) == (arch == "sim-absolute")
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   **GRAD_TOL, err_msg=name)
+    topt = tsteps.bc_optimizer(LR, STEPS)
+    step = tsteps.make_sim_train_step(model, topt)
+    _, metrics = step(topt.init(dict(model.named_parameters())), batch)
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss),
+                               **LOSS_TOL)
+    want_norm = np.sqrt(sum(float(np.sum(np.square(g.numpy())))
+                            for g in want.values()))
+    np.testing.assert_allclose(float(metrics["grad_norm"]), want_norm,
+                               rtol=1e-5)
