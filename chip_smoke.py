@@ -80,7 +80,26 @@ Run from the root of a checkout. Phases, each of which fails the run:
    and one Table-I line an arch is printed; Algorithm 2 through the flash
    forward is held to Algorithm 1 for rope2d, se2_repr and se2_fourier,
    and the peak memory of each is printed at N = M = 1024 and 4096
-   (Algorithm 1 only where it needs at most half the card).
+   (Algorithm 1 only where it needs at most half the card);
+9. the trainer stack at full width (sim-se2-fourier, 32 freeform scenes a
+   step): (a) ``train_sim.train_single``, the launcher's path, 30 steps
+   with a checkpoint every 10 and an evaluation every 15 (7 families x 2
+   scenes x 2 samples and 2 holdout batches), telemetry and the flight
+   recorder armed: status done, the loss falling, the final checkpoint
+   bitwise equal to the model, every closed-loop rate finite, the
+   kernels' launches exactly those counted from the code, the trace's
+   trainer.step / .checkpoint / .eval spans and its report; steps/s
+   against phase 5's bare loop and the seconds of a save's parts; (b)
+   20 steps straight against 10, a fresh Trainer's restore and 10 more:
+   the data cursor, the losses within rtol 1e-5 and the parameters within
+   1e-6, bitwise equality printed; (c) the NaN drill (--inject-nan-at):
+   FloatingPointError, a checkpoint tagged halt_reason that a restore
+   refuses without force and takes with it, the postmortem bundle
+   rendered, and one skipped step leaving the parameters and the AdamW
+   state bitwise unchanged; (d) the newest checkpoint truncated: the
+   restore falls back one step and counts it; (e) run_comparison over
+   the four encodings, 20 steps x 32 mixed scenes each: every row done,
+   NLL and minADE finite, the loss falling, the table printed.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -174,6 +193,20 @@ EXACT_INVARIANCE_BOUND, ABSOLUTE_MOVES = 5e-4, 1e-4
 # the comparison and of the memory readings, and the poses' extent (m)
 ALG_TOL = {"rope2d": 2e-5, "se2_repr": 2e-5, "se2_fourier": 5e-3}
 ALG_HEADS, ALG_N, ALG_MEM_N, ALG_EXTENT_M = 8, 256, (1024, 4096), 30.0
+
+# phase 9: the trainer stack at full width. (a) the launcher's path:
+# steps, checkpoint and eval cadence, evaluation scenes a family x samples,
+# holdout batches; (b) a straight run against a restart halfway; (c) the
+# NaN drill: the step whose reported loss turns NaN, and the guard's limit;
+# (e) the Table-I comparison's steps a run
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_EVAL_EVERY = 30, 10, 15
+TRAINER_EVAL_SCENES, TRAINER_EVAL_SAMPLES, TRAINER_HOLDOUT = 2, 2, 2
+RESTART_STEPS = 20
+NAN_AT, MAX_NANS = 3, 5
+COMPARE_STEPS = 20
+# the restart against the straight run: the reference's own tolerances
+# (tests/test_trainer_server.py:145-149)
+RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
 
 # the transposed se2 modes have no TPU kernel: they compute what the JAX
 # package computes with untransform_out (also transform_q's VJP) and with
@@ -703,7 +736,7 @@ def train(model, scen, per_step, launches, what, mixed_grads):
     kernels against those through the plain versions; open-loop metrics on
     2 holdout batches finite; the device profile of one step. Returns
     (one more train step as a function, the open-loop metrics, the batch
-    iterator, which the caller closes)."""
+    iterator, which the caller closes, and the timed loop's steps/s)."""
     import numpy as np
     import torch
     from repro_torch.data import ShardedIterator
@@ -802,7 +835,7 @@ def train(model, scen, per_step, launches, what, mixed_grads):
         state, _ = train_step(state, host_batch)
     device_profile(one_step, train_secs / TRAIN_STEPS, ("train step", lambda: 1),
                    f"{what}one train step")
-    return one_step, ol, data
+    return one_step, ol, data, TRAIN_STEPS / train_secs
 
 
 def check_tables(tables, eval_scenes, n_scenes, what):
@@ -969,8 +1002,8 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
         # b. training
         per_step = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
                                   "flash_attention_dkv"), cfg.num_layers)
-        one_step, ol, data = train(model, scen, per_step, launches, what,
-                                   mixed_grads=False)
+        one_step, ol, data, _ = train(model, scen, per_step, launches,
+                                      what, mixed_grads=False)
         calls = plain_se2_calls(one_step)
         data.close()
         log(f"{what}train step: {sum(calls.values())} calls into "
@@ -1082,6 +1115,355 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
                 log(f"peak memory, {name}, N = M = {n}: linear "
                     f"{lin_b / 2**20:.1f} MiB, {quad_text}")
         del q, k, v, pose, grid, lin, quad
+
+
+def _launcher_args(work, *extra):
+    """``train_sim`` arguments for phase 9's sim-se2-fourier at full
+    width, 32 scenes a step, seed 0."""
+    from repro_torch.launch import train_sim
+    return train_sim.build_parser().parse_args([
+        "--arch", "sim-se2-fourier", "--batch", str(TRAIN_BATCH),
+        "--lr", str(TRAIN_LR), "--seed", "0", "--ckpt-dir", str(work),
+        "--holdout-batches", str(TRAINER_HOLDOUT),
+        "--eval-scenes-per-family", str(TRAINER_EVAL_SCENES),
+        "--eval-samples", str(TRAINER_EVAL_SAMPLES), *map(str, extra)])
+
+
+def _model_state(trainer):
+    """Copies of the parameters and the AdamW step and moments."""
+    adam = trainer.opt_state[1]
+    return ({k: v.clone() for k, v in trainer.model.state_dict().items()},
+            adam["step"], {m: {k: v.clone() for k, v in adam[m].items()}
+                           for m in ("mu", "nu")})
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    return a[1] == b[1] and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in ((a[0], b[0]), (a[2]["mu"], b[2]["mu"]),
+                     (a[2]["nu"], b[2]["nu"])))
+
+
+def trainer_phase(arch, per_step, bare_rate, launches):
+    """Phase 9: the trainer stack at full width through the port's entry
+    points. (a) ``train_sim.train_single`` (the launcher's path) over 32
+    freeform scenes a step with checkpoints, periodic evaluation,
+    telemetry and the flight recorder armed: status, falling loss, the
+    final checkpoint bitwise, finite rates, exact launches, the trace's
+    spans and its report; (b) a straight run against a restart halfway;
+    (c) the NaN drill and one skipped step held bitwise; (d) a truncated
+    newest checkpoint and the fallback past it; (e) ``run_comparison``
+    over the four encodings. ``per_step`` is phase 5's launches a step,
+    ``bare_rate`` its loop's steps/s; main-path launches join
+    ``launches``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.data import ShardedIterator
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import obs_report, train_sim
+    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.scenarios import registry
+    from repro_torch.training.comparison import (COMPARISON_ENCODINGS,
+                                                 format_table,
+                                                 run_comparison)
+    from repro_torch.training.data import make_batch_fn
+    from repro_torch.training.steps import bc_optimizer, make_sim_train_step
+    cfg, scen = arch.agent_sim_config(), arch.scenario_config()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase9_", dir=ROOT / "build"))
+    old_reg = obs.set_registry(obs.Registry())
+    try:
+        # a. the launcher's path ---------------------------------------------
+        phase("9a. trainer: the launcher's path")
+        reg = obs.get_registry()
+        args = _launcher_args(
+            work / "a", "--steps", TRAINER_STEPS,
+            "--ckpt-every", TRAINER_CKPT_EVERY,
+            "--eval-every", TRAINER_EVAL_EVERY,
+            "--postmortem-out", work / "a.postmortem.json")
+        # what the launches must be, from the code: each step phase 5's;
+        # each eval one rollout chunk (prefill + ticks past the history)
+        # over 7 x 2 x 2 lanes and the forward of the holdout batches
+        t_hist = max(1, scen.num_steps // 2)
+        lanes = (len(registry.names()) * TRAINER_EVAL_SCENES
+                 * TRAINER_EVAL_SAMPLES)
+        chunks = -(-lanes // min(32, lanes))
+        decode = chunks * cfg.num_layers * (1 + scen.num_steps - t_hist)
+        forward = dict.fromkeys(("se2_project_q", "se2_project_q_t",
+                                 "flash_attention_fwd"), cfg.num_layers)
+        forward["se2_project_k"] = 2 * cfg.num_layers
+        per_eval = {"flash_decode": decode, "se2_project_q": decode,
+                    "se2_project_k": 2 * decode, "se2_project_q_t": decode}
+        for k_, n in forward.items():
+            per_eval[k_] = per_eval.get(k_, 0) + TRAINER_HOLDOUT * n
+        evals = TRAINER_STEPS // TRAINER_EVAL_EVERY
+        want = {k_: TRAINER_STEPS * n for k_, n in per_step.items()}
+        for k_, n in per_eval.items():
+            want[k_] = want.get(k_, 0) + evals * n
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        result = train_sim.train_single(args, families=FAMILIES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        if counts != want:
+            raise AssertionError(f"trainer launches {counts} != {want}")
+        for name, n in counts.items():
+            launches[name] += n
+        trainer = result.pop("trainer")
+        rates = {k_: v for k_, v in result.items()
+                 if k_.startswith("closed_")}
+        if not (result["status"] == "done"
+                and result["steps"] == TRAINER_STEPS
+                and result["loss_last"] < result["loss_first"]
+                and all(math.isfinite(v) for v in rates.values())
+                and math.isfinite(result["final_nll"])):
+            raise AssertionError(f"trainer run unhealthy: {result}")
+        train_sim.check_final_checkpoint(trainer)
+        log(f"train_single: {TRAINER_STEPS} steps x {TRAIN_BATCH} freeform "
+            f"scenes in {wall:.2f} s (ckpt every {TRAINER_CKPT_EVERY}, eval "
+            f"every {TRAINER_EVAL_EVERY}: {evals} x {lanes} lanes + "
+            f"{TRAINER_HOLDOUT} holdout batches); status done, loss "
+            f"{result['loss_first']:.4f} -> {result['loss_last']:.4f}, "
+            f"final checkpoint bitwise equal to the model, launches exact "
+            f"{counts}")
+        log(f"train_single final metrics: nll {result['final_nll']:.4f}, "
+            f"accuracy {result['final_accuracy']:.4f}, " + ", ".join(
+                f"{k_} {v:.4f}" for k_, v in rates.items()))
+        spans = {}
+        for ev in reg.events():
+            if ev.get("ph") == "X":
+                spans.setdefault(ev["name"], []).append(ev["dur"] / 1e6)
+        # periodic saves and one final save of the last step
+        want_spans = {"trainer.step": TRAINER_STEPS, "trainer.eval": evals,
+                      "trainer.checkpoint":
+                          TRAINER_STEPS // TRAINER_CKPT_EVERY + 1}
+        got_spans = {k_: len(spans.get(k_, ())) for k_ in want_spans}
+        if got_spans != want_spans:
+            raise AssertionError(f"trace spans {got_spans} != {want_spans}")
+        trace = obs.write_chrome_trace(reg, str(work / "a.trace.jsonl"))
+        if obs_report.main([trace]) != 0:
+            raise AssertionError("obs_report could not render the trace")
+        step_s = spans["trainer.step"]
+        steady = sorted(step_s)[len(step_s) // 2]
+        log(f"trainer steps/s: median step span {steady * 1e3:.1f} ms = "
+            f"{1 / steady:.2f} steps/s, mean over {len(step_s)} steps "
+            f"{len(step_s) / sum(step_s):.2f} steps/s; phase 5's bare loop "
+            f"{bare_rate:.2f} steps/s in this process")
+        log("trainer.eval spans: " + ", ".join(
+            f"{s_:.3f} s" for s_ in spans["trainer.eval"])
+            + "; trainer.checkpoint spans (the host copy and CRC on the "
+            "training thread): " + ", ".join(
+                f"{s_:.3f} s" for s_ in spans["trainer.checkpoint"]))
+        # one save split into its parts
+        tree = trainer.checkpoint_tree()
+        flat = ckpt_manager._flatten(tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = ckpt_manager._to_host(flat)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for v in host.values():
+            ckpt_manager._crc(v)
+        crc_s = time.perf_counter() - t0
+        extra = {"step": trainer.step, "data": trainer.data.state_dict()}
+        t0 = time.perf_counter()
+        trainer.ckpt.save(trainer.step + 1, tree, extra=extra)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer.ckpt.wait()
+        write_s = time.perf_counter() - t0
+        nbytes = sum(v.nbytes for v in host.values())
+        log(f"one checkpoint save, {nbytes / 1e6:.1f} MB in {len(host)} "
+            f"arrays: host copy {copy_s:.3f} s and CRC32 {crc_s:.3f} s on "
+            f"the training thread (save() returned in {save_s:.3f} s), npz "
+            f"write {write_s:.3f} s on the background thread")
+        del trainer, tree, flat, host
+        torch.cuda.empty_cache()
+
+        # b. restart -------------------------------------------------------
+        phase("9b. trainer: restart")
+
+        def make(ckpt_dir, total, registry=None):
+            model = AgentSimModel(cfg,
+                                  generator=torch.Generator().manual_seed(0))
+            opt = bc_optimizer(TRAIN_LR, RESTART_STEPS)
+            data = ShardedIterator(make_batch_fn(scen, FAMILIES),
+                                   batch_size=TRAIN_BATCH, seed=0)
+            return Trainer(make_sim_train_step(model, opt), model,
+                           opt.init(dict(model.named_parameters())), data,
+                           str(ckpt_dir), TrainerConfig(
+                               total_steps=total, ckpt_every=RESTART_STEPS // 2,
+                               log_every=RESTART_STEPS),
+                           registry=registry)
+
+        straight = make(work / "b_straight", RESTART_STEPS)
+        straight.run()
+        straight.data.close()
+        want_state = _model_state(straight)
+        want_hist = list(straight.history)
+        del straight
+        first = make(work / "b_restart", RESTART_STEPS // 2)
+        first.run()
+        first.data.close()
+        del first
+        second = make(work / "b_restart", RESTART_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not second.restore_if_available():
+            raise AssertionError("restart found no checkpoint")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if second.data.cursor != RESTART_STEPS // 2:
+            raise AssertionError(f"restored data cursor "
+                                 f"{second.data.cursor}")
+        second.run()
+        second.data.close()
+        got_state = _model_state(second)
+        np.testing.assert_allclose(second.history,
+                                   want_hist[RESTART_STEPS // 2:],
+                                   rtol=RESTART_LOSS_RTOL)
+        worst = max(float((got_state[0][k_] - v).abs().max())
+                    for k_, v in want_state[0].items())
+        if not worst <= RESTART_PARAM_ATOL:
+            raise AssertionError(f"restart params differ by {worst:.3e}")
+        bitwise = (second.history == want_hist[RESTART_STEPS // 2:]
+                   and _same_state(got_state, want_state))
+        log(f"restart: {RESTART_STEPS // 2} + {RESTART_STEPS // 2} steps "
+            f"against {RESTART_STEPS} straight: data cursor "
+            f"{RESTART_STEPS // 2} after restore ({restore_s:.3f} s), loss "
+            f"history within rtol {RESTART_LOSS_RTOL}, params max abs diff "
+            f"{worst:.3e}; bitwise equal (history, params, AdamW moments): "
+            f"{bitwise}")
+        del second, got_state, want_state
+
+        # c. the NaN drill ---------------------------------------------------
+        phase("9c. trainer: the NaN drill")
+        bundle = work / "c.postmortem.json"
+        args = _launcher_args(work / "c", "--steps", TRAINER_STEPS,
+                              "--inject-nan-at", NAN_AT,
+                              "--postmortem-out", bundle)
+        try:
+            train_sim.train_single(args, families=FAMILIES)
+        except FloatingPointError as e:
+            log(f"NaN drill: FloatingPointError: {e}")
+        else:
+            raise AssertionError("the NaN drill did not halt")
+        sub = next((work / "c").iterdir())
+        _, extra = CheckpointManager(str(sub)).restore(fallback=True)
+        if extra.get("halt_reason") != "nan" or \
+                extra["step"] != NAN_AT + MAX_NANS - 1:
+            raise AssertionError(f"halt checkpoint extra {extra}")
+        fresh = make(sub, TRAINER_STEPS)
+        try:
+            fresh.restore_if_available()
+        except RuntimeError as e:
+            log(f"restore without force refused: {str(e)[:80]}...")
+        else:
+            raise AssertionError("a halt checkpoint restored without force")
+        if not (fresh.restore_if_available(force=True)
+                and fresh.step == NAN_AT + MAX_NANS - 1):
+            raise AssertionError("forced restore failed")
+        fresh.data.close()
+        del fresh
+        if obs_report.main(["--postmortem", str(bundle)]) != 0:
+            raise AssertionError("obs_report could not render the bundle")
+        # one skipped step on the card: state bitwise as before it
+        tr = make(work / "c_skip", 3)
+        inner, seen = tr.step_fn, {}
+
+        class NaNOnce:
+            update = inner.update
+
+            @staticmethod
+            def grads(batch):
+                g, m = inner.grads(batch)
+                if not seen:
+                    seen["before"] = _model_state(tr)
+                    return g, dict(m, loss=float("nan"))
+                if "after" not in seen:
+                    seen["after"] = _model_state(tr)
+                return g, m
+
+        tr.step_fn = NaNOnce
+        out = tr.run()
+        tr.data.close()
+        if not (out["nan_skipped"] == 1
+                and _same_state(seen["after"], seen["before"])):
+            raise AssertionError("a skipped step changed the parameters or "
+                                 "the optimizer state")
+        log("NaN drill: halt checkpoint tagged 'nan' at step "
+            f"{extra['step']}, restore refused without force and taken "
+            "with it, the postmortem bundle rendered; a skipped step left "
+            "parameters and AdamW state bitwise unchanged")
+        del tr, seen
+
+        # d. corruption ----------------------------------------------------
+        phase("9d. trainer: a truncated checkpoint")
+        straight_dir = work / "b_straight"
+        newest = max(straight_dir.glob("step_*"))
+        npz = newest / "arrays.npz"
+        with open(npz, "r+b") as f:
+            f.truncate(npz.stat().st_size // 2)
+        fallback_reg = obs.Registry()
+        fresh = make(straight_dir, RESTART_STEPS, registry=fallback_reg)
+        if not fresh.restore_if_available():
+            raise AssertionError("no checkpoint restored past the truncated "
+                                 "one")
+        fresh.data.close()
+        skipped = fresh.ckpt.last_restore_report["skipped"]
+        n_fallback = fallback_reg.counter("trainer.ckpt_fallback").value
+        if fresh.step != RESTART_STEPS // 2 or n_fallback != 1:
+            raise AssertionError(f"fallback to step {fresh.step}, counter "
+                                 f"{n_fallback}")
+        log(f"truncated {newest.name}/arrays.npz: restored step "
+            f"{fresh.step}, trainer.ckpt_fallback {n_fallback:g}, skipped "
+            f"{skipped}")
+        del fresh
+        torch.cuda.empty_cache()
+
+        # e. the comparison ------------------------------------------------
+        phase("9e. trainer: the Table-I comparison")
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        rows = run_comparison(
+            arch, COMPARISON_ENCODINGS, steps=COMPARE_STEPS,
+            batch=TRAIN_BATCH, lr=TRAIN_LR, seed=0,
+            holdout_n=TRAINER_HOLDOUT,
+            n_scenes_per_family=TRAINER_EVAL_SCENES,
+            eval_samples=TRAINER_EVAL_SAMPLES, ckpt_root=str(work / "e"))
+        torch.cuda.synchronize()
+        for name, n in cuda.LAUNCHES.items():
+            launches[name] += n
+        for enc in COMPARISON_ENCODINGS:
+            row = rows[enc]
+            if not (row["status"] == "done"
+                    and math.isfinite(row["open_loop_nll"])
+                    and math.isfinite(row["closed_loop_min_ade"])
+                    and row["loss_last"] < row["loss_first"]):
+                raise AssertionError(f"comparison {enc}: {row}")
+        log(f"run_comparison: {len(COMPARISON_ENCODINGS)} encodings x "
+            f"{COMPARE_STEPS} steps x {TRAIN_BATCH} scenes of all seven "
+            f"families, evaluation 7 x {TRAINER_EVAL_SCENES} x "
+            f"{TRAINER_EVAL_SAMPLES}, in {time.perf_counter() - t0:.1f} s; "
+            f"every row done, NLL and minADE finite, loss falling; "
+            f"launches {dict(cuda.LAUNCHES)}; train seconds " + ", ".join(
+                f"{e} {rows[e]['train_s']:.1f}" for e in COMPARISON_ENCODINGS))
+        log(format_table(rows))
+        log(f"(one seed and {COMPARE_STEPS} steps decide no ordering of the "
+            f"encodings)")
+    finally:
+        obs.set_registry(old_reg)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1334,8 +1716,8 @@ def main() -> int:
                 "se2_project_q_t": 2 * cfg.num_layers,
                 "se2_project_k": 2 * cfg.num_layers,
                 "se2_project_k_t": 2 * cfg.num_layers}
-    one_step, ol, data = train(tmodel, scen, per_step, launches, "",
-                               mixed_grads=True)
+    one_step, ol, data, bare_rate = train(tmodel, scen, per_step,
+                                          launches, "", mixed_grads=True)
     calls = plain_se2_calls(one_step)
     if calls:
         raise AssertionError(f"the train step ran plain SE(2) ops: {calls}")
@@ -1629,6 +2011,11 @@ def main() -> int:
 
     # 8. the other three Table-I arches ------------------------------------
     table1_phase(tmodel, ol, scen, scenes, pairs, t_hist, s_max, launches)
+
+    # 9. the trainer stack --------------------------------------------------
+    del tmodel
+    torch.cuda.empty_cache()
+    trainer_phase(arch, per_step, bare_rate, launches)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -7,12 +7,13 @@ so crossing over is a renaming plus the (un)stacking of ``blocks``:
 
   tree["blocks"]["attn"]["q"]["kernel"][i]  <->  "blocks.{i}.attn.q.kernel"
 
-The tree holds numpy arrays (``np.asarray`` over the reference's
-``init_params``); the conversion is exact both ways.
+The same mapping carries any dict of tensors named like the model's
+parameters, such as AdamW's ``mu`` and ``nu`` (checkpoints store them in
+the reference's layout). The conversion is exact both ways.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -28,42 +29,67 @@ def _flatten(tree, prefix=""):
         if isinstance(val, dict):
             yield from _flatten(val, name + ".")
         else:
-            yield name, np.asarray(val)
+            yield name, val
 
 
-def from_reference(tree) -> Dict[str, torch.Tensor]:
-    """State dict for the port's model from the reference's numpy tree."""
+def _tensor(x, device) -> torch.Tensor:
+    """An owning tensor on ``device`` from a numpy array or a tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, copy=True)
+    return torch.tensor(np.asarray(x), device=device)
+
+
+def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
+    """Flat name -> tensor dict from a tree in the reference's layout (numpy
+    arrays or tensors): a state dict for the port's model, or a named
+    tensor dict such as AdamW's ``mu``. Tensors land on ``device`` (default
+    the CPU)."""
+    device = torch.device("cpu") if device is None else device
     out = {}
     for name, arr in _flatten(tree):
         if name.startswith(_STACKED + "."):
             rest = name[len(_STACKED) + 1:]
             for i in range(arr.shape[0]):
-                out[f"{_STACKED}.{i}.{rest}"] = torch.tensor(arr[i])
+                out[f"{_STACKED}.{i}.{rest}"] = _tensor(arr[i], device)
         else:
-            out[name] = torch.tensor(arr)
+            out[name] = _tensor(arr, device)
     return out
 
 
-def to_reference(model: nn.Module):
-    """The reference's numpy tree from the port's model (inverse of
-    :func:`from_reference`)."""
-    stacked: Dict[str, Dict[int, np.ndarray]] = {}
+def reference_tensors(named: Mapping[str, torch.Tensor]):
+    """The reference's tree of tensors from a flat name -> tensor dict, on
+    the tensors' device: the ``blocks`` layers stacked by ``torch.stack``
+    (new tensors), every other leaf the caller's own tensor."""
+    stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     tree: Dict = {}
 
-    def put(path, arr):
+    def put(path, t):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = arr
+        node[path[-1]] = t
 
-    for name, t in model.state_dict().items():
-        arr = t.detach().cpu().numpy()
+    for name, t in named.items():
         parts = name.split(".")
         if parts[0] == _STACKED:
-            stacked.setdefault(".".join(parts[2:]), {})[int(parts[1])] = arr
+            stacked.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
         else:
-            put(parts, arr)
+            put(parts, t.detach())
     for rest, layers in stacked.items():
         put([_STACKED] + rest.split("."),
-            np.stack([layers[i] for i in range(len(layers))]))
+            torch.stack([layers[i].detach() for i in range(len(layers))]))
     return tree
+
+
+def to_reference(src: Union[nn.Module, Mapping[str, torch.Tensor]]):
+    """The reference's numpy tree from the port's model or from a flat name
+    -> tensor dict (inverse of :func:`from_reference`). Every array is a
+    copy: none aliases the caller's tensors."""
+    named = src.state_dict() if isinstance(src, nn.Module) else src
+
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return node.to("cpu", copy=True).numpy()
+
+    return to_numpy(reference_tensors(named))

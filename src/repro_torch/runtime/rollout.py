@@ -10,6 +10,14 @@ Sampling is keyed per (scene, sample, step): Gumbel-max over uniforms from
 a counter-based hash of (seed, scene, sample, t, agent, action), computed
 with int64 tensor ops on the device. So futures do not depend on the slot
 count or on chunking. The hash does not reproduce ``jax.random``'s bits.
+
+Telemetry (``registry=``, :mod:`repro_torch.obs`) as in the reference: spans
+``rollout.prefill`` / ``rollout.step`` / ``rollout.chunk`` on the host
+clock around the asynchronous launches, the ``rollout.ticks`` counter and
+the ``rollout.cache_bytes`` gauge from shape metadata. No instrument reads
+a device value, so telemetry adds no synchronisation and obs-on and
+obs-off rollouts are bitwise equal. The reference's compiled-cost
+wrappers (``CostAccounted``) are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kinematics import step_kinematics
 from repro_torch.device import resolve_device
 from repro_torch.scenarios.core import ScenarioConfig
@@ -71,11 +80,15 @@ class RolloutEngine:
 
     def __init__(self, model, scen_cfg: ScenarioConfig, *, num_slots: int,
                  max_len: Optional[int] = None, cache_dtype=None,
-                 decode_impl: Optional[str] = None, device=None):
+                 decode_impl: Optional[str] = None, device=None,
+                 registry: Optional[obs.Registry] = None):
         """``cache_dtype``: "float32" (default) / "bfloat16" / "int8"
         storage of the K/V cache. ``decode_impl`` overrides the model's
         decode attention backend (``ops.decode_attention`` names).
-        ``device``: default ``cuda``; must be the model's device."""
+        ``device``: default ``cuda``; must be the model's device.
+        ``registry``: telemetry home, ``None`` the process default,
+        ``obs.NULL`` off."""
+        self.obs = registry if registry is not None else obs.get_registry()
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -98,8 +111,12 @@ class RolloutEngine:
         self.last_actions = None      # (S, K, T_fut, A) after each run()
 
     def init_cache(self):
-        return self.model.init_cache(self.num_slots, self.max_len,
-                                     self.cache_dtype)
+        cache = self.model.init_cache(self.num_slots, self.max_len,
+                                      self.cache_dtype)
+        # shape metadata only: no device read
+        self.obs.gauge("rollout.cache_bytes").set(
+            sum(t.numel() * t.element_size() for t in cache.values()))
+        return cache
 
     def _advance(self, cache, acts, pose, speed, feats_proto, valid, t: int):
         """Integrate the actions ``acts`` (B, A) into step ``t``'s poses
@@ -134,8 +151,9 @@ class RolloutEngine:
         """Roll ``num_slots`` lanes forward from their history; returns
         poses (B, t_total - t_hist, A, 3) and actions (B, T_fut, A)."""
         cache = self.init_cache()
-        hist_logits, cache = self.model.prefill(cache, hist,
-                                                impl=self.decode_impl)
+        with self.obs.span("rollout.prefill"):
+            hist_logits, cache = self.model.prefill(cache, hist,
+                                                    impl=self.decode_impl)
         logits = hist_logits[:, -1]
         pose = hist["agent_pose"][:, -1]
         speed = hist["agent_feats"][:, -1, :, 0] * 10.0
@@ -144,9 +162,13 @@ class RolloutEngine:
         valid = hist["agent_valid"][:, -1]
         out, out_acts = [], []
         for t in range(t_hist, t_total):
-            cache, logits, pose, speed, acts = self._step_body(
-                cache, logits, pose, speed, feats_proto, valid, lane_keys, t)
+            # host time of the tick's launches; no added synchronisation
+            with self.obs.span("rollout.step"):
+                cache, logits, pose, speed, acts = self._step_body(
+                    cache, logits, pose, speed, feats_proto, valid,
+                    lane_keys, t)
             self.ticks += 1
+            self.obs.counter("rollout.ticks").inc()
             out.append(pose)
             out_acts.append(acts)
         return torch.stack(out, 1), torch.stack(out_acts, 1)
@@ -179,9 +201,11 @@ class RolloutEngine:
                                             device=self.device)
             lane_keys = rollout_keys(seed, lanes // n_samples,
                                      lanes % n_samples, self.device)
-            fut, acts = self._run_chunk(hist, lane_keys, t_hist, t_total)
-            futures.append(fut[:total - start].cpu().numpy())
-            actions.append(acts[:total - start].cpu().numpy())
+            with self.obs.span("rollout.chunk"):
+                fut, acts = self._run_chunk(hist, lane_keys, t_hist,
+                                            t_total)
+                futures.append(fut[:total - start].cpu().numpy())
+                actions.append(acts[:total - start].cpu().numpy())
         t_fut = t_total - t_hist
         a = self.scen.num_agents
         self.last_actions = np.concatenate(actions, 0).reshape(

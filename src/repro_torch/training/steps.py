@@ -9,12 +9,16 @@ warmup-cosine schedule.
 
 The port's steps work on the model's own parameters: the train step writes
 each update into them in place, where the reference returns new arrays.
+So the step comes in two halves (:class:`SimTrainStep`): the gradients and
+metrics, which change nothing, and the update, which the trainer skips
+when the loss is not finite (the reference discards the new arrays).
 Batches may be numpy dicts (as the data pipeline yields them) or tensors;
 the steps move them to the model's device.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +28,8 @@ from repro_torch.optim import (Optimizer, adamw, apply_updates, chain,
                                clip_by_global_norm, global_norm,
                                warmup_cosine)
 
-__all__ = ["bc_optimizer", "loss_summary", "make_sim_train_step",
+__all__ = ["bc_optimizer", "loss_summary", "SimTrainStep",
+           "make_sim_train_step",
            "make_sim_eval_step", "open_loop_metrics"]
 
 
@@ -60,13 +65,32 @@ def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class SimTrainStep:
+    """One BC update in two halves, so that a caller can read the loss
+    between them and drop the update (the trainer's non-finite gate).
+
+    ``grads(batch) -> (grads, metrics)`` computes the gradients and the
+    metrics and changes nothing; ``update(opt_state, grads) -> opt_state``
+    clips, steps AdamW and writes the parameters in place. Calling the
+    object runs both: ``step(opt_state, batch) -> (opt_state, metrics)``.
+    """
+    grads: Callable[[Dict[str, Any]], Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]]
+    update: Callable[[Any, Dict[str, torch.Tensor]], Any]
+
+    def __call__(self, opt_state, batch):
+        grads, metrics = self.grads(batch)
+        return self.update(opt_state, grads), metrics
+
+
 def make_sim_train_step(model: AgentSimModel,
-                        optimizer: Optimizer) -> Callable:
+                        optimizer: Optimizer) -> SimTrainStep:
     """One BC update: teacher-forced masked NLL -> grads -> optimizer.
 
-    Switches on gradients for the model's parameters and returns
-    ``step(opt_state, batch) -> (opt_state, metrics)``. The step updates
-    the parameters in place; start from
+    Switches on gradients for the model's parameters and returns a
+    :class:`SimTrainStep`, ``step(opt_state, batch) -> (opt_state,
+    metrics)``. The step updates the parameters in place; start from
     ``optimizer.init(dict(model.named_parameters()))``. ``metrics`` holds
     0-d tensors on the model's device: ``loss``, ``grad_norm`` (of the raw
     gradients, before clipping) and ``accuracy``.
@@ -74,21 +98,25 @@ def make_sim_train_step(model: AgentSimModel,
     model.requires_grad_(True)
     params = dict(model.named_parameters())
 
-    def train_step(opt_state, batch):
+    def grads_half(batch):
         batch = _on_device(batch, model.device)
         logits = model(batch)
         loss = action_nll(logits, batch["actions"], batch["agent_valid"])
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
         with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            apply_updates(params, updates)
             metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
                        "accuracy": _masked_accuracy(
                            logits, batch["actions"], batch["agent_valid"])}
-        return opt_state, metrics
+        return grads, metrics
 
-    return train_step
+    @torch.no_grad()
+    def update_half(opt_state, grads):
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return opt_state
+
+    return SimTrainStep(grads_half, update_half)
 
 
 def make_sim_eval_step(model: AgentSimModel) -> Callable:

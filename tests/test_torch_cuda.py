@@ -538,3 +538,84 @@ def _check_mixed_family_decode(dev, arch_name, cache_dtype):
     got, want = logits["cuda"][valid], logits["cpu"][valid]
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, **MODEL_TOL[cache_dtype])
+
+
+def _trainer_on_card(dev, ckpt_dir, total_steps):
+    """A 2-layer sim-se2-fourier (full width, c = 200) Trainer over 4
+    freeform scenes a batch, weights from seed 0."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import ShardedIterator
+    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.training.data import make_batch_fn
+    from repro_torch.training.steps import bc_optimizer, make_sim_train_step
+    arch = dataclasses.replace(configs.get_sim_arch("sim-se2-fourier"),
+                               num_layers=2)
+    model = AgentSimModel(arch.agent_sim_config(), device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    assert model.blocks[0].attn.enc.expanded_dim == 200
+    opt = bc_optimizer(3e-3, 8)
+    data = ShardedIterator(make_batch_fn(arch.scenario_config(),
+                                         ("freeform",)), batch_size=4)
+    return Trainer(make_sim_train_step(model, opt), model,
+                   opt.init(dict(model.named_parameters())), data,
+                   str(ckpt_dir), TrainerConfig(total_steps=total_steps,
+                                                ckpt_every=3, log_every=100))
+
+
+def _trainer_state(tr):
+    return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+            tr.opt_state[1]["step"],
+            {m: {k: v.clone() for k, v in tr.opt_state[1][m].items()}
+             for m in ("mu", "nu")})
+
+
+def _assert_state_bitwise(a, b):
+    assert a[1] == b[1]
+    for x, y in ((a[0], b[0]), (a[2]["mu"], b[2]["mu"]),
+                 (a[2]["nu"], b[2]["nu"])):
+        assert x.keys() == y.keys()
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+
+
+@pytest.mark.gpu
+def test_trainer_restart_and_nan_skip_bitwise_on_the_card(dev, tmp_path):
+    """Kill-and-resume (3 + 3 steps against 6 straight) gives bitwise the
+    same history, parameters and AdamW moments on the card, and a step
+    whose loss is NaN leaves them bitwise as they were."""
+    full = _trainer_on_card(dev, tmp_path / "full", 6)
+    assert full.run()["status"] == "done"
+    first = _trainer_on_card(dev, tmp_path / "r", 3)
+    first.run()
+    second = _trainer_on_card(dev, tmp_path / "r", 6)
+    assert second.restore_if_available() and second.step == 3
+    assert second.data.cursor == 3
+    second.run()
+    assert second.history == full.history[3:]
+    _assert_state_bitwise(_trainer_state(second), _trainer_state(full))
+
+    tr = _trainer_on_card(dev, tmp_path / "nan", 2)
+    inner = tr.step_fn
+    seen = {}
+
+    class NaNFirst:
+        update = inner.update
+
+        @staticmethod
+        def grads(batch):
+            if not seen:
+                seen["before"] = _trainer_state(tr)
+                g, m = inner.grads(batch)
+                return g, dict(m, loss=torch.tensor(float("nan"),
+                                                    device=dev))
+            _assert_state_bitwise(_trainer_state(tr), seen["before"])
+            seen["checked"] = True
+            return inner.grads(batch)
+
+    tr.step_fn = NaNFirst
+    out = tr.run()
+    assert out["nan_skipped"] == 1 and seen["checked"]
+    for t in (full, first, second, tr):
+        t.data.close()

@@ -37,7 +37,11 @@ def test_port_sources_import_no_jax_and_no_reference(path):
 def test_port_import_loads_no_jax_module():
     code = ("import sys, repro_torch, repro_torch.configs, repro_torch.params,"
             " repro_torch.runtime, repro_torch.scenarios, repro_torch.kernels,"
-            " repro_torch.optim, repro_torch.training, repro_torch.data;"
+            " repro_torch.optim, repro_torch.training, repro_torch.data,"
+            " repro_torch.obs, repro_torch.checkpoint,"
+            " repro_torch.runtime.trainer, repro_torch.training.comparison,"
+            " repro_torch.launch.train_sim, repro_torch.launch.obs_report,"
+            " repro_torch.launch.obs_merge;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
