@@ -99,7 +99,31 @@ Run from the root of a checkout. Phases, each of which fails the run:
    state bitwise unchanged; (d) the newest checkpoint truncated: the
    restore falls back one step and counts it; (e) run_comparison over
    the four encodings, 20 steps x 32 mixed scenes each: every row done,
-   NLL and minADE finite, the loss falling, the table printed.
+   NLL and minADE finite, the loss falling, the table printed;
+10. the continuous-batching SimServer at full width (phase 4's seed-0
+   sim-se2-fourier, 64 slots, max_len 384): first the decode at the
+   admission's shape (one scene's 48 map rows against themselves on the
+   48-row sub-cache) and at the server tick's (every slot at its own
+   cursor and step, retired slots past max_len), float32 and int8, and the
+   se2 modes at the admission's, against their plain versions and bitwise
+   repeatable; (a) a Poisson drive of 128 mixed scenes x 2 samples at 2.0
+   arrivals a tick, float32 and int8: every lane ok and finite, launches
+   exactly (ticks + admissions) x the model's per call, lanes/s, tick
+   p50/p99, slab and peak memory; drain_lag 1 against 0 in one process,
+   and under the profiler the launches, copies and host waits (stream,
+   device and event synchronisations) in each tick, at most one a tick
+   with drain_lag 1; no plain SE(2) op; (b) the gauntlet in 8 slots,
+   float32 and int8: an eviction mid-prefill, retirements, every stale row
+   scribbled with NaN garbage, then the victim beside 7 neighbours bitwise
+   equal to the victim alone in a fresh 8-slot server; (c) serve_scenes
+   against RolloutEngine.run over phase 4's 64 scenes: the logits after
+   the history within MODEL_TOL, the share of bitwise-equal futures
+   printed; (d) a slot poisoned with NaN mid-rollout: one lane failed with
+   nonfinite_pose, the others bitwise the no-fault run's, the scrubbed
+   slot's next tenant bitwise its solo run; (e) ``python -m
+   repro_torch.launch.chaos`` (all five drills pass, every bundle renders)
+   and ``python -m repro_torch.launch.serve_sim`` at its defaults, its
+   trace rendered by obs_report.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -207,6 +231,16 @@ COMPARE_STEPS = 20
 # the restart against the straight run: the reference's own tolerances
 # (tests/test_trainer_server.py:145-149)
 RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
+# phase 10: the SimServer. (a) the Poisson drive: slots, mixed scenes x
+# samples a scene, the lanes' horizon, arrivals a tick (about 3/4 of the
+# 64 / 24 lanes a tick a full slab retires), the scenes' seed and the
+# working ticks the latency histogram skips; (b) the gauntlet's slots (also
+# (d)'s); (d) the lanes of the quarantine run
+SERVE_SLOTS, SERVE_SCENES, SERVE_SAMPLES, SERVE_T_TOTAL = 64, 128, 2, 24
+SERVE_RATE, SERVE_SEED, SERVE_WARMUP_TICKS = 2.0, 10, 2
+# scenes of the profiled drive
+SERVE_PROFILE_SCENES = 32
+GAUNTLET_SLOTS, QUARANTINE_LANES = 8, 12
 
 # the transposed se2 modes have no TPU kernel: they compute what the JAX
 # package computes with untransform_out (also transform_q's VJP) and with
@@ -1466,6 +1500,507 @@ def trainer_phase(arch, per_step, bare_rate, launches):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the continuous-batching SimServer
+# ---------------------------------------------------------------------------
+
+# the CUDA runtime calls on which the host waits for the card
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def scribble_stale_rows(cache, cursors, seed):
+    """Every row at or past each slot's cursor of a server's stacked cache
+    overwritten in place with garbage: huge floats, a quarter NaN (scales
+    included), full-range int8, and times and segment ids of 1 (a
+    *valid-looking* id); a torch copy of tests/serving_utils.py's."""
+    import torch
+    dev = cache["seg"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = cache["seg"].shape[1]
+    cur = torch.as_tensor(cursors, device=dev)
+    stale = torch.arange(s, device=dev)[None, :] >= cur[:, None]   # (B, S)
+    for key, x in cache.items():
+        if key == "cursor":
+            continue
+        mask = {5: stale[None, :, None, :, None], 4: stale[None, :, None, :],
+                2: stale}[x.ndim]
+        if x.dtype == torch.int8:
+            junk = torch.randint(-128, 128, x.shape, generator=gen,
+                                 device=dev, dtype=torch.int8)
+        elif not x.dtype.is_floating_point:
+            junk = torch.ones_like(x)
+        else:
+            junk = torch.randn(x.shape, generator=gen, device=dev) * 100.0
+            junk = torch.where(torch.rand(x.shape, generator=gen,
+                                          device=dev) < 0.25,
+                               float("nan"), junk).to(x.dtype)
+        x.copy_(torch.where(mask, junk, x))
+
+
+def bitwise_or_raise(what, got, want):
+    import numpy as np
+    if not np.array_equal(got, want):
+        diff = np.abs(np.asarray(got, np.float64) - np.asarray(want,
+                                                               np.float64))
+        raise AssertionError(f"{what}: {int((diff != 0).sum())} of "
+                             f"{diff.size} elements differ (max |diff| "
+                             f"{diff.max():.3e})")
+
+
+def tick_profile(srv, run):
+    """``run()`` under torch.profiler with each ``srv.tick()`` wrapped in a
+    range: per tick (idle polls included) the host waits (HOST_WAITS calls)
+    inside it, the waits outside any tick (the final flush), and the
+    device time, kernel launches and host-to-device copies of the whole
+    run. Raises when the profiler recorded no CUDA runtime call, which
+    would leave the waits uncounted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    tick = srv.tick
+
+    def ranged_tick():
+        with record_function("chip_smoke.server_tick"):
+            return tick()
+    srv.tick = ranged_tick
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        del srv.tick
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "chip_smoke.server_tick")
+    waits = [e for e in events if e.name in HOST_WAITS]
+    if not any(e.name == "cudaLaunchKernel" for e in events):
+        raise AssertionError("the profiler recorded no CUDA runtime call: "
+                             "host waits not counted")
+    per_tick = [sum(1 for w in waits if t0 <= w.time_range.start <= t1)
+                for t0, t1 in spans]
+    # device time and counts by kernel name, as device_profile reads them
+    # the GPU spans of record_function ranges (the server's own and the
+    # tick's above) repeat their kernels' time: kernels only
+    device = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith(("sim_server.",
+                                               "chip_smoke."))),
+                    key=lambda e: -e.self_device_time_total)
+    return {
+        "per_tick": per_tick, "outside": len(waits) - sum(per_tick),
+        "top": [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in device[:8]],
+        "device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+        "launches": sum(e.count for e in device
+                        if not e.key.startswith(("Memcpy", "Memset"))),
+        "htod": sum(e.count for e in device
+                    if e.key.startswith("Memcpy HtoD")),
+        "dtoh": sum(e.count for e in device
+                    if e.key.startswith("Memcpy DtoH")),
+    }
+
+
+def server_requests(scenes):
+    """The Poisson drive's lanes: every scene x SERVE_SAMPLES samples,
+    keyed like RolloutEngine's lane (scene, sample) at seed 0."""
+    from repro_torch.runtime import SceneRequest
+    return [SceneRequest(uid=i * SERVE_SAMPLES + k, tensors=s,
+                         t_hist=T_HIST, t_total=SERVE_T_TOTAL, seed=0,
+                         scene_id=i, sample_id=k)
+            for i, s in enumerate(scenes) for k in range(SERVE_SAMPLES)]
+
+
+def server_phase(model, scen, s_max, launches, max_err):
+    """Phase 10: the continuous-batching SimServer at full width (phase
+    4's seed-0 sim-se2-fourier, 64 slots, max_len s_max). The decode and
+    se2 kernels at the server's new shapes against their plain versions,
+    then (a) the Poisson drive, (b) the gauntlet, (c) serve_scenes
+    against the engine, (d) quarantine and (e) the launchers. The Poisson
+    drives' launches join ``launches``; kernel errors join ``max_err``."""
+    import os
+    import subprocess
+    import numpy as np
+    import torch
+    from repro_torch import chaos, obs, scenarios
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.launch.obs_report import render_postmortem
+    from repro_torch.runtime import (RolloutEngine, SceneRequest, SimServer,
+                                     poisson_drive, serve_scenes)
+    cfg = model.cfg
+    dev = model.device
+    enc = model.blocks[0].attn.enc
+    c, m, a = enc.expanded_dim, scen.num_map, scen.num_agents
+    layers = cfg.num_layers
+    per_call = {"flash_decode": layers, "se2_project_q": layers,
+                "se2_project_k": 2 * layers, "se2_project_q_t": layers}
+
+    # the kernels at the server's shapes -----------------------------------
+    phase("10. server: kernels at the admission's and the tick's shapes")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rng = np.random.default_rng(10)
+    # admission: one scene's M map rows, all at time 0, against themselves
+    # on the M-row sub-cache; the tick: every slot at its own cursor and
+    # step, retired slots past max_len (kv_length clamps to S)
+    tick_kvl = np.concatenate([[a, m + a, s_max, s_max + a],
+                               rng.integers(m + a, s_max + a + 1,
+                                            SERVE_SLOTS - 4)])
+    for cache_dtype in ("float32", "int8"):
+        for what, kw in (
+                ("admission", dict(b=1, s=m, sq=m, cursors=[m],
+                                   prefill=True)),
+                ("server tick", dict(b=SERVE_SLOTS, s=s_max, sq=a,
+                                     cursors=tick_kvl))):
+            case = decode_case(gen, dev, cache_dtype, layers=layers,
+                               h=cfg.num_heads, c=c, num_map=m,
+                               num_agents=a, **kw)
+            if what == "server tick":
+                case["q_times"] = torch.as_tensor(
+                    rng.integers(1, scen.num_steps + 1, (SERVE_SLOTS, 1)),
+                    dtype=torch.int32, device=dev).expand(-1, a).contiguous()
+            q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
+            want = ops.decode_attention(q, k, v, impl="plain", layer=layers - 1,
+                                        **case)
+            got = ops.decode_attention(q, k, v, impl="flash_decode",
+                                       layer=layers - 1, **case)
+            again = ops.decode_attention(q, k, v, impl="flash_decode",
+                                         layer=layers - 1, **case)
+            torch.cuda.synchronize()
+            err = close_or_raise(f"flash_decode {what} {cache_dtype}", got,
+                                 want, **DECODE_TOL[cache_dtype])
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_decode {what} {cache_dtype}: "
+                                     f"not bitwise repeatable")
+            max_err["flash_decode"] = max(max_err["flash_decode"], err)
+            log(f"flash_decode {what} ({tuple(q.shape)} against "
+                f"{k.shape[3]} rows, {cache_dtype}): max abs err "
+                f"{err:.3e}, bitwise repeatable")
+    errs = {}
+    for name in SE2_MODES:
+        kernel, plain, mode, transposed = se2_mode(name)
+        x, pose = se2_case(gen, dev, 1, cfg.num_heads, m,
+                           c if transposed else cfg.head_dim, cfg.pos_scale)
+        got, again = kernel(x, pose, enc, mode), kernel(x, pose, enc, mode)
+        want = plain(x, pose, enc, mode)
+        torch.cuda.synchronize()
+        errs[name] = close_or_raise(f"{name} admission", got, want,
+                                    **SE2_TOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} admission: not bitwise "
+                                 f"repeatable")
+        max_err[name] = max(max_err[name], errs[name])
+    log(f"se2 at the admission's 1 x {cfg.num_heads} x {m} rows: bitwise "
+        f"repeatable; max abs err " + ", ".join(
+            f"{k_[12:]} {e:.3e}" for k_, e in errs.items()))
+
+    # a. the Poisson drive -----------------------------------------------------
+    phase("10a. server: Poisson drive")
+    t0 = time.perf_counter()
+    scenes = scenarios.registry.generate_mixed(SERVE_SEED, 0, SERVE_SCENES,
+                                               scen)
+    gen_s = time.perf_counter() - t0
+    lanes = SERVE_SCENES * SERVE_SAMPLES
+
+    def server(cache_dtype="float32", num_slots=SERVE_SLOTS, drain_lag=1,
+               registry=obs.NULL):
+        return SimServer(model, scen, num_slots=num_slots, max_len=s_max,
+                         cache_dtype=cache_dtype, drain_lag=drain_lag,
+                         device=dev, registry=registry)
+
+    def drive(srv, reqs):
+        return poisson_drive(srv, reqs, rate=SERVE_RATE, seed=0,
+                             warmup_ticks=SERVE_WARMUP_TICKS)
+
+    # warm-up: cuBLAS handles, the pinned-memory pool, both dtypes' paths
+    for cache_dtype in ("float32", "int8"):
+        drive(server(cache_dtype), server_requests(scenes[:8]))
+    log(f"scene generation: {SERVE_SCENES} mixed scenes in {gen_s:.3f} s "
+        f"of host time")
+    walls = {}
+    for cache_dtype in ("float32", "int8"):
+        reg = obs.Registry()
+        srv = server(cache_dtype, registry=reg)
+        reqs = server_requests(scenes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = drive(srv, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        calls = srv.ticks + srv.admitted
+        want = {k_: calls * n for k_, n in per_call.items()}
+        if counts != want:
+            raise AssertionError(f"server {cache_dtype} launches {counts} != "
+                                 f"{want} ({srv.ticks} ticks + "
+                                 f"{srv.admitted} admissions)")
+        for name, n in counts.items():
+            launches[name] += n
+        done = srv.done
+        bad = [u for u in range(lanes) if u not in done
+               or done[u].status != "ok"
+               or not np.isfinite(done[u].future).all()]
+        if bad or len(done) != lanes:
+            raise AssertionError(f"server {cache_dtype}: lanes {bad[:8]} "
+                                 f"missing, failed or non-finite")
+        hist, stats = out["latency"], srv.stats()
+        qwait = reg.histogram("sim_server.queue_wait.seconds")
+        first = reg.histogram("sim_server.first_action.seconds")
+        walls[cache_dtype] = wall
+        log(f"server {cache_dtype}: {lanes} lanes ({SERVE_SCENES} scenes x "
+            f"{SERVE_SAMPLES}) at {SERVE_RATE} arrivals a tick over "
+            f"{SERVE_SLOTS} slots: {srv.ticks} working ticks and "
+            f"{srv.admitted} admissions in {wall:.3f} s = "
+            f"{lanes / wall:.1f} lanes/s ({SERVE_SCENES / wall:.1f} scenes/s) "
+            f"wall; sustained {lanes / hist.sum:.1f} lanes/s over "
+            f"{hist.count} ticks after {SERVE_WARMUP_TICKS}; tick p50 "
+            f"{hist.percentile(50) * 1e3:.2f} ms, p99 "
+            f"{hist.percentile(99) * 1e3:.2f} ms; queue wait p50 "
+            f"{qwait.percentile(50) * 1e3:.1f} ms, first action p50 "
+            f"{first.percentile(50) * 1e3:.1f} ms; slab "
+            f"{stats['slab_mib']:.1f} MiB, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB resident before); launches exact "
+            f"{counts}")
+    # drain_lag 1 against 0 in one process, over the same lanes, in turns
+    # (1, 0, 0, 1): the host's pace drifts within a run
+    done_by_lag = {}
+    for lag in (1, 0, 0, 1):
+        srv = server(drain_lag=lag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive(srv, server_requests(scenes))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist = out["latency"]
+        done_by_lag[lag] = srv.done
+        log(f"server float32 drain_lag={lag}: {wall:.3f} s, "
+            f"{lanes / wall:.1f} lanes/s wall, sustained "
+            f"{lanes / hist.sum:.1f} lanes/s, tick p50 "
+            f"{hist.percentile(50) * 1e3:.2f} ms, p99 "
+            f"{hist.percentile(99) * 1e3:.2f} ms")
+    for uid, res in done_by_lag[0].items():
+        bitwise_or_raise(f"drain_lag 0 vs 1, lane {uid}", res.future,
+                         done_by_lag[1][uid].future)
+    # where the time goes, and the host waits in each tick, over the first
+    # SERVE_PROFILE_SCENES scenes (the profiler's own cost grows with the
+    # events it keeps): the unprofiled drive, then the same under the
+    # profiler
+    few = scenes[:SERVE_PROFILE_SCENES]
+    srv = server()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(srv, server_requests(few))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    srv = server()
+    prof = tick_profile(srv, lambda: drive(srv, server_requests(few)))
+    n_ticks, waits = srv.ticks, prof["per_tick"]
+    log(f"profile server float32 drain_lag=1, {len(few) * SERVE_SAMPLES} "
+        f"lanes: {n_ticks} working ticks and {srv.admitted} admissions; per "
+        f"working tick {prof['launches'] / n_ticks:.1f} device launches, "
+        f"{prof['htod'] / n_ticks:.2f} host-to-device and "
+        f"{prof['dtoh'] / n_ticks:.2f} device-to-host copies; host waits in "
+        f"a tick: max {max(waits)}, total {sum(waits)} over {len(waits)} "
+        f"tick calls (idle polls included), {prof['outside']} outside the "
+        f"ticks (the flush, the final synchronize); {prof['device_ms']:.2f} "
+        f"ms of kernels against the unprofiled {wall * 1e3:.1f} ms: busy "
+        f"{prof['device_ms'] / (wall * 1e3):.1%}")
+    for ms, count, key in prof["top"]:
+        log(f"  {ms:9.3f} ms {count:6d} x {key[:90]}")
+    if max(waits) > 1:
+        raise AssertionError(f"drain_lag=1: a tick waited on the host "
+                             f"{max(waits)} times")
+    srv = server()
+    calls = plain_se2_calls(lambda: drive(srv, server_requests(scenes[:8])))
+    if calls:
+        raise AssertionError(f"the server ran plain SE(2) ops: {calls}")
+    log("server: no call into core/encodings.py or core/fourier.py that "
+        "runs a tensor op")
+
+    # b. the gauntlet -----------------------------------------------------------
+    phase("10b. server: the gauntlet")
+    victim = scenarios.generate_scene("signalized_intersection", 40, 0, scen)
+    neighbours = scenarios.registry.generate_mixed(8, 200,
+                                                   GAUNTLET_SLOTS - 1, scen)
+    evictees = scenarios.registry.generate_mixed(7, 100, GAUNTLET_SLOTS,
+                                                 scen)
+    # the victim lands in slot `seat` behind that many neighbours; alone,
+    # it runs in slot 0
+    seat = GAUNTLET_SLOTS // 2
+
+    def victim_request():
+        return SceneRequest(uid=0, tensors=victim, t_hist=T_HIST, seed=9,
+                            scene_id=0)
+    for cache_dtype in ("float32", "int8"):
+        solo = server(cache_dtype, num_slots=GAUNTLET_SLOTS)
+        solo.submit(victim_request())
+        solo.run_until_drained()
+        srv = server(cache_dtype, num_slots=GAUNTLET_SLOTS)
+        for i, scene in enumerate(evictees):
+            srv.submit(SceneRequest(uid=100 + i, tensors=scene, t_hist=4,
+                                    t_total=T_HIST + 4, seed=1,
+                                    scene_id=50 + i))
+        srv.tick()                                # every slot mid-prefill
+        if not srv.evict(101):
+            raise AssertionError("mid-prefill eviction found no lane")
+        while any(s.req for s in srv.slots):      # the rest retire
+            srv.tick()
+        srv.flush()
+        scribble_stale_rows(srv.cache, [0] * GAUNTLET_SLOTS, seed=3)
+        arrivals = [SceneRequest(uid=1 + i, tensors=scene, t_hist=2 + i % 4,
+                                 seed=2, scene_id=77 + i)
+                    for i, scene in enumerate(neighbours)]
+        arrivals.insert(seat, victim_request())
+        for req in arrivals:
+            srv.submit(req)
+        srv.tick()
+        if srv.slots[seat].req.uid != 0:
+            raise AssertionError(f"the victim is not in slot {seat}")
+        srv.run_until_drained()
+        want = [0, *range(1, GAUNTLET_SLOTS),
+                *(100 + i for i in range(GAUNTLET_SLOTS) if i != 1)]
+        if sorted(srv.done) != sorted(want):
+            raise AssertionError(f"gauntlet lanes {sorted(srv.done)}")
+        bitwise_or_raise(f"gauntlet victim actions ({cache_dtype})",
+                         srv.done[0].actions, solo.done[0].actions)
+        bitwise_or_raise(f"gauntlet victim poses ({cache_dtype})",
+                         srv.done[0].future, solo.done[0].future)
+        log(f"gauntlet {cache_dtype}: {GAUNTLET_SLOTS} slots, an eviction "
+            f"mid-prefill, {GAUNTLET_SLOTS - 1} lanes retired, every stale "
+            f"row scribbled with NaN garbage, the victim in slot {seat} "
+            f"beside {GAUNTLET_SLOTS - 1} neighbours: actions and poses "
+            f"bitwise equal to the victim alone in slot 0 of a fresh "
+            f"{GAUNTLET_SLOTS}-slot server")
+
+    # c. serve_scenes against the engine -----------------------------------------
+    phase("10c. server: serve_scenes against RolloutEngine")
+    free = [scenarios.generate_scene("freeform", 0, i, scen)
+            for i in range(SERVE_SLOTS)]
+    engine = RolloutEngine(model, scen, num_slots=SERVE_SLOTS, device=dev)
+    fut_e = engine.run(free, t_hist=T_HIST, n_samples=1, seed=0)
+    hist_batch = {k_: (v_[:, :T_HIST] if k_.startswith("agent") else v_)
+                  for k_, v_ in scene_batch(free, dev).items()}
+    with torch.no_grad():
+        eng_logits = model.prefill(model.init_cache(SERVE_SLOTS, s_max),
+                                   hist_batch)[0][:, -1]
+    srv = server()
+    captured = {}
+    tick = srv.tick
+
+    def capturing_tick():
+        ticked = tick()
+        if srv.ticks == T_HIST and "logits" not in captured:
+            captured["logits"] = srv.state["logits"].clone()
+        return ticked
+    srv.tick = capturing_tick
+    fut_s = serve_scenes(srv, free, t_hist=T_HIST, n_samples=1, seed=0)
+    err = close_or_raise("server vs engine: logits after the history",
+                         captured["logits"], eng_logits,
+                         **MODEL_TOL["float32"])
+    same = [np.array_equal(fut_s[i], fut_e[i]) for i in range(SERVE_SLOTS)]
+    logits_same = torch.equal(captured["logits"], eng_logits)
+    log(f"serve_scenes vs RolloutEngine.run, {SERVE_SLOTS} freeform scenes "
+        f"through {SERVE_SLOTS} slots: logits after the teacher-forced "
+        f"history within MODEL_TOL (max abs err {err:.3e}, bitwise equal "
+        f"{logits_same}); futures bitwise equal in {sum(same)} of "
+        f"{SERVE_SLOTS} lanes ({sum(same) / SERVE_SLOTS:.1%})")
+    del engine
+
+    # d. quarantine -----------------------------------------------------------------
+    phase("10d. server: quarantine")
+    q_scenes = scenarios.registry.generate_mixed(5, 0, QUARANTINE_LANES, scen)
+
+    def serve(poison_tick=None):
+        srv_ = server(num_slots=GAUNTLET_SLOTS)
+        for i, scene in enumerate(q_scenes):
+            srv_.submit(SceneRequest(uid=i, tensors=scene, t_hist=T_HIST,
+                                     seed=11, scene_id=i))
+        victim_uid, ticks = None, 0
+        while srv_.queue or any(s.req for s in srv_.slots):
+            if ticks == poison_tick:
+                victim_uid = srv_.slots[0].req.uid
+                chaos.poison_server_slot(srv_, 0)
+            srv_.tick()
+            ticks += 1
+        srv_.flush()
+        return srv_, victim_uid
+    ref, _ = serve()
+    srv, victim_uid = serve(poison_tick=T_HIST + 3)
+    failed = {u: r.reason for u, r in srv.done.items() if r.status != "ok"}
+    if failed != {victim_uid: "nonfinite_pose"} or srv.quarantined != 1:
+        raise AssertionError(f"quarantine: failed lanes {failed}, "
+                             f"quarantined {srv.quarantined}")
+    for uid, res in srv.done.items():
+        if uid != victim_uid:
+            bitwise_or_raise(f"healthy lane {uid} poses", res.future,
+                             ref.done[uid].future)
+            bitwise_or_raise(f"healthy lane {uid} actions", res.actions,
+                             ref.done[uid].actions)
+    tenant = scenarios.generate_scene("highway", 123, 0, scen)
+
+    def tenant_request():
+        return SceneRequest(uid=99, tensors=tenant, t_hist=T_HIST, seed=21,
+                            scene_id=0)
+    srv.submit(tenant_request())
+    srv.tick()
+    if srv.slots[0].req.uid != 99:
+        raise AssertionError("the tenant is not in the scrubbed slot 0")
+    srv.run_until_drained()
+    solo = server(num_slots=GAUNTLET_SLOTS)
+    solo.submit(tenant_request())
+    solo.run_until_drained()
+    bitwise_or_raise("scrubbed slot's next tenant", srv.done[99].future,
+                     solo.done[99].future)
+    log(f"quarantine: slot 0 poisoned with NaN at tick {T_HIST + 3}; lane "
+        f"{victim_uid} failed with nonfinite_pose, the counter at 1; "
+        f"{len(srv.done) - 2} healthy lanes bitwise equal to the no-fault "
+        f"run; the scrubbed slot's next tenant bitwise equal to its solo run")
+
+    # e. the launchers -------------------------------------------------------------
+    phase("10e. server: the launchers")
+    work = ROOT / "build" / "phase10"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def launch(*args, timeout):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", *map(str, args)],
+                             env=env, cwd=work, capture_output=True,
+                             text=True, timeout=timeout)
+        if run.returncode != 0:
+            raise AssertionError(f"{args[0]} exited {run.returncode}:\n"
+                                 f"{run.stderr[-3000:]}")
+        return run, time.perf_counter() - t0
+    run, secs = launch("repro_torch.launch.chaos", "--out",
+                       work / "chaos.json", "--bundles-dir",
+                       work / "bundles", timeout=300)
+    record = json.loads((work / "chaos.json").read_text())
+    if not record["all_passed"] or record["n_scenarios"] != 5 \
+            or torch.device(record["device"]).type != dev.type:
+        raise AssertionError(f"chaos drills: {record}")
+    for name, row in record["scenarios"].items():
+        bundle = json.loads((work / "bundles" / row["bundle"]).read_text())
+        if bundle["reason"] not in render_postmortem(bundle):
+            raise AssertionError(f"chaos {name}: bundle did not render")
+    log(f"python -m repro_torch.launch.chaos: all {record['n_scenarios']} "
+        f"drills passed on the card in {secs:.1f} s (" + ", ".join(
+            f"{k_} {v_['wall_s']:.2f} s"
+            for k_, v_ in record["scenarios"].items())
+        + "); every bundle rendered")
+    run, secs = launch("repro_torch.launch.serve_sim", "--telemetry-out",
+                       work / "serve.trace.jsonl", timeout=300)
+    log(f"python -m repro_torch.launch.serve_sim (defaults) in {secs:.1f} "
+        f"s: " + " | ".join(run.stderr.strip().splitlines()[-6:]))
+    report, _ = launch("repro_torch.launch.obs_report",
+                       work / "serve.trace.jsonl", timeout=120)
+    if "sim_server.tick" not in report.stdout:
+        raise AssertionError("obs_report lost the sim_server.tick span")
+    log("obs_report rendered the serve_sim trace")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1729,16 +2264,16 @@ def main() -> int:
     phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
 
-    def decode_timing(sq, cursor, prefill, c):
+    def decode_timing(sq, cursor, prefill, c, b_=n_slots, s_=s_max):
         """flash_decode at the tick (sq new rows at the newest time against
         ``cursor`` live rows) or the prefill (the first sq tokens against
-        themselves, block-causal), float32 cache c wide; SDPA over the live
-        prefix with the same mask. FLOPs count the (q, k) pairs the mask
-        admits, bounded at the tensor cores' rate for float32-accurate
-        products."""
+        themselves, block-causal), b_ slots of a float32 cache s_ rows of c
+        wide; SDPA over the live prefix with the same mask. FLOPs count the
+        (q, k) pairs the mask admits, bounded at the tensor cores' rate for
+        float32-accurate products."""
         case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
-                           b=n_slots, h=cfg.num_heads, s=s_max, c=c, sq=sq,
-                           cursors=[cursor] * n_slots, num_map=scen.num_map,
+                           b=b_, h=cfg.num_heads, s=s_, c=c, sq=sq,
+                           cursors=[cursor] * b_, num_map=scen.num_map,
                            num_agents=scen.num_agents, prefill=prefill)
         q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
         live = (case["k_times"][:, None, :cursor]
@@ -1748,7 +2283,7 @@ def main() -> int:
                & (case["k_segment_ids"][:, None, :cursor] >= 0))
         mask = (live & seg)[:, None].contiguous()         # (B, 1, Sq, cursor)
         kl, vl = k[3, :, :, :cursor], v[3, :, :, :cursor]
-        b_, h_ = n_slots, cfg.num_heads
+        h_ = cfg.num_heads
         return dict(
             fn=lambda: ops.decode_attention(q, k, v, impl="flash_decode",
                                             layer=3, **case),
@@ -1782,9 +2317,10 @@ def main() -> int:
             kernel=name, shape=f"{b_} scenes x {cfg.num_heads} heads x {n_} "
                                f"tokens")
 
-    # se2 at the tick (the record) and at the train step (its "train");
-    # the decode at c = 200 (the record, its "prefill") and at the other
-    # Table-I arches' c = 24 ("c24", "c24_prefill")
+    # se2 at the tick (the record), at the train step (its "train") and at
+    # the server's admission ("admit"); the decode at c = 200 (the record,
+    # its "prefill", "admit") and at the other Table-I arches' c = 24
+    # ("c24", "c24_prefill")
     timings = {
         "flash_decode": decode_timing(tick_rows, kvl, False, c),
         "flash_decode_prefill": dict(
@@ -1798,6 +2334,13 @@ def main() -> int:
         **{name: se2_timing(name, n_slots, tick_rows) for name in SE2_MODES},
         **{f"{name}_train": dict(se2_timing(name, TRAIN_BATCH, train_tokens),
                                  nest="train") for name in SE2_MODES},
+        # the server's admission (phase 10): one scene's map rows against
+        # themselves on the M-row sub-cache
+        "flash_decode_admit": dict(
+            decode_timing(scen.num_map, scen.num_map, True, c, b_=1,
+                          s_=scen.num_map), nest="admit"),
+        **{f"{name}_admit": dict(se2_timing(name, 1, scen.num_map),
+                                 nest="admit") for name in SE2_MODES},
     }
     def flash_timings(case):
         """The flash forward, dq and dk/dv at the train step's attention
@@ -2016,6 +2559,9 @@ def main() -> int:
     del tmodel
     torch.cuda.empty_cache()
     trainer_phase(arch, per_step, bare_rate, launches)
+
+    # 10. the continuous-batching server -----------------------------------
+    server_phase(model, scen, s_max, launches, max_err)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

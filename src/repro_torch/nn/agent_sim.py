@@ -88,10 +88,35 @@ def build_sim_encoding(cfg: AgentSimConfig) -> Optional[GroupEncoding]:
     return make_encoding(cfg.encoding, cfg.head_dim, **kwargs)
 
 
-def _row_index(cursor: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, n) cache positions [cursor, cursor + n) per slot."""
-    return cursor.to(torch.int64)[:, None] + torch.arange(
-        n, device=cursor.device)[None, :]
+def _row_index(cursor: torch.Tensor, n: int, max_len: int) -> torch.Tensor:
+    """(B, n) cache positions [start, start + n) per slot, where start is
+    the cursor clamped to [0, max_len - n], as ``dynamic_update_slice``
+    clamps the reference's writes: a retired server slot whose cursor sits
+    at ``max_len`` is still decoded (and discarded) every tick, and its rows
+    land at ``max_len - n``, past any live row."""
+    start = torch.clamp(cursor.to(torch.int64), 0, max_len - n)
+    return start[:, None] + torch.arange(n, device=cursor.device)[None, :]
+
+
+def install_slot_rows(cache, sub, si: int, n_rows: int):
+    """Install the first ``n_rows`` rows of a freshly written 1-slot cache
+    ``sub`` into slot ``si`` of a multi-slot cache, in place
+    (continuous-batching admission: a retiring scene's slot is reused by
+    the next scene); returns ``cache``.
+
+    Only rows ``[0, n_rows)`` and the slot's cursor are written: rows at
+    and past the reset cursor keep whatever the evicted scene left there,
+    segment ids claiming validity included. They are unreachable, because
+    every decode masks key positions >= ``kv_length = cursor + n`` and the
+    cursor only ever advances over freshly written rows.
+    """
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in cache:
+            cache[key][:, si, :, :n_rows] = sub[key][:, 0, :, :n_rows]
+    for key in ("times", "seg"):
+        cache[key][si, :n_rows] = sub[key][0, :n_rows]
+    cache["cursor"][si].copy_(sub["cursor"][0])
+    return cache
 
 
 def _write_layer_rows(buf: torch.Tensor, layer: int, new: torch.Tensor,
@@ -99,8 +124,8 @@ def _write_layer_rows(buf: torch.Tensor, layer: int, new: torch.Tensor,
     """Write one layer's new rows into the stacked cache in place.
 
     buf (L, B, H, S, c) or (L, B, H, S); new (B, H, n, c) / (B, H, n);
-    rows (B, n). One scatter of the B * H * n new rows into the layer's
-    view; the caller guarantees cursor + n <= S.
+    rows (B, n) from :func:`_row_index`, inside [0, S). One scatter of the
+    B * H * n new rows into the layer's view.
     """
     b, h = new.shape[0], new.shape[1]
     bi = torch.arange(b, device=buf.device)[:, None, None]
@@ -351,7 +376,7 @@ class AgentSimModel(nn.Module):
         """
         n = x.shape[1]
         cursor = cache["cursor"]
-        rows = _row_index(cursor, n)
+        rows = _row_index(cursor, n, cache["seg"].shape[1])
         bi = torch.arange(x.shape[0], device=x.device)[:, None]
         cache["times"][bi, rows] = times
         cache["seg"][bi, rows] = segment_ids
@@ -378,6 +403,24 @@ class AgentSimModel(nn.Module):
             cache, self._with_pose(self._embed(batch), pose), pose, times,
             seg, impl=impl)
         return logits[:, m:].reshape(b, t, a, self.cfg.num_actions), cache
+
+    def admit_map(self, cache, map_feats, map_pose, map_valid, impl=None):
+        """Write ONLY a scene's map tokens into the cache: times 0, segment
+        0 where ``map_valid``, else -1.
+
+        The continuous-batching admission primitive: the map is the one
+        token block whose width (M) differs from a tick's A agent tokens,
+        so a server admits a scene by writing its map here and then
+        streams the history through the shared tick (``step`` with
+        teacher-forced inputs). map_feats (B, M, Fm); map_pose (B, M, 3);
+        map_valid (B, M) bool. Returns (the map tokens' logits, which
+        callers discard, and the cache)."""
+        b, m, _ = map_feats.shape
+        x = self._with_pose(self.map_enc(map_feats.to(torch.float32)),
+                            map_pose)
+        times = torch.zeros((b, m), dtype=torch.int32, device=x.device)
+        seg = torch.where(map_valid, 0, -1).to(torch.int32)
+        return self._extend(cache, x, map_pose, times, seg, impl=impl)
 
     def step(self, cache, agent_feats, agent_pose, agent_valid, step_time,
              impl=None):

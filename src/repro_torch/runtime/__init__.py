@@ -1,7 +1,12 @@
-"""Runtime: the closed-loop rollout engine and the evaluation over it."""
+"""Runtime: the closed-loop rollout engine, the continuous-batching sim
+server and the evaluation over them."""
 from repro_torch.runtime.evaluation import (EvalConfig, evaluate_families,
                                             evaluate_scenes)
 from repro_torch.runtime.rollout import RolloutEngine
+from repro_torch.runtime.sim_server import (SceneRequest, SimResult,
+                                            SimServer, poisson_drive,
+                                            serve_scenes)
 
 __all__ = ["RolloutEngine", "EvalConfig", "evaluate_families",
-           "evaluate_scenes"]
+           "evaluate_scenes", "SceneRequest", "SimResult", "SimServer",
+           "poisson_drive", "serve_scenes"]

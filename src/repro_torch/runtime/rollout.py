@@ -21,7 +21,7 @@ wrappers (``CostAccounted``) are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -60,11 +60,15 @@ def rollout_keys(seed: int, scene_ids, sample_ids,
 
 
 def gumbel_sample(logits: torch.Tensor, lane_keys: torch.Tensor,
-                  t: int) -> torch.Tensor:
+                  t: Union[int, torch.Tensor]) -> torch.Tensor:
     """Categorical samples (B, A) from logits (B, A, K) by Gumbel-max; the
-    uniform for (lane, t, agent, action) is a hash of those counters."""
+    uniform for (lane, t, agent, action) is a hash of those counters.
+    ``t`` is the step of every lane (an int) or of each lane (a (B,)
+    integer tensor, as a server's slots are each at their own step)."""
     b, a, k = logits.shape
     dev = logits.device
+    if isinstance(t, torch.Tensor):
+        t = t.to(torch.int64)
     key = _combine(lane_keys, t)[:, None, None]
     key = _combine(key, torch.arange(a, device=dev)[None, :, None])
     bits = _combine(key, torch.arange(k, device=dev)[None, None, :])

@@ -619,3 +619,106 @@ def test_trainer_restart_and_nan_skip_bitwise_on_the_card(dev, tmp_path):
     assert out["nan_skipped"] == 1 and seen["checked"]
     for t in (full, first, second, tr):
         t.data.close()
+
+
+# -- the continuous-batching server on the card --------------------------------
+
+SERVER_SCEN = dict(num_map=8, num_agents=3, num_steps=6)
+
+
+def _server_on_card(dev, num_slots=2, cache_dtype="float32"):
+    from repro_torch import obs
+    from repro_torch.nn.agent_sim import AgentSimConfig, AgentSimModel
+    from repro_torch.runtime import SimServer
+    from repro_torch.scenarios.core import ScenarioConfig
+    scen = ScenarioConfig(**SERVER_SCEN)
+    model = AgentSimModel(AgentSimConfig(
+        d_model=32, num_layers=2, num_heads=2, head_dim=12, d_ff=64,
+        num_actions=scen.num_actions, encoding="se2_fourier"), device=dev,
+        generator=torch.Generator().manual_seed(0))
+    return SimServer(model, scen, num_slots=num_slots,
+                     cache_dtype=cache_dtype, device=dev, registry=obs.NULL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_server_gauntlet_bitwise_on_the_card(dev, cache_dtype):
+    """The churn gauntlet through the kernels: an eviction mid-prefill, a
+    retirement, every stale row scribbled with NaN garbage, then the victim
+    in slot 1 beside a neighbour is bitwise the victim alone in slot 0 of
+    a fresh server."""
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import SceneRequest
+    from repro_torch.scenarios.registry import generate_mixed, generate_scene
+    from test_torch_serving_utils import (assert_bit_identical,
+                                          scribble_stale_rows)
+    srv = _server_on_card(dev, cache_dtype=cache_dtype)
+    scen = srv.scen
+    victim = generate_scene("signalized_intersection", 40, 0, scen)
+
+    def victim_request():
+        return SceneRequest(uid=0, tensors=victim, t_hist=3, seed=9,
+                            scene_id=0)
+    solo = _server_on_card(dev, cache_dtype=cache_dtype)
+    solo.submit(victim_request())
+    solo.run_until_drained()
+    evictees = generate_mixed(7, 100, 2, scen)
+    for i, scene in enumerate(evictees):
+        srv.submit(SceneRequest(uid=100 + i, tensors=scene, t_hist=2,
+                                t_total=4, seed=1, scene_id=50 + i))
+    cuda.reset_launches()
+    srv.tick()
+    assert srv.evict(101)
+    while any(s.req for s in srv.slots):
+        srv.tick()
+    srv.flush()
+    assert cuda.LAUNCHES["flash_decode"] == 2 * (srv.ticks + srv.admitted)
+    scribble_stale_rows(srv.cache, [0, 0], srv.max_len, seed=3)
+    srv.submit(SceneRequest(uid=1, tensors=evictees[0], t_hist=2, seed=2,
+                            scene_id=77))
+    srv.submit(victim_request())
+    srv.tick()
+    assert srv.slots[1].req.uid == 0
+    done = srv.run_until_drained()
+    assert_bit_identical(done[0].actions, solo.done[0].actions, "actions")
+    assert_bit_identical(done[0].future, solo.done[0].future, "poses")
+
+
+@pytest.mark.gpu
+def test_server_quarantine_on_the_card(dev):
+    """NaN in one resident slot mid-rollout: that lane fails with
+    nonfinite_pose, the others are bitwise the no-fault run's, and the
+    scrubbed slot's next tenant is bitwise its run in a fresh server."""
+    from repro_torch import chaos
+    from repro_torch.runtime import SceneRequest
+    from repro_torch.scenarios.registry import generate_mixed, generate_scene
+    from test_torch_serving_utils import assert_bit_identical
+
+    def serve(poison_tick=None):
+        srv = _server_on_card(dev)
+        for i, scene in enumerate(generate_mixed(5, 0, 3, srv.scen)):
+            srv.submit(SceneRequest(uid=i, tensors=scene, t_hist=3, seed=11,
+                                    scene_id=i))
+        tick = 0
+        while srv.queue or any(s.req for s in srv.slots):
+            if tick == poison_tick:
+                chaos.poison_server_slot(srv, 0)
+            srv.tick()
+            tick += 1
+        srv.flush()
+        return srv
+    ref, srv = serve(), serve(poison_tick=4)
+    assert (srv.done[0].status, srv.done[0].reason) == ("failed",
+                                                        "nonfinite_pose")
+    assert srv.quarantined == 1
+    for uid in (1, 2):
+        assert srv.done[uid].status == "ok"
+        assert_bit_identical(srv.done[uid].future, ref.done[uid].future,
+                             f"lane {uid}")
+    tenant = generate_scene("highway", 123, 0, srv.scen)
+    solo = _server_on_card(dev)
+    for s in (srv, solo):
+        s.submit(SceneRequest(uid=99, tensors=tenant, t_hist=3, seed=21,
+                              scene_id=0))
+        s.run_until_drained()
+    assert_bit_identical(srv.done[99].future, solo.done[99].future, "tenant")

@@ -18,7 +18,7 @@ from repro.nn import agent_sim as jsim  # noqa: E402
 from repro.nn import module as jmodule  # noqa: E402
 from repro_torch import configs, params  # noqa: E402
 from repro_torch.nn import agent_sim as tsim  # noqa: E402
-from repro_torch.runtime import RolloutEngine  # noqa: E402
+from repro_torch.runtime import RolloutEngine, SimServer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,7 +41,9 @@ def test_port_import_loads_no_jax_module():
             " repro_torch.obs, repro_torch.checkpoint,"
             " repro_torch.runtime.trainer, repro_torch.training.comparison,"
             " repro_torch.launch.train_sim, repro_torch.launch.obs_report,"
-            " repro_torch.launch.obs_merge;"
+            " repro_torch.launch.obs_merge, repro_torch.runtime.sim_server,"
+            " repro_torch.chaos, repro_torch.launch.serve_sim,"
+            " repro_torch.launch.chaos;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -59,6 +61,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     model = tsim.AgentSimModel(arch.agent_sim_config(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         RolloutEngine(model, arch.scenario_config(), num_slots=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimServer(model, arch.scenario_config(), num_slots=2)
 
 
 SIM_ARCHS = ["sim-absolute", "sim-rope2d", "sim-se2-fourier",

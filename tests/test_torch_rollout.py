@@ -158,3 +158,25 @@ def test_max_len_rounds_to_block(setup):
     assert eng.max_len == 256
     assert trollout.RolloutEngine(tmodel, scen_t, num_slots=1, device="cpu",
                                   max_len=40).max_len == 40
+
+
+@pytest.mark.parametrize("t", [0, 5, 2 ** 31 - 1])
+def test_sampler_step_tensor_matches_int_step(t):
+    """A (B,) step tensor (a server's slots, each at its own step) draws
+    bitwise what the int step draws for every lane, in any integer dtype,
+    so the engine's int step is unchanged; lanes at other steps draw from
+    their own streams."""
+    gen = torch.Generator().manual_seed(1)
+    logits = torch.randn((64, 3, 63), generator=gen)
+    keys = trollout.rollout_keys(9, np.arange(64), np.arange(64) % 2)
+    want = trollout.gumbel_sample(logits, keys, t)
+    for dtype in (torch.int32, torch.int64):
+        got = trollout.gumbel_sample(logits, keys,
+                                     torch.full((64,), t, dtype=dtype))
+        assert torch.equal(got, want), dtype
+    steps = torch.arange(64) % 4
+    mixed = trollout.gumbel_sample(logits, keys, steps)
+    for s in range(4):
+        lanes = steps == s
+        assert torch.equal(mixed[lanes], trollout.gumbel_sample(
+            logits, keys, s)[lanes])
