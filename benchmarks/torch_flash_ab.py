@@ -25,7 +25,9 @@ source its ``num_splits``: ``auto`` (the kernel's own choice, from the
 source's ``flash_decode_num_splits``, which the CUDA-core decode before
 the tensor-core redesign does not have), ``old`` (the choice of that
 decode's wrapper, which split a row's keys over ceil(4 x SMs / (B x Hq x
-ceil(Sq / 16))) CTAs) or a number. Every round
+ceil(Sq / 16))) CTAs) or a number. A decode source from before the bf16
+query, whose C entry has no query-type argument, is called with its own
+signature. Every round
 times the sources in order and then in
 reverse (A, B, B, A for two): CUPTI kernel time per call
 (``chip_smoke.kernel_ms``) and CUDA-event time per call
@@ -85,8 +87,12 @@ def build(sources, out_dir):
     return libs
 
 
-def use(kernel, path):
-    """Route the port's wrappers of ``kernel`` to the library at ``path``."""
+_WRAPPER_KERNEL = {}      # each wrapper module's own _kernel
+
+
+def use(kernel, path, source):
+    """Route the port's wrappers of ``kernel`` to the library at ``path``,
+    built from ``source``."""
     import importlib
     from repro_torch.kernels import cuda
     name = SOURCE[kernel]
@@ -96,9 +102,24 @@ def use(kernel, path):
     err_fn.restype = ctypes.c_char_p
     cuda._LIBS[name] = lib
     module = importlib.import_module(f"repro_torch.kernels.{name}")
+    module._kernel = _WRAPPER_KERNEL.setdefault(name, module._kernel)
     for cached in ("_kernel", "_num_splits"):   # what the wrapper bound
         if hasattr(module, cached):
             getattr(module, cached).cache_clear()
+    if kernel == "decode" and "q_bf16" not in Path(source).read_text():
+        # a decode from before the bf16 query takes no query-type argument
+        # (the 25th): bind its own signature and drop that argument
+        fn = lib.flash_decode_launch
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            err = fn(*args[:24], *args[25:])
+            if err:
+                raise RuntimeError(f"flash_decode_launch: CUDA error {err}: "
+                                   f"{err_fn(err).decode()}")
+        module._kernel = lambda: call
 
 
 def decode_kernels(cs, torch, dev, cfg, scen, c, gen, splits):
@@ -196,7 +217,8 @@ def main() -> int:
     else:
         q, k, v, do, opts = cs.scene_attention_case(
             gen, dev, model, arch.scenario_config(), cs.TRAIN_BATCH,
-            1.0 / math.sqrt(cfg.head_dim))
+            1.0 / math.sqrt(cfg.head_dim),
+            model.blocks[0].attn.enc.expanded_dim)
         shape = list(q.shape)
     if args.kernel == "fwd":
         kernels = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(
@@ -211,6 +233,7 @@ def main() -> int:
                 q, k, v, do, lse, delta, **opts),
         }
     libs = dict(zip(names, build(args.sources, ROOT / "build" / "ab")))
+    sources = dict(zip(names, args.sources))
     if args.kernel == "se2":      # the first design has no transposed modes
         kernels = se2_kernels(
             cs, cfg, arch.scenario_config(), model.blocks[0].attn.enc, dev,
@@ -222,7 +245,7 @@ def main() -> int:
 
     results = {}
     for which, lib in libs.items():
-        use(args.kernel, lib)
+        use(args.kernel, lib, sources[which])
         results[which] = [t_ for fn in kernels.values()
                           for t_ in bound(fn, which)()]
     torch.cuda.synchronize()
@@ -250,7 +273,7 @@ def main() -> int:
              for w in libs}
     for _ in range(args.rounds):
         for which in names + names[::-1]:
-            use(args.kernel, libs[which])
+            use(args.kernel, libs[which], sources[which])
             for name, fn in kernels.items():
                 fn = bound(fn, which)
                 times[which][name]["kernel_ms"].append(cs.kernel_ms(fn))

@@ -15,6 +15,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    cursor and every cache dtype, the decode also with the prefill's
    block-causal mask and required bitwise repeatable at every split
    count, at sim-se2-fourier's c = 200 and at the other arches' c = 24;
+   the sampler at the engine's and the server's tick;
    the flash-attention forward, dq and dk/dv
    at the train step's shape (32 scenes, the scenes' own times and segment
    ids, -1 rows included; c = 200 and 24) and on a feature matrix (index causal, window,
@@ -53,7 +54,11 @@ Run from the root of a checkout. Phases, each of which fails the run:
    the decode at the tick and, in its record's "prefill", at the prefill;
    each se2 mode at the tick and, in its record's "train", at the train
    step's 32 x 8 x 336 rows; the decode (tick and prefill) and the flash
-   kernels again at c = 24, in their records' "c24" and "c24_prefill";
+   kernels again at c = 24, in their records' "c24" and "c24_prefill",
+   and at c = 150 ("c150", "c150_prefill"); the decode, the flash kernels
+   and the se2 modes in bf16 ("bf16", the se2 train shape "bf16_train");
+   the sampler at the engine's tick (its record) and the server's
+   ("server"), bounded by its integer operations;
    the tensor-core kernels' bound is at the tensor cores' rate for
    float32-accurate products, the CUDA-core bound beside it, and the
    share of the pairs the forward's and backward's tiles compute that the
@@ -122,8 +127,31 @@ Run from the root of a checkout. Phases, each of which fails the run:
    nonfinite_pose, the others bitwise the no-fault run's, the scrubbed
    slot's next tenant bitwise its solo run; (e) ``python -m
    repro_torch.launch.chaos`` (all five drills pass, every bundle renders)
-   and ``python -m repro_torch.launch.serve_sim`` at its defaults, its
-   trace rendered by obs_report.
+   and ``python -m repro_torch.launch.serve_sim`` at its defaults
+   (head_dim 18, c = 150), its trace rendered by obs_report;
+11. (a) sampling: the categorical kernel (jax.random's Threefry stream,
+   csrc/categorical.cu) ran in phase 3 against repro_torch.prng at the
+   engine's tick and the server's (each slot its own step, free slots):
+   the 32-bit words and the uniforms bitwise, the Gumbel noise within
+   1e-6, actions equal wherever the top two perturbed scores differ by
+   1e-5 or more (the disagreements counted); here a rollout's actions are
+   bitwise repeatable run to run, and a server lane (i, k) reproduces the
+   engine's lane (i, k) bitwise wherever no agent meets a near-tie, the
+   share printed; (b) widths: the decode (float32, bf16, int8 caches; a
+   bf16 query too), the flash forward, dq and dk/dv at c = 50, 150, 250
+   and two odd widths against their plain versions, then sim-se2-fourier
+   at full width with head_dim 18 (c = 150) held to the reference forward
+   (f32 and int8 caches), rolled out and trained 3 steps with launches
+   exact; serve_sim's defaults build head_dim 18; (c) bfloat16: the same
+   model at dtype "bfloat16": the kernels at its shapes in bf16 against
+   their plain versions, its cached decode (bf16 and int8 caches) against
+   its full forward at 8e-2, a 64-slot rollout (bf16 and int8 caches),
+   20 train steps (loss finite and falling, float32 parameters), the
+   7 x 4 x 4 evaluation and a 64-lane server drive, launches exact;
+   ticks/s, steps/s, lanes/s, peak memory and slab beside the float32
+   model's, and the action probabilities' shift under a re-pose. Every
+   sampled path of phases 4, 7-11 launches the categorical kernel once a
+   tick, and those counts are gated too.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -242,6 +270,39 @@ SERVE_RATE, SERVE_SEED, SERVE_WARMUP_TICKS = 2.0, 10, 2
 SERVE_PROFILE_SCENES = 32
 GAUNTLET_SLOTS, QUARANTINE_LANES = 8, 12
 
+# phase 11: (b) the attention kernels at row widths (D, Dv) that are not
+# multiples of 4: se2_fourier's c = 50 head_dim / 6 at head_dim 6, 18 and
+# 30, and two odd widths; the head_dim of its full-width model (c = 150)
+WIDTH_CASES = {"c50": (50, 50), "c150": (150, 150), "c250": (250, 250),
+               "d75_dv151": (75, 151), "d13_dv7": (13, 7)}
+WIDTH_HEAD_DIM = 18
+# (a) two samplers whose float32 logs round an ulp apart (a Gumbel score
+# moves by up to about 5e-7) may pick apart only where an agent's top two
+# perturbed scores lie closer than this; lanes and slots of the checks
+NEAR_TIE = 1e-5
+SAMPLING_SCENES, SAMPLING_SAMPLES = 32, 2
+# (c) the bf16 model: its cached decode against its full forward at the
+# reference's bf16 tolerance (tests/test_decode.py:306-307); its train
+# step's gradients through the kernels against the plain versions, per
+# tensor relative to its largest |g|: each op rounds its output to bf16 on
+# both paths, in other places, through 6 layers forward and back
+BF16_MODEL_TOL = dict(atol=8e-2, rtol=8e-2)
+BF16_GRAD_REL_TOL = 8e-2
+BF16_EVAL_SCENES, BF16_SERVE_SCENES = 4, 32
+# bound_ms denominators of phase 6's new rows: bf16 products on the tensor
+# cores (H100 SXM data sheet), and 32-bit integer operations for the
+# sampler's hash: 64 a clock an SM on compute capability 9.0 (the CUDA C++
+# Programming Guide's arithmetic throughput table), 132 SMs at the H100
+# SXM's 1.98 GHz boost clock
+BF16_FLOP_PER_S = 989e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# operations of the sampler (csrc/categorical.cu), logf counted as one:
+# Threefry-2x32 (the key schedule, 20 rounds of add, rotate, xor and 5 key
+# injections), then the word's xor, the uniform's shift, or, subtract, add
+# and max, two logs and negations, the logit's add and the argmax compare
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 3 + 2
+SAMPLE_OPS = THREEFRY_OPS + 13
+
 # the transposed se2 modes have no TPU kernel: they compute what the JAX
 # package computes with untransform_out (also transform_q's VJP) and with
 # JAX autodiff of _expand_k
@@ -254,6 +315,8 @@ REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:44",
     "flash_attention_dq": "src/repro/kernels/flash_attention_bwd.py:132",
     "flash_attention_dkv": "src/repro/kernels/flash_attention_bwd.py:181",
+    # no TPU kernel: the reference samples in XLA (jax.random.categorical)
+    "categorical": "src/repro/runtime/rollout.py:204",
 }
 SOURCES = {
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -265,6 +328,7 @@ SOURCES = {
     "flash_attention_dq": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_attention_dkv":
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "categorical": "src/repro_torch/kernels/csrc/categorical.cu",
 }
 
 
@@ -571,6 +635,108 @@ def check_flash(what, q, k, v, do, opts, max_err):
     return grads
 
 
+def sampling_case(gen, dev, b, a, k, per_slot):
+    """Lane keys (b, 2) as RolloutEngine keys b / 2 scenes x 2 samples,
+    steps (b,) int32 and logits (b, a, k): every lane at step 20 (the
+    engine's tick), or with ``per_slot`` each at its own step and every
+    fourth slot free (key(0) at step 0, as a server carries a free slot)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.runtime.rollout import rollout_keys
+    keys = rollout_keys(0, b // 2, 2, dev)
+    logits = torch.randn((b, a, k), generator=gen, device=dev) * 3
+    if per_slot:
+        steps = torch.randint(0, 24, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        free = torch.arange(b, device=dev) % 4 == 3
+        keys = torch.where(free[:, None], prng.key(0, device=dev),
+                           keys).contiguous()
+        steps = torch.where(free, 0, steps).to(torch.int32)
+    else:
+        steps = torch.full((b,), 20, dtype=torch.int32, device=dev)
+    return keys, steps, logits
+
+
+def check_sampler(what, keys, steps, logits):
+    """The categorical kernel (its debug entry) against repro_torch.prng,
+    its plain version, on the card: the 32-bit words and the uniforms
+    bitwise, the Gumbel noise within 1e-6 (float32 log), the actions equal
+    wherever the top two perturbed scores differ by NEAR_TIE or more, the
+    kernel bitwise repeatable. Returns the noise's max abs error."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import categorical as cat
+    acts, words, unif, noise = cat.categorical_debug(keys, steps, logits)
+    again = cat.categorical_debug(keys, steps, logits)[0]
+    b, a, k = logits.shape
+    keys_t = prng.fold_in(keys, steps)
+    tiny = float(torch.finfo(torch.float32).tiny)
+    want_noise = prng.gumbel(keys_t, (a, k))
+    want = prng.categorical(keys_t, logits)
+    torch.cuda.synchronize()
+    if not (torch.equal(words, prng.random_bits(keys_t, (a, k)))
+            and torch.equal(unif, prng.uniform(keys_t, (a, k),
+                                               minval=tiny))):
+        raise AssertionError(f"categorical {what}: words or uniforms differ "
+                             f"from prng's")
+    err = close_or_raise(f"categorical {what}: noise", noise, want_noise,
+                         atol=1e-6, rtol=0.0)
+    if not torch.equal(acts, again):
+        raise AssertionError(f"categorical {what}: not bitwise repeatable")
+    top2 = (want_noise + logits).topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = acts != want
+    if bool((gap[differ] >= NEAR_TIE).any()):
+        raise AssertionError(f"categorical {what}: {int(differ.sum())} rows "
+                             f"differ from prng's, not all at near-ties")
+    log(f"categorical {what} ({b} x {a} x {k}): words and uniforms bitwise "
+        f"equal to prng's, noise max abs err {err:.3e}; actions equal in "
+        f"{b * a - int(differ.sum())} of {b * a} rows, "
+        f"{int(differ.sum())} differ, each at a near-tie ("
+        f"{int((gap < NEAR_TIE).sum())} rows have a top-two gap under "
+        f"{NEAR_TIE:g}); bitwise repeatable")
+    return err
+
+
+def score_gaps(model, scen, scenes, t_hist, n_samples, seed):
+    """RolloutEngine's tick loop over every (scene, sample) lane in one
+    chunk, recording each tick's gap between every agent's top two
+    perturbed scores (Gumbel noise plus logits): numpy (S, K, T_fut, A).
+    Lane (si, ki) is keyed as RolloutEngine.run keys it."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.categorical import categorical
+    from repro_torch.runtime import RolloutEngine
+    from repro_torch.runtime.rollout import rollout_keys
+    total, dev = len(scenes) * n_samples, model.device
+    eng = RolloutEngine(model, scen, num_slots=total)
+    lanes = np.arange(total) // n_samples
+    hist = scene_batch([scenes[i] for i in lanes], dev)
+    hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
+            for k_, v_ in hist.items()}
+    keys = rollout_keys(seed, len(scenes), n_samples, dev)
+    gaps = []
+    with torch.no_grad():
+        logits, cache = model.prefill(eng.init_cache(), hist)
+        logits = logits[:, -1].float().contiguous()
+        pose = hist["agent_pose"][:, -1]
+        speed = hist["agent_feats"][:, -1, :, 0] * 10.0
+        feats, valid = hist["agent_feats"][:, -1], hist["agent_valid"][:, -1]
+        for t in range(t_hist, scen.num_steps):
+            steps = torch.full((total,), t, dtype=torch.int32, device=dev)
+            scores = prng.gumbel(prng.fold_in(keys, steps),
+                                 logits.shape[1:]) + logits
+            top2 = scores.topk(2, dim=-1).values
+            gaps.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+            acts = categorical(keys, steps, logits)
+            cache, logits, pose, speed = eng._advance(
+                cache, acts, pose, speed, feats, valid, t)
+            logits = logits.float().contiguous()
+    return np.stack(gaps, 1).reshape(len(scenes), n_samples, -1,
+                                     scen.num_agents)
+
+
 def device_profile(run, wall_s, per, what):
     """Device time by kernel (torch.profiler) over ``run()`` against the
     unprofiled wall time ``wall_s`` of the same work; ``per`` is (unit,
@@ -648,11 +814,13 @@ def scene_batch(scenes, dev):
                                device=dev) for k in SCENE_KEYS}
 
 
-def check_against_reference(model, scen, pairs, t_hist, s_max):
+def check_against_reference(model, scen, pairs, t_hist, s_max,
+                            cache_dtypes=("float32", "int8"), tol=None):
     """On each (name, scenes) pair's valid agents: the full forward through
     the flash kernels against the O(S^2) reference forward (the same
-    weights at attn_impl "ref"), and prefill plus every step with float32
-    and int8 caches against that reference."""
+    weights at attn_impl "ref"), and prefill plus every step with each of
+    ``cache_dtypes`` against that reference; at MODEL_TOL, or ``tol`` for
+    every comparison (the bf16 model's)."""
     import torch
     from repro_torch.nn.agent_sim import AgentSimModel
     dev = model.device
@@ -667,13 +835,14 @@ def check_against_reference(model, scen, pairs, t_hist, s_max):
             full = ref_model(batch)
             err = close_or_raise(f"flash forward vs reference forward "
                                  f"({what})", model(batch)[valid],
-                                 full[valid], **MODEL_TOL["float32"])
+                                 full[valid],
+                                 **(tol or MODEL_TOL["float32"]))
         log(f"{what} (valid agents {[s.num_valid_agents for s in pair]} of "
             f"{scen.num_agents}): full forward through the flash kernels vs "
             f"the O(S^2) reference: max abs logit err {err:.3e}")
         hist = {k_: (v_[:, :t_hist] if k_.startswith("agent") else v_)
                 for k_, v_ in batch.items()}
-        for cache_dtype in ("float32", "int8"):
+        for cache_dtype in cache_dtypes:
             reported = (cache_dtype == "int8"
                         and model.cfg.encoding in INT8_DRIFT_REPORTED)
             decoded = {}
@@ -693,7 +862,8 @@ def check_against_reference(model, scen, pairs, t_hist, s_max):
                 err = close_or_raise(
                     f"cached decode through the kernels vs the plain "
                     f"versions ({what}, {cache_dtype})", got[valid],
-                    decoded["plain"][valid], **MODEL_TOL[cache_dtype])
+                    decoded["plain"][valid],
+                    **(tol or MODEL_TOL[cache_dtype]))
                 drift = float((got - full)[valid].abs().max())
                 log(f"{what}: cached decode through the kernels vs the "
                     f"plain versions, {cache_dtype} cache: max abs logit err "
@@ -702,16 +872,18 @@ def check_against_reference(model, scen, pairs, t_hist, s_max):
                 continue
             err = close_or_raise(
                 f"cached decode vs full forward ({what}, {cache_dtype})",
-                got[valid], full[valid], **MODEL_TOL[cache_dtype])
+                got[valid], full[valid], **(tol or MODEL_TOL[cache_dtype]))
             log(f"{what}: cached decode vs full forward, {cache_dtype} "
                 f"cache: max abs logit err {err:.3e}")
 
 
-def rollouts(model, scen, scenes, t_hist, want_counts, launches, what):
+def rollouts(model, scen, scenes, t_hist, want_counts, launches, what,
+             cache_dtypes=("float32", "int8"), stats=None):
     """One warm-up, then one RolloutEngine.run of ``scenes`` (a slot each)
-    with float32 and with int8 caches: the output shaped and finite, the
+    with each of ``cache_dtypes``: the output shaped and finite, the
     launches exactly ``want_counts`` (added to ``launches``); then the
-    float32 run's device profile. Returns a float32 engine."""
+    first cache dtype's device profile. ``stats`` gets each dtype's
+    (ticks/s, peak GiB). Returns an engine of the first cache dtype."""
     import numpy as np
     import torch
     from repro_torch.kernels import cuda
@@ -719,7 +891,7 @@ def rollouts(model, scen, scenes, t_hist, want_counts, launches, what):
     n_slots = len(scenes)
     RolloutEngine(model, scen, num_slots=n_slots).run(
         scenes, t_hist=t_hist, n_samples=1, seed=0)          # warm-up
-    for cache_dtype in ("float32", "int8"):
+    for cache_dtype in cache_dtypes:
         engine = RolloutEngine(model, scen, num_slots=n_slots,
                                cache_dtype=cache_dtype)
         torch.cuda.synchronize()
@@ -749,19 +921,24 @@ def rollouts(model, scen, scenes, t_hist, want_counts, launches, what):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({resident / 2**30:.2f} GiB resident before), launches "
             f"{counts}")
-        if cache_dtype == "float32":
-            f32_secs = secs
+        if stats is not None:
+            stats[cache_dtype] = (engine.ticks / secs,
+                                  torch.cuda.max_memory_allocated() / 2**30)
+        if cache_dtype == cache_dtypes[0]:
+            first_secs = secs
     # where the rollout's time goes: device time by kernel (torch.profiler)
-    # against the unprofiled wall time of the same float32 run
-    engine = RolloutEngine(model, scen, num_slots=n_slots)
+    # against the unprofiled wall time of the same run
+    engine = RolloutEngine(model, scen, num_slots=n_slots,
+                           cache_dtype=cache_dtypes[0])
     device_profile(lambda: engine.run(scenes, t_hist=t_hist, n_samples=1,
                                       seed=0),
-                   f32_secs, ("prefill or tick", lambda: 1 + engine.ticks),
-                   f"{what}float32 rollout")
+                   first_secs, ("prefill or tick", lambda: 1 + engine.ticks),
+                   f"{what}{cache_dtypes[0]} rollout")
     return engine
 
 
-def train(model, scen, per_step, launches, what, mixed_grads):
+def train(model, scen, per_step, launches, what, mixed_grads,
+          grad_rel_tol=TRAIN_GRAD_REL_TOL):
     """Phase 5's training of ``model``: 32 freeform scenes a batch through
     ShardedIterator, bc_optimizer(3e-3, 22), 2 warm-up and 20 timed steps;
     the loss finite and falling and the launches exactly ``per_step`` a
@@ -848,7 +1025,7 @@ def train(model, scen, per_step, launches, what, mixed_grads):
         for name, g_plain in grads[1].items():
             scale_ = float(g_plain.abs().max())
             err = float((grads[0][name] - g_plain).abs().max())
-            if not err <= TRAIN_GRAD_REL_TOL * scale_ + 1e-12:
+            if not err <= grad_rel_tol * scale_ + 1e-12:
                 raise AssertionError(
                     f"{what}train grad {name} ({bname}): kernels vs plain max "
                     f"abs err {err:.3e}, tensor max {scale_:.3e}")
@@ -965,8 +1142,9 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
                    for f in fams for i in range(TABLE1_EVAL_SCENES)]
     num_layers = tmodel.cfg.num_layers
     per_rollout = num_layers * (1 + scen.num_steps - t_hist)
-    per_eval = -(-len(eval_scenes) * EVAL_SAMPLES // EVAL_SLOTS[0]) \
-        * per_rollout
+    ticks = scen.num_steps - t_hist
+    eval_chunks = -(-len(eval_scenes) * EVAL_SAMPLES // EVAL_SLOTS[0])
+    per_eval = eval_chunks * per_rollout
 
     def small_eval(model, want_counts, what):
         torch.cuda.synchronize()
@@ -1007,7 +1185,8 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
         # a. rollout
         check_against_reference(model, scen, pairs, t_hist, s_max)
         engine = rollouts(model, scen, scenes, t_hist,
-                          {"flash_decode": per_rollout}, launches, what)
+                          {"flash_decode": per_rollout, "categorical": ticks},
+                          launches, what)
         calls = plain_se2_calls(lambda: engine.run(scenes, t_hist=t_hist,
                                                    n_samples=1, seed=0))
         del engine
@@ -1045,8 +1224,9 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
         if enc is None and calls:
             raise AssertionError(f"{what}train step ran plain SE(2) ops")
         # c. scoring
-        rows[name] = (ol, small_eval(model, {"flash_decode": per_eval},
-                                     what)["overall"])
+        rows[name] = (ol, small_eval(model, {
+            "flash_decode": per_eval, "categorical": eval_chunks * ticks},
+            what)["overall"])
         # d. invariance of the action probabilities under a re-pose
         shifts[name] = action_shift(model, scenes[0], INVARIANCE_Z[name])
         log(f"{what}action probabilities under z = {INVARIANCE_Z[name]}: "
@@ -1062,8 +1242,8 @@ def table1_phase(tmodel, se2_fourier_ol, scen, scenes, pairs, t_hist, s_max,
     phase("8. Table-I lines")
     rows["se2_fourier"] = (se2_fourier_ol, small_eval(tmodel, {
         "flash_decode": per_eval, "se2_project_q": per_eval,
-        "se2_project_k": 2 * per_eval, "se2_project_q_t": per_eval},
-        "sim-se2-fourier ")["overall"])
+        "se2_project_k": 2 * per_eval, "se2_project_q_t": per_eval,
+        "categorical": eval_chunks * ticks}, "sim-se2-fourier ")["overall"])
     shifts["se2_fourier"] = action_shift(tmodel, scenes[0],
                                          INVARIANCE_Z["se2_fourier"])
     log(f"sim-se2-fourier action probabilities under z = "
@@ -1234,7 +1414,8 @@ def trainer_phase(arch, per_step, bare_rate, launches):
                                  "flash_attention_fwd"), cfg.num_layers)
         forward["se2_project_k"] = 2 * cfg.num_layers
         per_eval = {"flash_decode": decode, "se2_project_q": decode,
-                    "se2_project_k": 2 * decode, "se2_project_q_t": decode}
+                    "se2_project_k": 2 * decode, "se2_project_q_t": decode,
+                    "categorical": chunks * (scen.num_steps - t_hist)}
         for k_, n in forward.items():
             per_eval[k_] = per_eval.get(k_, 0) + TRAINER_HOLDOUT * n
         evals = TRAINER_STEPS // TRAINER_EVAL_EVERY
@@ -1732,6 +1913,7 @@ def server_phase(model, scen, s_max, launches, max_err):
         counts = dict(cuda.LAUNCHES)
         calls = srv.ticks + srv.admitted
         want = {k_: calls * n for k_, n in per_call.items()}
+        want["categorical"] = srv.ticks          # each tick samples once
         if counts != want:
             raise AssertionError(f"server {cache_dtype} launches {counts} != "
                                  f"{want} ({srv.ticks} ticks + "
@@ -2001,6 +2183,324 @@ def server_phase(model, scen, s_max, launches, max_err):
     log("obs_report rendered the serve_sim trace")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: jax.random-exact sampling, widths off 4, bfloat16
+# ---------------------------------------------------------------------------
+
+def sampling_phase(model, scen, scenes, t_hist, s_max):
+    """Phase 11a: a rollout's actions bitwise repeatable run to run, and a
+    server lane (i, k) against engine lane (i, k) over 32 scenes x 2
+    samples: futures bitwise equal in every lane without a near-tie (an
+    agent's top two perturbed scores within NEAR_TIE at some tick: there
+    the server's logits, within MODEL_TOL of the engine's, may pick
+    apart); the share printed. (The kernel against prng at the tick's and
+    the server's shapes ran in phase 3.)"""
+    import numpy as np
+    from repro_torch.runtime import RolloutEngine, SimServer, serve_scenes
+    phase("11a. sampling: rollouts repeatable, server lanes against the "
+          "engine's")
+    engine = RolloutEngine(model, scen, num_slots=len(scenes))
+    runs = [(engine.run(scenes, t_hist=t_hist, n_samples=1, seed=5),
+             engine.last_actions.copy()) for _ in range(2)]
+    bitwise_or_raise("rollout futures, run to run", runs[1][0], runs[0][0])
+    bitwise_or_raise("rollout actions, run to run", runs[1][1], runs[0][1])
+    log(f"rollout of {len(scenes)} scenes at seed 5: futures and "
+        f"{runs[0][1].size} sampled actions bitwise equal run to run")
+    sub = scenes[:SAMPLING_SCENES]
+    lanes = len(sub) * SAMPLING_SAMPLES
+    engine = RolloutEngine(model, scen, num_slots=lanes)
+    want = engine.run(sub, t_hist=t_hist, n_samples=SAMPLING_SAMPLES,
+                      seed=5)
+    srv = SimServer(model, scen, num_slots=lanes, max_len=s_max)
+    got = serve_scenes(srv, sub, t_hist=t_hist, n_samples=SAMPLING_SAMPLES,
+                       seed=5)
+    tied = score_gaps(model, scen, sub, t_hist, SAMPLING_SAMPLES,
+                      5).min(axis=(2, 3)) < NEAR_TIE          # (S, K)
+    equal = np.array([[np.array_equal(got[i, k_], want[i, k_])
+                       for k_ in range(SAMPLING_SAMPLES)]
+                      for i in range(len(sub))])
+    if (~equal & ~tied).any():
+        raise AssertionError(f"server lanes {np.argwhere(~equal & ~tied)} "
+                             f"differ from the engine's without a near-tie")
+    log(f"server vs engine, {len(sub)} scenes x {SAMPLING_SAMPLES} samples "
+        f"through {lanes} slots: futures bitwise equal in "
+        f"{int(equal.sum())} of {lanes} lanes ({equal.mean():.1%}); "
+        f"{int(tied.sum())} lanes hold a near-tie (top-two gap under "
+        f"{NEAR_TIE:g}), {int((~equal).sum())} differ, all among them")
+
+
+def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
+                 max_err):
+    """Phase 11b: the decode (float32, bf16, int8 caches; a bf16 query
+    too) and the flash forward, dq and dk/dv at WIDTH_CASES against their
+    plain versions at phase 3's tolerances; then sim-se2-fourier at full
+    width with head_dim 18 (c = 150): checked against the reference
+    forward, rolled out (float32 and int8, launches exact) and trained 3
+    steps (loss finite, launches exact); and serve_sim's defaults give
+    head_dim 18 (phase 10e served them)."""
+    import torch
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.launch import serve_sim
+    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.training.data import make_batch_fn
+    from repro_torch.data import ShardedIterator
+    from repro_torch.training.steps import bc_optimizer, make_sim_train_step
+    phase("11b. widths: the attention kernels at rows not a multiple of 4 "
+          "wide")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = {"tick": (scen.num_agents, False),
+            "prefill": (scen.num_map + t_hist * scen.num_agents, True)}
+    cursors = [0, 1, 127, 128, s_max, 200, 300, 64]
+    for name, (d, dv) in WIDTH_CASES.items():
+        worst = 0.0
+        for cache_dtype, shape in itertools.product(
+                ("float32", "bfloat16", "int8"), rows):
+            sq, prefill = rows[shape]
+            common = dict(layers=2, b=len(cursors), h=cfg.num_heads,
+                          s=s_max, sq=sq, cursors=cursors,
+                          num_map=scen.num_map, num_agents=scen.num_agents,
+                          prefill=prefill)
+            case = decode_case(gen, dev, cache_dtype, c=d, **common)
+            other = decode_case(gen, dev, cache_dtype, c=dv, **common)
+            q, k = case.pop("q"), case.pop("k")
+            v = other["v"]
+            case.pop("v")
+            case["v_scale"] = other["v_scale"]
+            queries = [q] + ([q.to(torch.bfloat16)]
+                             if cache_dtype == "bfloat16" else [])
+            for q_ in queries:
+                want = ops.decode_attention(q_, k, v, impl="plain", layer=1,
+                                            **case)
+                for splits in (None, 1, 5):
+                    got = ops.decode_attention(q_, k, v, impl="flash_decode",
+                                               layer=1, num_splits=splits,
+                                               **case)
+                    again = ops.decode_attention(q_, k, v,
+                                                 impl="flash_decode", layer=1,
+                                                 num_splits=splits, **case)
+                    torch.cuda.synchronize()
+                    tol = DECODE_TOL["bfloat16" if q_.dtype == torch.bfloat16
+                                     else cache_dtype]
+                    err = close_or_raise(
+                        f"flash_decode {name} {cache_dtype} {shape} q "
+                        f"{str(q_.dtype)[6:]} splits={splits}", got, want,
+                        **tol)
+                    if not torch.equal(got, again) or got.dtype != q_.dtype:
+                        raise AssertionError(f"flash_decode {name}: not "
+                                             f"bitwise repeatable or not in "
+                                             f"q's dtype")
+                    worst = max(worst, err)
+                    if q_.dtype == torch.float32:
+                        max_err["flash_decode"] = max(
+                            max_err["flash_decode"], err)
+        log(f"flash_decode at D = {d}, Dv = {dv}: float32, bf16 and int8 "
+            f"caches (bf16 also with a bf16 query), the tick's and the "
+            f"prefill's rows, splits auto / 1 / 5: within tolerance, bitwise "
+            f"repeatable; max abs err {worst:.3e}")
+        for dtype in (torch.float32, torch.bfloat16):
+            shapes = ((2, 4, 45, d), (2, 2, 45, d), (2, 2, 45, dv),
+                      (2, 4, 45, dv))
+            q, k, v, do = (torch.randn(s_, generator=gen, device=dev)
+                           .to(dtype) for s_ in shapes)
+            check_flash(f"D = {d}, Dv = {dv}, causal GQA, "
+                        f"{str(dtype)[6:]}", q, k, v, do,
+                        dict(causal=True), max_err)
+    # the full-width model at head_dim 18
+    cfg18 = dataclasses.replace(cfg, head_dim=WIDTH_HEAD_DIM)
+    model = AgentSimModel(cfg18, generator=torch.Generator().manual_seed(0))
+    c = model.blocks[0].attn.cache_dims[0]
+    log(f"sim-se2-fourier at head_dim {WIDTH_HEAD_DIM}: c = {c}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    check_flash(f"train shape c = {c}", *scene_attention_case(
+        gen, dev, model, scen, TRAIN_BATCH, 1.0 / math.sqrt(WIDTH_HEAD_DIM),
+        c), max_err)
+    check_against_reference(model, scen, pairs, t_hist, s_max)
+    ticks = scen.num_steps - t_hist
+    per_rollout = cfg.num_layers * (1 + ticks)
+    rollouts(model, scen, scenes, t_hist, {
+        "flash_decode": per_rollout, "se2_project_q": per_rollout,
+        "se2_project_k": 2 * per_rollout, "se2_project_q_t": per_rollout,
+        "categorical": ticks}, launches, f"head_dim {WIDTH_HEAD_DIM} ")
+    data = ShardedIterator(make_batch_fn(scen, FAMILIES),
+                           batch_size=TRAIN_BATCH, seed=0)
+    opt = bc_optimizer(lr=TRAIN_LR, steps=3)
+    step = make_sim_train_step(model, opt)
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, next(data))
+        losses.append(float(metrics["loss"]))
+    counts = dict(cuda.LAUNCHES)
+    want = {k_: 3 * n for k_, n in {
+        "flash_attention_fwd": 1, "flash_attention_dq": 1,
+        "flash_attention_dkv": 1, "se2_project_q": 2, "se2_project_q_t": 2,
+        "se2_project_k": 2, "se2_project_k_t": 2}.items()}
+    want = {k_: n * cfg.num_layers for k_, n in want.items()}
+    data.close()
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"head_dim {WIDTH_HEAD_DIM} train: launches "
+                             f"{counts} (want {want}), losses {losses}")
+    for k_, n in counts.items():
+        launches[k_] += n
+    log(f"head_dim {WIDTH_HEAD_DIM} train: 3 steps x {TRAIN_BATCH} scenes, "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}, launches {counts}")
+    args = serve_sim.build_parser().parse_args([])
+    _, smodel = serve_sim.build(args)
+    if (smodel.cfg.head_dim, smodel.blocks[0].attn.cache_dims[0]) != (18, 150):
+        raise AssertionError(f"serve_sim defaults: head_dim "
+                             f"{smodel.cfg.head_dim}")
+    log("serve_sim at its defaults builds head_dim 18 (c = 150), as the "
+        "reference's launcher; phase 10e served it on the card")
+    del model, smodel
+
+
+def bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches,
+               max_err, f32_rollout, f32_steps_per_s):
+    """Phase 11c: sim-se2-fourier at full width and dtype "bfloat16" (phase
+    4's seed-0 weights): the kernels at its shapes in bf16 against their
+    plain versions; the cached decode (bf16 and int8 caches) against the
+    full forward and the flash forward against the reference forward at
+    8e-2; a 64-slot rollout with bf16 and int8 caches, 20 train steps
+    (loss finite and falling, gradients through the kernels against the
+    plain versions), the 7 x 4 x 4 evaluation and a 64-lane server drive,
+    each with its launches exact; ticks/s, steps/s, lanes/s, peak memory and
+    slab beside the float32 model's in this process; the action
+    probabilities' shift under a re-pose."""
+    import numpy as np
+    import torch
+    from repro_torch import obs, scenarios
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.runtime import (EvalConfig, SimServer,
+                                     evaluate_families, poisson_drive)
+    phase("11c. bfloat16: the sim path at dtype bfloat16")
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = dataclasses.replace(model.cfg, dtype="bfloat16")
+    m16 = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
+    m16.load_state_dict(model.state_dict())
+    c = m16.blocks[0].attn.cache_dims[0]
+    layers = cfg.num_layers
+    # the kernels at the bf16 model's tick and train shapes
+    case = decode_case(gen, dev, "bfloat16", layers=layers, b=N_SLOTS,
+                       h=cfg.num_heads, s=s_max, c=c, sq=scen.num_agents,
+                       cursors=[s_max - 2 * scen.num_agents] * N_SLOTS,
+                       num_map=scen.num_map, num_agents=scen.num_agents)
+    q, k, v = case.pop("q").to(torch.bfloat16), case.pop("k"), case.pop("v")
+    got = ops.decode_attention(q, k, v, impl="flash_decode", layer=3, **case)
+    want = ops.decode_attention(q, k, v, impl="plain", layer=3, **case)
+    torch.cuda.synchronize()
+    err = close_or_raise("flash_decode bf16 tick", got, want,
+                         **DECODE_TOL["bfloat16"])
+    log(f"flash_decode, bf16 cache and query at the tick ({N_SLOTS} x "
+        f"{cfg.num_heads} x {scen.num_agents} x {c}): max abs err {err:.3e}")
+    train_case = scene_attention_case(gen, dev, m16, scen, TRAIN_BATCH,
+                                      1.0 / math.sqrt(cfg.head_dim), c)
+    check_flash("train shape bfloat16", *(
+        t_.to(torch.bfloat16) for t_ in train_case[:4]), train_case[4],
+        max_err)
+    check_against_reference(m16, scen, pairs, t_hist, s_max,
+                            cache_dtypes=("bfloat16", "int8"),
+                            tol=BF16_MODEL_TOL)
+    ticks = scen.num_steps - t_hist
+    per_rollout = layers * (1 + ticks)
+    rollout_counts = {"flash_decode": per_rollout,
+                      "se2_project_q": per_rollout,
+                      "se2_project_k": 2 * per_rollout,
+                      "se2_project_q_t": per_rollout, "categorical": ticks}
+    stats = {}
+    rollouts(m16, scen, scenes, t_hist, rollout_counts, launches, "bf16 ",
+             cache_dtypes=("bfloat16", "int8"), stats=stats)
+    log("rollout, ticks/s and peak GiB: " + ", ".join(
+        f"bf16 model {k_} cache {v_[0]:.1f} / {v_[1]:.2f}"
+        for k_, v_ in stats.items()) + "; float32 model (phase 4) " + ", ".join(
+        f"{k_} cache {v_[0]:.1f} / {v_[1]:.2f}" for k_, v_ in
+        f32_rollout.items()))
+    per_step = {"flash_attention_fwd": layers, "flash_attention_dq": layers,
+                "flash_attention_dkv": layers, "se2_project_q": 2 * layers,
+                "se2_project_q_t": 2 * layers, "se2_project_k": 2 * layers,
+                "se2_project_k_t": 2 * layers}
+    _, _, data, rate = train(m16, scen, per_step, launches, "bf16 ",
+                             mixed_grads=False,
+                             grad_rel_tol=BF16_GRAD_REL_TOL)
+    data.close()
+    log(f"train steps/s: bf16 {rate:.2f}, float32 (phase 5) "
+        f"{f32_steps_per_s:.2f}")
+    if not all(p_.dtype == torch.float32 for p_ in m16.parameters()):
+        raise AssertionError("bf16 training left a non-float32 parameter")
+    eval_cfg = EvalConfig(t_hist=t_hist, n_samples=EVAL_SAMPLES, seed=0)
+    chunks = -(-len(scenarios.registry.names()) * BF16_EVAL_SCENES
+               * EVAL_SAMPLES // EVAL_SLOTS[0])
+    want = {k_: chunks * n for k_, n in rollout_counts.items()}
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    tables = evaluate_families(m16, scen, eval_cfg,
+                               n_scenes_per_family=BF16_EVAL_SCENES,
+                               num_slots=EVAL_SLOTS[0])
+    secs = time.perf_counter() - t0
+    counts = dict(cuda.LAUNCHES)
+    if counts != want:
+        raise AssertionError(f"bf16 evaluation launches {counts} != {want}")
+    for k_, n in counts.items():
+        launches[k_] += n
+    eval_scenes = [scenarios.generate_scene(f, EVAL_SCENE_SEED, i, scen)
+                   for f in scenarios.registry.names()
+                   for i in range(BF16_EVAL_SCENES)]
+    check_tables(tables, eval_scenes, BF16_EVAL_SCENES, "bf16 ")
+    log(f"bf16 evaluate_families: 7 families x {BF16_EVAL_SCENES} scenes x "
+        f"{EVAL_SAMPLES} samples in {secs:.3f} s; rates finite, kinematic "
+        f"infeasibility 0; overall " + ", ".join(
+            f"{k_} {v_:.4g}" for k_, v_ in tables["overall"].items()))
+    serve_scenes_ = scenarios.registry.generate_mixed(SERVE_SEED, 0,
+                                                      BF16_SERVE_SCENES, scen)
+    for m_, what in ((m16, "bf16"), (model, "float32")):
+        srv = SimServer(m_, scen, num_slots=SERVE_SLOTS, max_len=s_max,
+                        device=dev, registry=obs.NULL)
+        poisson_drive(srv, server_requests(serve_scenes_[:4]),
+                      rate=SERVE_RATE, seed=0)               # warm-up
+        srv = SimServer(m_, scen, num_slots=SERVE_SLOTS, max_len=s_max,
+                        device=dev, registry=obs.NULL)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        poisson_drive(srv, server_requests(serve_scenes_), rate=SERVE_RATE,
+                      seed=0, warmup_ticks=SERVE_WARMUP_TICKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+        calls = srv.ticks + srv.admitted
+        want = {"flash_decode": layers * calls, "se2_project_q": layers * calls,
+                "se2_project_k": 2 * layers * calls,
+                "se2_project_q_t": layers * calls, "categorical": srv.ticks}
+        lanes = len(serve_scenes_) * SERVE_SAMPLES
+        done = srv.done
+        if counts != want or len(done) != lanes or any(
+                r.status != "ok" or not np.isfinite(r.future).all()
+                for r in done.values()):
+            raise AssertionError(f"{what} server drive: launches {counts} "
+                                 f"(want {want}), {len(done)} of {lanes} "
+                                 f"lanes done")
+        for k_, n in counts.items():
+            launches[k_] += n
+        slab = sum(t_.numel() * t_.element_size()
+                   for t_ in srv.cache.values()) / 2**20
+        log(f"server, {what} model ({srv.cache['k'].dtype} slab): {lanes} "
+            f"lanes in {srv.ticks} ticks, {wall:.3f} s = {lanes / wall:.1f} "
+            f"lanes/s, slab {slab:.1f} MiB, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"exact")
+    shifts = {what: action_shift(m_, scenes[0], INVARIANCE_Z["se2_fourier"])
+              for m_, what in ((m16, "bf16"), (model, "float32"))}
+    log(f"action probabilities under z = {INVARIANCE_Z['se2_fourier']}: max "
+        f"shift bf16 {shifts['bf16']:.3e}, float32 {shifts['float32']:.3e}")
+    del m16
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2021,6 +2521,7 @@ def main() -> int:
                                                  se2_project_t_plain)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.categorical import categorical, categorical_plain
     from repro_torch.nn.agent_sim import AgentSimModel
     from repro_torch.runtime import (EvalConfig, RolloutEngine,
                                      evaluate_families, evaluate_scenes)
@@ -2210,6 +2711,11 @@ def main() -> int:
             raise AssertionError(f"flash forward {what}: not bitwise "
                                  f"repeatable")
     log(f"flash forward bitwise repeatable: {', '.join(repeat_cases)}")
+    # the sampler at the engine's tick and the server's
+    for what, per_slot in (("engine tick", False), ("server tick", True)):
+        err = check_sampler(what, *sampling_case(
+            gen, dev, n_slots, scen.num_agents, scen.num_actions, per_slot))
+        max_err["categorical"] = max(max_err["categorical"], err)
 
     # 4. rollout -----------------------------------------------------------------
     phase("4. rollout")
@@ -2228,8 +2734,11 @@ def main() -> int:
     want_counts["se2_project_q"] = want_counts["flash_decode"]
     want_counts["se2_project_k"] = 2 * want_counts["flash_decode"]
     want_counts["se2_project_q_t"] = want_counts["flash_decode"]
+    want_counts["categorical"] = scen.num_steps - t_hist    # one a tick
     launches = dict.fromkeys(REPLACES, 0)
-    engine = rollouts(model, scen, scenes, t_hist, want_counts, launches, "")
+    f32_rollout = {}
+    engine = rollouts(model, scen, scenes, t_hist, want_counts, launches, "",
+                      stats=f32_rollout)
     calls = plain_se2_calls(lambda: engine.run(scenes, t_hist=t_hist,
                                                n_samples=1, seed=0))
     if calls:
@@ -2263,19 +2772,25 @@ def main() -> int:
     # 6. times at the main-path shapes ------------------------------------------
     phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
+    c150 = SE2Fourier(head_dim=WIDTH_HEAD_DIM,
+                      num_terms=cfg.fourier_terms).expanded_dim
 
-    def decode_timing(sq, cursor, prefill, c, b_=n_slots, s_=s_max):
+    def decode_timing(sq, cursor, prefill, c, b_=n_slots, s_=s_max,
+                      dtype="float32"):
         """flash_decode at the tick (sq new rows at the newest time against
         ``cursor`` live rows) or the prefill (the first sq tokens against
-        themselves, block-causal), b_ slots of a float32 cache s_ rows of c
-        wide; SDPA over the live prefix with the same mask. FLOPs count the
-        (q, k) pairs the mask admits, bounded at the tensor cores' rate for
-        float32-accurate products."""
-        case = decode_case(gen, dev, "float32", layers=cfg.num_layers,
+        themselves, block-causal), b_ slots of a cache s_ rows of c wide,
+        float32 (or bf16 cache and query); SDPA over the live prefix with
+        the same mask. FLOPs count the (q, k) pairs the mask admits,
+        bounded at the tensor cores' rate for float32-accurate products
+        (bf16 products for bf16)."""
+        case = decode_case(gen, dev, dtype, layers=cfg.num_layers,
                            b=b_, h=cfg.num_heads, s=s_, c=c, sq=sq,
                            cursors=[cursor] * b_, num_map=scen.num_map,
                            num_agents=scen.num_agents, prefill=prefill)
         q, k, v = case.pop("q"), case.pop("k"), case.pop("v")
+        q = q.to(k.dtype)
+        es = k.element_size()
         live = (case["k_times"][:, None, :cursor]
                 <= case["q_times"][:, :, None])
         seg = ((case["q_segment_ids"][:, :, None]
@@ -2292,30 +2807,53 @@ def main() -> int:
             library=lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, kl, vl, attn_mask=mask,
                 scale=1.0 / math.sqrt(cfg.head_dim)),
-            bytes=(b_ * h_ * cursor * 2 * c * 4 + b_ * h_ * sq * 2 * c * 4
+            bytes=(b_ * h_ * cursor * 2 * c * es + b_ * h_ * sq * 2 * c * es
                    + b_ * cursor * 2 * 4 + b_ * sq * 2 * 4 + b_ * 4),
             flops=2 * int(mask.sum()) * h_ * 2 * c,
-            rate=SPLIT_TF32_FLOP_PER_S, kernel="flash_decode",
-            shape=f"{'prefill' if prefill else 'tick'}: {b_} slots x {h_} "
+            rate=SPLIT_TF32_FLOP_PER_S if es == 4 else BF16_FLOP_PER_S,
+            kernel="flash_decode",
+            shape=f"{'prefill' if prefill else 'tick'}, {dtype}: {b_} slots x {h_} "
                   f"heads x {sq} query rows x {c}, {cursor} live cache rows, "
                   f"{int(mask.sum())} of {b_ * sq * cursor} (q, k) pairs "
                   f"admitted a head")
-    def se2_timing(name, b_, n_):
-        """An se2 mode at b_ scenes x n_ tokens, all heads, float32; each
-        input read once and each output written once, bounded by bytes."""
+    def se2_timing(name, b_, n_, dtype=torch.float32):
+        """An se2 mode at b_ scenes x n_ tokens, all heads, float32 (or
+        bf16); each input read once and each output written once, bounded
+        by bytes."""
         kernel, plain, mode, transposed = se2_mode(name)
         width = c if transposed else cfg.head_dim
         x, pose = se2_case(gen, dev, b_, cfg.num_heads, n_, width,
                            cfg.pos_scale)
+        x = x.to(dtype)
         rows = b_ * cfg.num_heads * n_
         return dict(
             fn=lambda: kernel(x, pose, enc, mode),
             plain=lambda: plain(x, pose, enc, mode), library=None,
-            bytes=rows * (cfg.head_dim + c) * 4 + b_ * n_ * 3 * 4,
+            bytes=(rows * (cfg.head_dim + c) * x.element_size()
+                   + b_ * n_ * 3 * 4),
             flops=se2_flops(name, b_ * n_, rows, enc.num_blocks,
                             enc.num_terms),
             kernel=name, shape=f"{b_} scenes x {cfg.num_heads} heads x {n_} "
-                               f"tokens")
+                               f"tokens, {str(dtype)[6:]}")
+
+    def sampling_timing(per_slot):
+        """The sampler at the tick (64 lanes x 12 agents x 63 actions), one
+        step for all lanes or each slot its own; reads the logits, keys and
+        steps once and writes the actions, and runs SAMPLE_OPS integer and
+        float operations an element and a fold_in a row."""
+        keys, steps, logits = sampling_case(gen, dev, n_slots,
+                                            scen.num_agents,
+                                            scen.num_actions, per_slot)
+        b_, a_, k_ = logits.shape
+        return dict(
+            fn=lambda: categorical(keys, steps, logits),
+            plain=lambda: categorical_plain(keys, steps, logits),
+            library=None,
+            bytes=b_ * a_ * k_ * 4 + b_ * 16 + b_ * 4 + b_ * a_ * 8,
+            flops=b_ * a_ * (k_ * SAMPLE_OPS + THREEFRY_OPS),
+            rate=INT32_OPS_PER_S, kernel="categorical",
+            shape=f"{b_} lanes x {a_} agents x {k_} actions, "
+                  f"{'each slot its own step' if per_slot else 'one step'}")
 
     # se2 at the tick (the record), at the train step (its "train") and at
     # the server's admission ("admit"); the decode at c = 200 (the record,
@@ -2341,6 +2879,25 @@ def main() -> int:
                           s_=scen.num_map), nest="admit"),
         **{f"{name}_admit": dict(se2_timing(name, 1, scen.num_map),
                                  nest="admit") for name in SE2_MODES},
+        # the sampler at the engine's tick (the record) and the server's
+        "categorical": sampling_timing(False),
+        "categorical_server": dict(sampling_timing(True), nest="server"),
+        # the decode at se2_fourier's c = 150 (head_dim 18), and with bf16
+        # cache and query at c = 200 (the bf16 model's tick)
+        "flash_decode_c150": dict(
+            decode_timing(tick_rows, kvl, False, c150), nest="c150"),
+        "flash_decode_prefill_c150": dict(
+            decode_timing(prefill_rows, prefill_rows, True, c150),
+            nest="c150_prefill"),
+        "flash_decode_bf16": dict(
+            decode_timing(tick_rows, kvl, False, c, dtype="bfloat16"),
+            nest="bf16"),
+        **{f"{name}_bf16": dict(se2_timing(name, n_slots, tick_rows,
+                                           torch.bfloat16), nest="bf16")
+           for name in SE2_MODES},
+        **{f"{name}_bf16_train": dict(
+            se2_timing(name, TRAIN_BATCH, train_tokens, torch.bfloat16),
+            nest="bf16_train") for name in SE2_MODES},
     }
     def flash_timings(case):
         """The flash forward, dq and dk/dv at the train step's attention
@@ -2349,14 +2906,16 @@ def main() -> int:
         Returns the three timings and the (B, Sq, Sk) pair mask."""
         tq, tk, tv, tdo, topts = case
         tout, tlse = fa.flash_attention_fwd(tq, tk, tv, **topts)
-        tdelta = torch.sum(tdo * tout, dim=-1)
+        tdelta = torch.sum(tdo.float() * tout.float(), dim=-1)
+        es = tq.element_size()
+        rate = SPLIT_TF32_FLOP_PER_S if es == 4 else BF16_FLOP_PER_S
         times_, seg_ = topts["q_times"], topts["q_segment_ids"]
         pair_mask = ((times_[:, None, :] <= times_[:, :, None])
                      & (seg_[:, :, None] == seg_[:, None, :])
                      & (seg_[:, None, :] >= 0))             # (B, Sq, Sk)
         tb_, th_, ts_, tc_ = tq.shape
         pairs = int(pair_mask.sum()) * th_
-        elem, row = tb_ * th_ * ts_ * tc_ * 4, tb_ * th_ * ts_ * 4
+        elem, row = tb_ * th_ * ts_ * tc_ * es, tb_ * th_ * ts_ * 4
         masks_bytes = 4 * tb_ * ts_ * 4
         sdpa_mask = pair_mask[:, None]
         lq, lk, lv = (t_.detach().clone().requires_grad_(True)
@@ -2367,7 +2926,8 @@ def main() -> int:
             lout, (lq, lk, lv), tdo, retain_graph=True)
         plain_bwd = lambda: fab.flash_bwd_plain(  # noqa: E731
             tq, tk, tv, tout, tlse, tdo, **topts)
-        shape = f"{tb_} scenes x {th_} heads x {ts_} tokens x {tc_}"
+        shape = (f"{tb_} scenes x {th_} heads x {ts_} tokens x {tc_}, "
+                 f"{str(tq.dtype)[6:]}")
         return {
             "flash_attention_fwd": dict(
                 fn=lambda: fa.flash_attention_fwd(tq, tk, tv, **topts),
@@ -2376,8 +2936,7 @@ def main() -> int:
                 .scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_mask,
                                               scale=attn_scale),
                 bytes=4 * elem + row + masks_bytes,
-                flops=2 * pairs * (tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S,
-                shape=shape),
+                flops=2 * pairs * (tc_ + tc_), rate=rate, shape=shape),
             # one plain backward and one SDPA backward compute dq, dk and dv
             # together: both rows carry the same combined plain/library ms
             "flash_attention_dq": dict(
@@ -2385,22 +2944,28 @@ def main() -> int:
                                                   tdelta, **topts),
                 plain=plain_bwd, library=sdpa_bwd,
                 bytes=5 * elem + 2 * row + masks_bytes,
-                flops=2 * pairs * (2 * tc_ + tc_), rate=SPLIT_TF32_FLOP_PER_S,
-                shape=shape),
+                flops=2 * pairs * (2 * tc_ + tc_), rate=rate, shape=shape),
             "flash_attention_dkv": dict(
                 fn=lambda: fab.flash_attention_dkv(tq, tk, tv, tdo, tlse,
                                                    tdelta, **topts),
                 plain=plain_bwd, library=sdpa_bwd,
                 bytes=6 * elem + 2 * row + masks_bytes,
-                flops=2 * pairs * (2 * tc_ + 2 * tc_),
-                rate=SPLIT_TF32_FLOP_PER_S, shape=shape),
+                flops=2 * pairs * (2 * tc_ + 2 * tc_), rate=rate,
+                shape=shape),
         }, pair_mask
 
     flash_200, pair_mask = flash_timings(train_case)
-    flash_24, _ = flash_timings(train_case_24)
     timings.update(flash_200)
-    timings.update({f"{name}_c24": dict(tm, kernel=name, nest="c24")
-                    for name, tm in flash_24.items()})
+    # the flash kernels at c = 24 (the other arches), c = 150 (se2_fourier
+    # at head_dim 18) and in bf16 at c = 200 (the bf16 model's train step)
+    for nest, case_ in (
+            ("c24", train_case_24),
+            ("c150", scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
+                                          attn_scale, c150)),
+            ("bf16", (*(t_.to(torch.bfloat16) for t_ in train_case[:4]),
+                      train_case[4]))):
+        timings.update({f"{name}_{nest}": dict(tm, kernel=name, nest=nest)
+                        for name, tm in flash_timings(case_)[0].items()})
     records = []
     measured = {}
 
@@ -2478,7 +3043,8 @@ def main() -> int:
     want_counts = {"flash_decode": chunks * per_chunk,
                    "se2_project_q": chunks * per_chunk,
                    "se2_project_k": 2 * chunks * per_chunk,
-                   "se2_project_q_t": chunks * per_chunk}
+                   "se2_project_q_t": chunks * per_chunk,
+                   "categorical": chunks * (scen.num_steps - t_hist)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -2562,6 +3128,12 @@ def main() -> int:
 
     # 10. the continuous-batching server -----------------------------------
     server_phase(model, scen, s_max, launches, max_err)
+
+    # 11. jax.random-exact sampling, widths off 4, bfloat16 ---------------
+    sampling_phase(model, scen, scenes, t_hist, s_max)
+    widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err)
+    bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches, max_err,
+               f32_rollout, bare_rate)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

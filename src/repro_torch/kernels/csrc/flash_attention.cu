@@ -65,6 +65,16 @@
 //     the k8 padding columns of a width that is not a multiple of 8, and
 //     the rows past Sk of a ragged last key tile (which would otherwise
 //     hold an earlier tile's rows). P = 0 times a stale NaN is NaN.
+//   * Any row width from 1 to 256 (se2_fourier's c = 50 head_dim / 6:
+//     c = 150 at head_dim 18). A float32 row of a width that is not a
+//     multiple of 4 does not start 16-byte aligned (a c = 150 row is 600
+//     bytes), so load_rows copies it by 8-byte cp.async.ca where the width
+//     is even and by 4-byte ones where it is odd; the 16-byte copies stay
+//     for widths that are multiples of 4, whose instances (c = 200) are
+//     compiled as before. A bf16 tile is one flat run and load_tile reads
+//     it in 16- or 4-byte chunks, or element by element where its start is
+//     only 2-byte aligned. store_tile writes a row's pair of columns in one
+//     store for even widths and one at a time for odd ones.
 //   * The float32 c = 200 case is compiled with its widths and strides as
 //     constants, as in the backward, where that made dq and dk/dv 1.3x
 //     faster (benchmarks/torch_flash_ab.py).
@@ -349,8 +359,8 @@ extern "C" {
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv) of one type
 // (0 float32, 1 bfloat16); times / segment ids (B, S) int32 or null;
 // out (B, Hq, Sq, Dv) of the same type; lse (B, Hq, Sq) float32. window < 0
-// means none; softcap <= 0 means none. Widths are multiples of 4, at most
-// 256. Returns cudaGetLastError().
+// means none; softcap <= 0 means none. Widths are any of 1 .. 256.
+// Returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            const void* q_times, const void* k_times,
                            const void* q_seg, const void* k_seg, void* out,

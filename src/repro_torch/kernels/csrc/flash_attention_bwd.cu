@@ -46,7 +46,9 @@
 //     round_up(width, 8) + 4, an odd multiple of 4 words, which keeps both
 //     the direct (row g, column t) and the permuted (row 2t, column g)
 //     fragment reads free of bank conflicts; the contraction is zero-padded
-//     to a multiple of 8 (widths are multiples of 4).
+//     to a multiple of 8. Any width from 1 to 256 is taken: the copies and
+//     stores of mma_tf32.cuh pick their unit by the rows' alignment (see
+//     flash_attention.cu's header).
 //   * A CTA of 8 warps owns 64 rows (4 blocks of 16) and walks 32-row tiles
 //     of the other side (16 rows when a width exceeds 200). dq: two warps
 //     share a block of 16 query rows, each taking half of every key tile,
@@ -538,8 +540,8 @@ extern "C" {
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv), dout
 // (B, Hq, Sq, Dv) of one type (0 float32, 1 bfloat16); lse, delta
 // (B, Hq, Sq) float32; times / segment ids (B, S) int32 or null; dq like q.
-// window < 0 means none; softcap <= 0 means none. Widths are multiples of 4,
-// at most 256. Returns cudaGetLastError().
+// window < 0 means none; softcap <= 0 means none. Widths are any of
+// 1 .. 256. Returns cudaGetLastError().
 int flash_attention_dq_launch(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, const void* delta,
                               const void* q_times, const void* k_times,

@@ -73,6 +73,23 @@
 //   * Shared memory at c = 200, float32: Q 13,056 B (tick) / 52,224 B
 //     (prefill), the ring 208,896 B / 104,448 B, the keys' fields 2 KB /
 //     1 KB: one CTA of 8 warps an SM.
+//   * Any row width from 1 to 256 (se2_fourier caches c = 50 head_dim / 6,
+//     c = 150 at head_dim 18). Rows are copied in the widest cp.async unit
+//     that every row start allows: 16 bytes at c = 200 float32, 8 bytes at
+//     c = 150 float32 (600-byte rows), 4 bytes at c = 150 bf16 (300-byte
+//     rows). cp.async moves no unit under 4 bytes, so an int8 or bf16 row
+//     whose bytes are not a multiple of 4 (c = 150 int8: 150 bytes) is
+//     copied synchronously in 2- or 1-byte units; that costs latency at
+//     those widths only. The output's pairs of columns are written in one
+//     store for even widths and one at a time for odd ones, and the split
+//     combine takes a column a lane where the width is not a multiple of 4.
+//     The k8 padding columns of Q and K stay zero as before.
+//   * The query is float32 or bfloat16 (the bf16 model's), a compile-time
+//     type (TQ), converted as it lands; the output takes the query's type,
+//     as the reference's does. Both query loads compute each element's
+//     address from its (q head, row), as the float32 one always has: with
+//     a flat run's address instead, ptxas spilled registers in the 4-block
+//     c = 200 instances.
 // Measured on an H100, neither shape runs at its byte bound: with its
 // loads switched off the first version of this kernel kept 72% (tick) and
 // 93% (prefill) of its time, in the products and the per-tile walk
@@ -155,11 +172,28 @@ __device__ __forceinline__ void copy_chunks(const char* s, char* d, int nrows,
   }
 }
 
+// Copy rows of U-byte units synchronously, a unit a thread at a time
+// (cp.async moves 4, 8 or 16 bytes only; no buffers, so the main loop's
+// registers stay the accumulators').
+template <typename U>
+__device__ __forceinline__ void copy_units_sync(const char* s, char* d, int nrows,
+                                                int row_bytes, int stride_bytes) {
+  const int per = row_bytes / (int)sizeof(U), n = nrows * per;
+  const U* src = reinterpret_cast<const U*>(s);
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int r = c / per;
+    reinterpret_cast<U*>(d + r * stride_bytes)[c - r * per] = src[c];
+  }
+}
+
 // Start copying rows [0, nrows) of a contiguous (rows, width) tile of T
 // into shared memory at row stride `stride` by cp.async, in the widest
-// chunks both sides allow (row bytes are multiples of 4); the caller
-// commits and waits. Rows that lie in shared memory as in device memory
-// are one flat run.
+// chunks both sides allow; the caller commits and waits. Rows that lie in
+// shared memory as in device memory are one flat run (widths that are
+// multiples of 8). A bf16 or int8 row whose bytes are not a multiple of 4
+// (c = 150 int8, or an odd width) is copied synchronously, 2 or 1 bytes a
+// unit; the ring's barrier before the tile is computed covers those
+// stores as it covers the cp.async ones.
 template <typename T>
 __device__ __forceinline__ void copy_rows(const T* src, int nrows, int width,
                                           T* dst, int stride) {
@@ -182,8 +216,32 @@ __device__ __forceinline__ void copy_rows(const T* src, int nrows, int width,
     copy_chunks<16>(s, d, nrows, rb, sb);
   else if ((al & 7) == 0)
     copy_chunks<8>(s, d, nrows, rb, sb);
-  else
+  else if (sizeof(T) == 4 || (al & 3) == 0)   // float32 rows: always
     copy_chunks<4>(s, d, nrows, rb, sb);
+  else if constexpr (sizeof(T) < 4) {
+    if ((al & 1) == 0)
+      copy_units_sync<uint16_t>(s, d, nrows, rb, sb);
+    else
+      copy_units_sync<uint8_t>(s, d, nrows, rb, sb);
+  }
+}
+
+// Write columns col, col + 1 (where < width) of an output row of T: a
+// pair in one store where the width is even, one at a time where it is odd.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int col, int width, float a,
+                                           float b) {
+  if (col >= width) return;
+  T* p = row + col;
+  if (width % 2 == 0) {
+    if constexpr (std::is_same<T, float>::value)
+      *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = from_f<T>(a);
+    if (col + 1 < width) p[1] = from_f<T>(b);
+  }
 }
 
 // The warp of block `blk` that takes key slice `slice` (mirrored_block's
@@ -198,14 +256,14 @@ __device__ __forceinline__ int warp_of(int blk, int slice) {
 // r0 .. r_end of the group's R (q head, query) rows, q head major; the
 // m16 blocks of R are dealt evenly over the ceil(blocks / MB) row tiles
 // (the prefill's 9 blocks as 3 + 3 + 3, not 4 + 4 + 1).
-template <typename T, int MB, int NS, int NT, int kStages, int kWidth>
+template <typename T, typename TQ, int MB, int NS, int NT, int kStages, int kWidth>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
+decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale, const int* __restrict__ kv_length,
               const int* __restrict__ q_times, const int* __restrict__ k_times,
               const int* __restrict__ q_seg, const int* __restrict__ k_seg,
-              float* __restrict__ out, float* __restrict__ o_part,
+              TQ* __restrict__ out, float* __restrict__ o_part,
               float* __restrict__ m_part, float* __restrict__ l_part, int B,
               int Hq, int Hkv, int Sq, int S, int D_arg, int Dv_arg, int layer,
               int num_splits, int tiles_per_split, float scale) {
@@ -248,14 +306,25 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
   {
+    // a float32 query lands by cp.async, a bf16 one converted as it loads
     const int nrow = r_end - r0;
-    const bool al16 = (reinterpret_cast<uintptr_t>(q) & 15) == 0;
-    const int unit = al16 ? 4 : 1, per = D / unit;
-    for (int c = threadIdx.x; c < nrow * per; c += kThreads) {
-      const int r = c / per, col = (c - r * per) * unit, row = r0 + r;
-      const float* src = q + ((size_t)(b * Hq + hk * group + row / Sq) * Sq + row % Sq) * D + col;
-      if (al16) cp_async16(s_q + r * qs + col, src);
-      else cp_async4(s_q + r * qs + col, src);
+    if constexpr (std::is_same<TQ, float>::value) {
+      // 16-byte copies where the rows allow them (widths that are multiples
+      // of 4), else 4-byte ones
+      const bool al16 = (reinterpret_cast<uintptr_t>(q) & 15) == 0 && D % 4 == 0;
+      const int unit = al16 ? 4 : 1, per = D / unit;
+      for (int c = threadIdx.x; c < nrow * per; c += kThreads) {
+        const int r = c / per, col = (c - r * per) * unit, row = r0 + r;
+        const float* src = q + ((size_t)(b * Hq + hk * group + row / Sq) * Sq + row % Sq) * D + col;
+        if (al16) cp_async16(s_q + r * qs + col, src);
+        else cp_async_small<1>(s_q + r * qs + col, src);
+      }
+    } else {                                 // bf16: an element a thread
+      for (int c = threadIdx.x; c < nrow * D; c += kThreads) {
+        const int r = c / D, col = c - r * D, row = r0 + r;
+        s_q[r * qs + col] = to_f(
+            q[((size_t)(b * Hq + hk * group + row / Sq) * Sq + row % Sq) * D + col]);
+      }
     }
     cp_async_commit();
     if (threadIdx.x < kRows) {
@@ -410,7 +479,7 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       }
       constexpr uint32_t kMine = C::kKeys == 32 ? 0xffffffffu : (1u << C::kKeys) - 1;
       uint32_t dead = ~mine & kMine;
-      const int words = Dv * (int)sizeof(T) / 4;
+      const int words = (Dv * (int)sizeof(T) + 3) / 4;  // into the padding
       while (dead) {
         const int r = __ffs(dead) - 1;
         dead &= dead - 1;
@@ -573,14 +642,11 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       if (num_splits == 1) {
         // what combine_kernel makes of one split, without its launch
         const float inv = 1.f / fmaxf(lr[r], 1e-30f);
-        if (col < Dv)
-          *reinterpret_cast<float2*>(out + (bh * Sq + qi) * Dv + col) =
-              make_float2(o[2 * r] * inv, o[2 * r + 1] * inv);
+        store_pair(out + (bh * Sq + qi) * Dv, col, Dv, o[2 * r] * inv,
+                   o[2 * r + 1] * inv);
       } else {
         const size_t prow = (bh * num_splits + split) * Sq + qi;
-        if (col < Dv)
-          *reinterpret_cast<float2*>(o_part + prow * Dv + col) =
-              make_float2(o[2 * r], o[2 * r + 1]);
+        store_pair(o_part + prow * Dv, col, Dv, o[2 * r], o[2 * r + 1]);
         if (c == 0 && t == 0) {
           m_part[prow] = m_fin[r];
           l_part[prow] = lr[r];
@@ -596,8 +662,8 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 constexpr int kCombineWarps = 8;
 __global__ void __launch_bounds__(kCombineWarps * 32)
 combine_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
-               const float* __restrict__ l_part, float* __restrict__ out, int rows,
-               int Sq, int Dv, int num_splits) {
+               const float* __restrict__ l_part, void* __restrict__ out, int rows,
+               int Sq, int Dv, int num_splits, int out_bf16) {
   const int row = blockIdx.x * kCombineWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
   const size_t base = (size_t)(row / Sq) * num_splits * Sq + row % Sq;  // split 0
@@ -609,8 +675,22 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ m_par
     l_g += l_part[p] * expf(m_part[p] - m_g);
   }
   const float inv = 1.f / fmaxf(l_g, 1e-30f);
+  if (Dv % 4 || out_bf16) {                  // a column a lane
+    for (int c = lane; c < Dv; c += 32) {
+      float o = 0.f;
+      for (int sp = 0; sp < num_splits; ++sp) {
+        const size_t p = base + (size_t)sp * Sq;
+        o += o_part[p * Dv + c] * expf(m_part[p] - m_g);
+      }
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(out)[(size_t)row * Dv + c] = __float2bfloat16(o * inv);
+      else
+        static_cast<float*>(out)[(size_t)row * Dv + c] = o * inv;
+    }
+    return;
+  }
   const int d4 = Dv / 4;
-  float4* o4 = reinterpret_cast<float4*>(out + (size_t)row * Dv);
+  float4* o4 = reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)row * Dv);
   for (int c = lane; c < d4; c += 32) {
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int sp = 0; sp < num_splits; ++sp) {
@@ -677,18 +757,18 @@ int num_splits_for(int B, int Hq, int Hkv, int Sq, int S, int D, int Dv,
   });
 }
 
-template <typename T, int MB, int NS, int NT, int kWidth>
-cudaError_t launch_cfg(const float* q, const void* k, const void* v,
+template <typename T, typename TQ, int MB, int NS, int NT, int kWidth>
+cudaError_t launch_cfg(const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale,
                        const int* kv_length, const int* q_times, const int* k_times,
                        const int* q_seg, const int* k_seg, float* o_part,
-                       float* m_part, float* l_part, float* out, int B, int Hq,
+                       float* m_part, float* l_part, void* out, int B, int Hq,
                        int Hkv, int Sq, int S, int D, int Dv, int layer,
-                       int num_splits, float scale, cudaStream_t stream) {
+                       int num_splits, float scale, int q_bf16, cudaStream_t stream) {
   constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
   using C = Cfg<MB, NS>;
   const size_t smem = smem_bytes<T, MB, NS, kStages>(D, Dv);
-  auto kernel = decode_kernel<T, MB, NS, NT, kStages, kWidth>;
+  auto kernel = decode_kernel<T, TQ, MB, NS, NT, kStages, kWidth>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -697,31 +777,35 @@ cudaError_t launch_cfg(const float* q, const void* k, const void* v,
   const int tiles_per_split = (tiles + num_splits - 1) / num_splits;
   const dim3 grid((unsigned)(row_tiles * num_splits), Hkv, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times, k_times,
-      q_seg, k_seg, out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D, Dv, layer,
-      num_splits, tiles_per_split, scale);
+      (const TQ*)q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times,
+      k_times, q_seg, k_seg, (TQ*)out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D,
+      Dv, layer, num_splits, tiles_per_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || num_splits == 1) return err;
   const int rows = B * Hq * Sq;
   combine_kernel<<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0,
-                   stream>>>(o_part, m_part, l_part, out, rows, Sq, Dv, num_splits);
+                   stream>>>(o_part, m_part, l_part, out, rows, Sq, Dv, num_splits, q_bf16);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const float* q, const void* k, const void* v, const float* k_scale,
+cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
                    const float* v_scale, const int* kv_length, const int* q_times,
                    const int* k_times, const int* q_seg, const int* k_seg,
-                   float* o_part, float* m_part, float* l_part, float* out, int B,
+                   float* o_part, float* m_part, float* l_part, void* out, int B,
                    int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
-                   int num_splits, float scale, cudaStream_t stream) {
+                   int num_splits, float scale, int q_bf16, cudaStream_t stream) {
   if (D > 256 || Dv > 256) return cudaErrorInvalidValue;
   num_splits = num_splits_for(B, Hq, Hkv, Sq, S, D, Dv, num_splits < 1 ? 1 : num_splits, 0);
   return with_cta_shape(Hq / Hkv * Sq, D, Dv, [&](auto mb, auto ns, auto nt, auto width) {
-    return launch_cfg<T, decltype(mb)::value, decltype(ns)::value, decltype(nt)::value,
-                      decltype(width)::value>(
-        q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
-        m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, stream);
+    auto go = [&](auto tq) {
+      return launch_cfg<T, decltype(tq), decltype(mb)::value, decltype(ns)::value,
+                        decltype(nt)::value, decltype(width)::value>(
+          q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
+          stream);
+    };
+    return q_bf16 ? go(__nv_bfloat16{}) : go(float{});
   });
 }
 
@@ -729,27 +813,29 @@ cudaError_t launch(const float* q, const void* k, const void* v, const float* k_
 
 extern "C" {
 
-// q (B, Hq, Sq, D) f32; k (L, B, Hkv, S, D), v (L, B, Hkv, S, Dv) of the
-// cache type (0 float32, 1 bfloat16, 2 int8) read at `layer`; k_scale,
-// v_scale (L, B, Hkv, S) f32 for int8, else null; kv_length (B,) int32;
-// times / segment ids int32 or null. num_splits is held to [1, key tiles]
-// (flash_decode_num_splits). Scratch o_part (B, Hq, splits, Sq, Dv),
-// m_part, l_part (B, Hq, splits, Sq) f32 for at least that many splits
-// (unread with one split); out (B, Hq, Sq, Dv) f32. Widths are multiples
-// of 4, at most 256. Returns cudaGetLastError() after the launches.
+// q (B, Hq, Sq, D) float32 (q_bf16 0) or bfloat16 (1); k (L, B, Hkv, S, D),
+// v (L, B, Hkv, S, Dv) of the cache type (0 float32, 1 bfloat16, 2 int8)
+// read at `layer`; k_scale, v_scale (L, B, Hkv, S) f32 for int8, else
+// null; kv_length (B,) int32; times / segment ids int32 or null.
+// num_splits is held to [1, key tiles] (flash_decode_num_splits). Scratch
+// o_part (B, Hq, splits, Sq, Dv), m_part, l_part (B, Hq, splits, Sq) f32 for
+// at least that many splits (unread with one split); out (B, Hq, Sq, Dv) of
+// q's type. Widths are any of 1 .. 256. Returns cudaGetLastError() after
+// the launches.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* k_scale, const void* v_scale,
                         const void* kv_length, const void* q_times,
                         const void* k_times, const void* q_seg, const void* k_seg,
                         void* o_part, void* m_part, void* l_part, void* out, int B,
                         int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
-                        int num_splits, int cache_dtype, float scale, void* stream) {
+                        int num_splits, int cache_dtype, int q_bf16, float scale,
+                        void* stream) {
   if (B == 0 || Sq == 0) return 0;
-#define ARGS (const float*)q, k, v, (const float*)k_scale, (const float*)v_scale, \
+#define ARGS q, k, v, (const float*)k_scale, (const float*)v_scale, \
     (const int*)kv_length, (const int*)q_times, (const int*)k_times,             \
     (const int*)q_seg, (const int*)k_seg, (float*)o_part, (float*)m_part,        \
-    (float*)l_part, (float*)out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits,    \
-    scale, (cudaStream_t)stream
+    (float*)l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale,     \
+    q_bf16, (cudaStream_t)stream
   switch (cache_dtype) {
     case 0: return (int)launch<float>(ARGS);
     case 1: return (int)launch<__nv_bfloat16>(ARGS);

@@ -164,9 +164,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
                : "memory");
 }
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+// N = 1 or 2 floats (4 or 8 bytes; cp.async.cg takes 16 only)
+template <int N>
+__device__ __forceinline__ void cp_async_small(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(4 * N)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -177,27 +180,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Copy rows [0, nrows) of a float32 (rows, width) tile in units of N
+// floats (width a multiple of N, source and rows N-float aligned).
+template <int N>
+__device__ __forceinline__ void copy_units(const float* __restrict__ src, int nrows,
+                                           int width, float* dst, int stride) {
+  const int per = width / N, n = nrows * per;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int r = c / per, col = (c - r * per) * N;
+    if constexpr (N == 4)
+      cp_async16(dst + r * stride + col, src + (size_t)r * width + col);
+    else
+      cp_async_small<N>(dst + r * stride + col, src + (size_t)r * width + col);
+  }
+}
+
 // Start copying rows [0, nrows) of a contiguous (rows, width) tile into
-// shared memory at row stride `stride`: float32 by cp.async (16-byte chunks
-// where the tile starts 16-byte aligned, else 4-byte words), completed by
-// the caller's commit and wait; bfloat16 converted synchronously.
+// shared memory at row stride `stride`: float32 by cp.async in the widest
+// unit every row start allows (16 bytes where the tile starts 16-byte
+// aligned and the width is a multiple of 4, as at c = 200; 8 bytes for an
+// even width such as c = 150, whose 600-byte rows start 8-byte aligned;
+// else 4), completed by the caller's commit and wait; bfloat16 converted
+// synchronously.
 template <typename T>
 __device__ void load_rows(const T* __restrict__ src, int nrows, int width,
                           float* dst, int stride) {
   if constexpr (std::is_same<T, float>::value) {
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const int w4 = width / 4, n = nrows * w4;
-      for (int c = threadIdx.x; c < n; c += blockDim.x) {
-        const int r = c / w4, col = (c - r * w4) * 4;
-        cp_async16(dst + r * stride + col, src + (size_t)r * width + col);
-      }
-    } else {
-      const int n = nrows * width;
-      for (int e = threadIdx.x; e < n; e += blockDim.x) {
-        const int r = e / width;
-        cp_async4(dst + r * stride + e - r * width, src + e);
-      }
-    }
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+    if ((a & 15) == 0 && width % 4 == 0)
+      copy_units<4>(src, nrows, width, dst, stride);
+    else if ((a & 7) == 0 && width % 2 == 0)
+      copy_units<2>(src, nrows, width, dst, stride);
+    else
+      copy_units<1>(src, nrows, width, dst, stride);
   } else {
     load_tile<T>(src, nrows, width, dst, stride);
   }
@@ -253,23 +268,29 @@ __device__ __forceinline__ bool tile_admits(const Mask& mk, const int* s_own,
 
 // Write a 16 x 8 accumulator tile (rows r0 + g, r0 + g + 8 of `n` rows;
 // columns c0 + 2t, c0 + 2t + 1 of `width`) to a row-major output, the two
-// columns of a row in one store, so that each warp store fills whole
-// 32-byte sectors.
+// columns of a row in one store where the width is even (so that each
+// warp store fills whole 32-byte sectors), one at a time where it is odd
+// (a pair would straddle rows and lose its alignment).
 template <typename T>
 __device__ __forceinline__ void store_tile(T* out, const float (&c)[4], int r0,
                                            int n, int c0, int width, int g, int t) {
   const int col = c0 + 2 * t;
-  if (col >= width) return;                    // width is a multiple of 4
+  if (col >= width) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + g + 8 * h;
     if (row < n) {
       T* p = out + (size_t)row * width + col;
-      if constexpr (std::is_same<T, float>::value)
-        *reinterpret_cast<float2*>(p) = make_float2(c[2 * h], c[2 * h + 1]);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+      if (width % 2 == 0) {
+        if constexpr (std::is_same<T, float>::value)
+          *reinterpret_cast<float2*>(p) = make_float2(c[2 * h], c[2 * h + 1]);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(p) =
+              __floats2bfloat162_rn(c[2 * h], c[2 * h + 1]);
+      } else {
+        p[0] = from_f<T>(c[2 * h]);
+        if (col + 1 < width) p[1] = from_f<T>(c[2 * h + 1]);
+      }
     }
   }
 }

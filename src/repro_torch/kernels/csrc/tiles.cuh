@@ -11,6 +11,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -78,14 +79,22 @@ __device__ void load_chunks(const T* __restrict__ src, int n, int width,
 
 // Load rows [0, nrows) of a tile: 16-byte chunks where the tile start is
 // 16-byte aligned (always at the sim arch's shapes), else 4-byte words
-// (widths are multiples of 4 elements, checked by the wrappers).
+// where it is 4-byte aligned, else element by element (a bf16 tile of an
+// odd width may start on an odd element). The tile is one flat run, so
+// only its start's alignment matters, whatever the width.
 template <typename T>
 __device__ void load_tile(const T* __restrict__ src, int nrows, int width,
                           float* dst, int stride) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0)
+  using Elem = typename std::conditional<
+      sizeof(T) == 1, uint8_t,
+      typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type>::type;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if ((a & 15) == 0)
     load_chunks<T, uint4>(src, nrows * width, width, dst, stride);
-  else
+  else if ((a & 3) == 0)
     load_chunks<T, uint32_t>(src, nrows * width, width, dst, stride);
+  else
+    load_chunks<T, Elem>(src, nrows * width, width, dst, stride);
 }
 
 // The attention mask of the flash kernels for query i and key j: causal

@@ -167,9 +167,10 @@ def check_inputs(q, k, v, *, causal, window, softcap, scale, q_segment_ids,
             raise ValueError(f"{name} must be a contiguous {q.dtype} "
                              f"{tuple(shape)} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if d % 4 or dv % 4 or d > _MAX_WIDTH or dv > _MAX_WIDTH:
-        raise ValueError(f"widths D={d}, Dv={dv} must be multiples of 4 and "
-                         f"at most {_MAX_WIDTH}")
+    if not (0 < d <= _MAX_WIDTH and 0 < dv <= _MAX_WIDTH):
+        raise ValueError(f"row widths D={d}, Dv={dv}: the kernels take 1 .. "
+                         f"{_MAX_WIDTH} (their accumulators live in "
+                         f"registers)")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if (q_times is None) != (k_times is None) or \

@@ -140,6 +140,7 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
 # ---------------------------------------------------------------------------
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_WIDTH = 256
 
 
@@ -149,11 +150,12 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
                  num_splits: Optional[int] = None,
                  layer: Optional[int] = None) -> torch.Tensor:
     """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Shapes as :func:`decode_plain`; returns
-    (B, Hq, Sq, Dv) float32. ``num_splits`` (CUDA only) splits each row's
-    key range over that many CTAs, whose partials a second kernel joins;
-    the kernel holds it to its count of key tiles, and None picks enough
-    to give every SM a CTA."""
+    version for CPU tensors. Shapes as :func:`decode_plain`; q float32 or
+    bfloat16, and the (B, Hq, Sq, Dv) output in q's dtype, as the
+    reference's. Row widths are any of 1 .. 256. ``num_splits`` (CUDA
+    only) splits each row's key range over that many CTAs, whose partials
+    a second kernel joins; the kernel holds it to its count of key tiles,
+    and None picks enough to give every SM a CTA."""
     if q.device.type == "cpu":
         return decode_plain(q, k, v, kv_length, k_scale=k_scale,
                             v_scale=v_scale, q_segment_ids=q_segment_ids,
@@ -174,9 +176,10 @@ def _check_int(name, t, shape, device):
 def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
             k_times, scale, num_splits, layer):
     dev = q.device
-    if q.dtype != torch.float32 or q.ndim != 4 or not q.is_contiguous():
-        raise ValueError(f"q must be a contiguous float32 (B, Hq, Sq, D) "
-                         f"tensor, got {q.dtype} {tuple(q.shape)}")
+    if q.dtype not in _Q_CODES or q.ndim != 4 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous float32 or bfloat16 "
+                         f"(B, Hq, Sq, D) tensor, got {q.dtype} "
+                         f"{tuple(q.shape)}")
     b, hq, sq, d = q.shape
     if layer is None:
         k, v = k[None], v[None]
@@ -198,11 +201,10 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
-        if t.shape[-1] % 4 or t.data_ptr() % 4:
-            raise ValueError(f"{name} row width must be a multiple of 4 "
-                             f"and its data 4-byte aligned")
-    if max(d, dv) > _MAX_WIDTH:
-        raise ValueError(f"widths {d} / {dv}: at most {_MAX_WIDTH}")
+    if not (0 < d <= _MAX_WIDTH and 0 < dv <= _MAX_WIDTH):
+        raise ValueError(f"row widths D={d}, Dv={dv}: the kernel takes 1 .. "
+                         f"{_MAX_WIDTH} (its O accumulator lives in "
+                         f"registers)")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or quant != (v_scale is not None):
         raise ValueError("int8 caches need k_scale and v_scale; other "
@@ -232,13 +234,14 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
     o_part = torch.empty((b, hq, num_splits, sq, dv), device=dev)
     m_part = torch.empty((b, hq, num_splits, sq), device=dev)
     l_part = torch.empty((b, hq, num_splits, sq), device=dev)
-    out = torch.empty((b, hq, sq, dv), device=dev)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
               ptr(v_scale), kv_length.data_ptr(), ptr(q_times), ptr(k_times),
               ptr(q_seg), ptr(k_seg), o_part.data_ptr(), m_part.data_ptr(),
               l_part.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, d, dv,
-              layer, num_splits, _CACHE_CODES[k.dtype], float(scale),
+              layer, num_splits, _CACHE_CODES[k.dtype], _Q_CODES[q.dtype],
+              float(scale),
               torch.cuda.current_stream(dev).cuda_stream)
     cuda.count_launch("flash_decode")
     return out
@@ -261,5 +264,5 @@ def _num_splits():
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cuda.launcher(
-        "flash_decode", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+        "flash_decode", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
         + [ctypes.c_float, ctypes.c_void_p])

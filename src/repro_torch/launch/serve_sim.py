@@ -33,15 +33,14 @@ from repro_torch.scenarios.registry import generate_mixed
 
 def build(args):
     """(scenario config, model) from the flags, weights seeded by
-    ``--seed``. ``se2_fourier`` caches rows 50 * head_dim / 6 wide, and the
-    decode kernel takes row widths that are multiples of 4 (16-byte rows),
-    so its head_dim is rounded up to a multiple of 12 (the reference rounds
-    to a multiple of 6: 18 at the defaults, a 150-wide row)."""
+    ``--seed``. ``se2_fourier`` needs 6 | head_dim, so its head_dim is
+    rounded up to a multiple of 6, as the reference's launcher does: 18 at
+    the defaults, a cached row 150 wide."""
     scen = ScenarioConfig(num_map=args.num_map, num_agents=args.num_agents,
                           num_steps=args.num_steps)
     head_dim = args.d_model // args.heads
     if args.encoding == "se2_fourier":
-        head_dim = -(-head_dim // 12) * 12
+        head_dim = -(-head_dim // 6) * 6      # encoding needs 6 | head_dim
     cfg = AgentSimConfig(d_model=args.d_model, num_layers=args.layers,
                          num_heads=args.heads, head_dim=head_dim,
                          d_ff=4 * args.d_model,
@@ -151,8 +150,8 @@ def main(argv=None) -> int:
              "rows / slab rows per tick", stats["slab_mib"],
              args.slots, srv.max_len)
     log.info("kernel launches: %s (each tick and each admission runs the "
-             "model's %d layers once)", dict(cuda.LAUNCHES) or "none (CPU)",
-             model.cfg.num_layers)
+             "model's %d layers once; each tick samples once)",
+             dict(cuda.LAUNCHES) or "none (CPU)", model.cfg.num_layers)
     if args.telemetry_out:
         obs.write_chrome_trace(reg, args.telemetry_out)
         log.info("telemetry trace: %s (load in Perfetto, or render with "

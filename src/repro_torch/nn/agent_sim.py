@@ -26,6 +26,16 @@ repeated ``step`` reproduces the full forward. The cache is one stacked
 (L, B, H, S_max, c) buffer per K and V; each layer writes only its n new
 rows, in place, and the decode kernel reads the buffer in place at the
 layer's index. Nothing copies a layer slice or the whole cache in a tick.
+
+Compute dtype (``AgentSimConfig.dtype``): "float32", or "bfloat16" with
+the reference's rules. Parameters stay float32 and each ``Dense`` casts its
+kernel to its input's dtype (the train and eval steps cast every parameter
+first, ``params.cast``, as the reference's ``cast_params``); token
+features, the pose embedding and the blocks compute in bf16; ``RMSNorm``
+normalises in float32; the encodings take angles and scales in float32;
+the cache defaults to the compute dtype; the logits come out in the
+compute dtype, and log-softmax, the NLL and the sampler read them as
+float32.
 """
 from __future__ import annotations
 
@@ -69,7 +79,13 @@ class AgentSimConfig:
     #: cached decode path (``ops.decode_attention``): "auto" runs the CUDA
     #: kernel on the card and its plain version on the CPU
     decode_impl: str = "auto"
+    #: compute dtype: "float32" or "bfloat16" (parameters stay float32;
+    #: Dense casts its kernel to its input's dtype)
     dtype: str = "float32"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
 
 def build_sim_encoding(cfg: AgentSimConfig) -> Optional[GroupEncoding]:
@@ -251,9 +267,9 @@ class AgentSimModel(nn.Module):
     def __init__(self, cfg: AgentSimConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"compute dtype {cfg.dtype!r} is not ported; see ROADMAP.md")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, "
+                             f"got {cfg.dtype!r}")
         self.cfg = cfg
         dev = resolve_device(device)
         d = cfg.d_model
@@ -290,10 +306,11 @@ class AgentSimModel(nn.Module):
                                             3 * self.pose_freqs))
 
     def _with_pose(self, x, pose):
-        """Token features plus the pose embedding where the encoding is
-        ``absolute``."""
+        """Token features plus the pose embedding (computed in float32,
+        added in the compute dtype) where the encoding is ``absolute``."""
         if self.cfg.encoding == "absolute":
-            return x + self._pose_embedding(pose.to(torch.float32))
+            return x + self._pose_embedding(pose.to(torch.float32)).to(
+                x.dtype)
         return x
 
     def _enc_pose(self, pose):
@@ -319,14 +336,15 @@ class AgentSimModel(nn.Module):
     def _embed(self, batch):
         b = batch["map_feats"].shape[0]
         _, t, a, _ = batch["agent_feats"].shape
-        mtok = self.map_enc(batch["map_feats"].to(torch.float32))
-        atok = self.agent_enc(batch["agent_feats"].to(torch.float32))
+        dt = self.cfg.compute_dtype
+        mtok = self.map_enc(batch["map_feats"].to(dt))
+        atok = self.agent_enc(batch["agent_feats"].to(dt))
         return torch.cat([mtok, atok.reshape(b, t * a, -1)], 1)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Full forward: logits (B, T, A, num_actions), differentiable in
-        the parameters (which are created with ``requires_grad=False``;
-        the train step switches gradients on)."""
+        """Full forward: logits (B, T, A, num_actions) in the compute
+        dtype, differentiable in the parameters (which are created with
+        ``requires_grad=False``; the train step switches gradients on)."""
         b, m, _ = batch["map_feats"].shape
         _, t, a, _ = batch["agent_feats"].shape
         pose, times, seg = self.tokenize(batch)
@@ -344,13 +362,14 @@ class AgentSimModel(nn.Module):
         """Preallocate the decode cache for ``batch_size`` slots.
 
         ``k`` / ``v`` (L, B, H, max_len, c) in the storage dtype (float32,
-        bfloat16 or int8; int8 adds per-row float32 ``k_scale`` /
+        bfloat16 or int8, by default the compute dtype, as the
+        reference's; int8 adds per-row float32 ``k_scale`` /
         ``v_scale`` (L, B, H, max_len)); layer-independent ``times``,
         ``seg`` (B, max_len) int32, ``seg`` starting at -1 so unwritten rows
         are masked; ``cursor`` (B,) int32.
         """
         cfg = self.cfg
-        dtype = canonical_cache_dtype(dtype, default=torch.float32)
+        dtype = canonical_cache_dtype(dtype, default=cfg.compute_dtype)
         ck, cv = self.blocks[0].attn.cache_dims
         l, b, h, s = cfg.num_layers, batch_size, cfg.num_heads, max_len
         dev = self.device
@@ -416,8 +435,8 @@ class AgentSimModel(nn.Module):
         map_valid (B, M) bool. Returns (the map tokens' logits, which
         callers discard, and the cache)."""
         b, m, _ = map_feats.shape
-        x = self._with_pose(self.map_enc(map_feats.to(torch.float32)),
-                            map_pose)
+        x = self._with_pose(
+            self.map_enc(map_feats.to(self.cfg.compute_dtype)), map_pose)
         times = torch.zeros((b, m), dtype=torch.int32, device=x.device)
         seg = torch.where(map_valid, 0, -1).to(torch.int32)
         return self._extend(cache, x, map_pose, times, seg, impl=impl)
@@ -431,8 +450,9 @@ class AgentSimModel(nn.Module):
         time t + 1). Returns (logits (B, A, num_actions), cache).
         """
         b, a, _ = agent_feats.shape
-        x = self._with_pose(self.agent_enc(agent_feats.to(torch.float32)),
-                            agent_pose)
+        x = self._with_pose(
+            self.agent_enc(agent_feats.to(self.cfg.compute_dtype)),
+            agent_pose)
         times = (step_time.to(torch.int32) + 1)[:, None].expand(b, a) \
             .contiguous()
         seg = torch.where(agent_valid, 0, -1).to(torch.int32)

@@ -93,3 +93,14 @@ def to_reference(src: Union[nn.Module, Mapping[str, torch.Tensor]]):
         return node.to("cpu", copy=True).numpy()
 
     return to_numpy(reference_tensors(named))
+
+
+def cast(named: Mapping[str, torch.Tensor],
+         dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Floating-point tensors of a flat name -> tensor dict cast to
+    ``dtype`` (the reference's ``nn/module.py::cast_params``: the compute
+    dtype's entry into the model). The casts are differentiable, so the
+    gradients of float32 parameters come back float32; a tensor already
+    of ``dtype`` is returned as it is."""
+    return {k: t.to(dtype) if t.is_floating_point() else t
+            for k, t in named.items()}

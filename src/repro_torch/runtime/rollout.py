@@ -6,10 +6,14 @@ agent from the previous logits, integrates unicycle kinematics, and decodes
 the A new agent tokens against the slots' stacked K/V cache
 (``AgentSimModel.step``). The whole tick runs on the device.
 
-Sampling is keyed per (scene, sample, step): Gumbel-max over uniforms from
-a counter-based hash of (seed, scene, sample, t, agent, action), computed
-with int64 tensor ops on the device. So futures do not depend on the slot
-count or on chunking. The hash does not reproduce ``jax.random``'s bits.
+Sampling reproduces the reference's ``jax.random`` stream bit for bit:
+lane (scene, sample) holds the key ``fold_in(fold_in(key(seed), scene),
+sample)`` (:func:`rollout_keys`), and tick t samples
+``categorical(fold_in(key, t), logits)`` (:mod:`repro_torch.prng`), in one
+launch of the ``categorical`` kernel on the card. So futures do not depend
+on the slot count or on chunking, and a lane's actions equal the
+reference's wherever no two actions' perturbed scores lie within the two
+frameworks' float32 ``log`` of each other.
 
 Telemetry (``registry=``, :mod:`repro_torch.obs`) as in the reference: spans
 ``rollout.prefill`` / ``rollout.step`` / ``rollout.chunk`` on the host
@@ -26,55 +30,23 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, prng
 from repro_torch.core.kinematics import step_kinematics
 from repro_torch.device import resolve_device
+from repro_torch.kernels.categorical import categorical
 from repro_torch.scenarios.core import ScenarioConfig
 
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """32-bit integer finaliser on int64 tensors holding values < 2^32
-    (the products stay below 2^63, so nothing overflows)."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x1B873593) & _M32
-    return x ^ (x >> 16)
-
-
-def _combine(h: torch.Tensor, v) -> torch.Tensor:
-    """Fold the counter ``v`` into the hash ``h`` (both < 2^32)."""
-    return _mix32((h ^ (v + 0x9E3779B9 + ((h << 6) & _M32) + (h >> 2)))
-                  & _M32)
-
-
-def rollout_keys(seed: int, scene_ids, sample_ids,
+def rollout_keys(seed: int, n_scenes: int, n_samples: int,
                  device=None) -> torch.Tensor:
-    """Per-lane stream keys (int64) from (seed, scene index, sample index)."""
-    scene = torch.as_tensor(scene_ids, dtype=torch.int64, device=device)
-    sample = torch.as_tensor(sample_ids, dtype=torch.int64, device=device)
-    base = _mix32(torch.full_like(scene, seed & _M32))
-    return _combine(_combine(base, scene), sample)
-
-
-def gumbel_sample(logits: torch.Tensor, lane_keys: torch.Tensor,
-                  t: Union[int, torch.Tensor]) -> torch.Tensor:
-    """Categorical samples (B, A) from logits (B, A, K) by Gumbel-max; the
-    uniform for (lane, t, agent, action) is a hash of those counters.
-    ``t`` is the step of every lane (an int) or of each lane (a (B,)
-    integer tensor, as a server's slots are each at their own step)."""
-    b, a, k = logits.shape
-    dev = logits.device
-    if isinstance(t, torch.Tensor):
-        t = t.to(torch.int64)
-    key = _combine(lane_keys, t)[:, None, None]
-    key = _combine(key, torch.arange(a, device=dev)[None, :, None])
-    bits = _combine(key, torch.arange(k, device=dev)[None, None, :])
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logits.to(torch.float32) + gumbel, dim=-1)
+    """The per-(scene, sample) key data (n_scenes * n_samples, 2) int64 the
+    engine samples with, scene-major: the reference's ``rollout_keys``
+    (``fold_in(fold_in(key(seed), scene), sample)``) bit for bit."""
+    scene = torch.arange(n_scenes, dtype=torch.int64).repeat_interleave(
+        n_samples)
+    sample = torch.arange(n_samples, dtype=torch.int64).repeat(n_scenes)
+    base = prng.key(seed).expand(scene.shape[0], 2)
+    keys = prng.fold_in(prng.fold_in(base, scene), sample)
+    return keys.to(device)
 
 
 class RolloutEngine:
@@ -122,11 +94,15 @@ class RolloutEngine:
             sum(t.numel() * t.element_size() for t in cache.values()))
         return cache
 
-    def _advance(self, cache, acts, pose, speed, feats_proto, valid, t: int):
-        """Integrate the actions ``acts`` (B, A) into step ``t``'s poses
-        and decode the new agent tokens; returns (cache, logits, pose,
-        speed). Invalid agents stay frozen and enter segment-masked."""
-        b = acts.shape[0]
+    def _advance(self, cache, acts, pose, speed, feats_proto, valid,
+                 t: Union[int, torch.Tensor]):
+        """Integrate the actions ``acts`` (B, A) into the poses of step
+        ``t`` (an int, or (B,) int32) and decode the new agent tokens;
+        returns (cache, logits, pose, speed). Invalid agents stay frozen
+        and enter segment-masked."""
+        if not isinstance(t, torch.Tensor):
+            t = torch.full((acts.shape[0],), t, dtype=torch.int32,
+                           device=acts.device)
         ai = torch.div(acts, self.scen.yaw_bins, rounding_mode="floor")
         yi = acts % self.scen.yaw_bins
         new_pose, new_speed = step_kinematics(pose, speed, self._accel[ai],
@@ -135,18 +111,21 @@ class RolloutEngine:
         speed = torch.where(valid, new_speed, speed)
         feats = feats_proto.clone()
         feats[..., 0] = speed / 10.0
-        t_vec = torch.full((b,), t, dtype=torch.int32, device=acts.device)
-        logits, cache = self.model.step(cache, feats, pose, valid, t_vec,
+        logits, cache = self.model.step(cache, feats, pose, valid, t,
                                         impl=self.decode_impl)
         return cache, logits, pose, speed
 
     def _step_body(self, cache, logits, pose, speed, feats_proto, valid,
                    lane_keys, t: int):
-        """One engine tick on the device: sample from the previous logits,
-        then integrate and decode (:meth:`_advance`)."""
-        acts = gumbel_sample(logits, lane_keys, t)
+        """One engine tick on the device: sample from the previous logits
+        (float32, as the reference casts them), then integrate and decode
+        (:meth:`_advance`)."""
+        t_vec = torch.full((logits.shape[0],), t, dtype=torch.int32,
+                           device=logits.device)
+        acts = categorical(lane_keys, t_vec,
+                           logits.to(torch.float32).contiguous())
         cache, logits, pose, speed = self._advance(
-            cache, acts, pose, speed, feats_proto, valid, t)
+            cache, acts, pose, speed, feats_proto, valid, t_vec)
         return cache, logits, pose, speed, acts
 
     @torch.no_grad()
@@ -192,6 +171,8 @@ class RolloutEngine:
         total = n_scenes * n_samples
         keys = ("map_feats", "map_pose", "map_valid",
                 "agent_feats", "agent_pose", "agent_valid")
+        # the per-(scene, sample) stream is fixed up front, on the host
+        keys_all = rollout_keys(seed, n_scenes, n_samples)
         futures, actions = [], []
         for start in range(0, total, self.num_slots):
             # pad the tail chunk by repeating the last lane
@@ -203,8 +184,7 @@ class RolloutEngine:
                     arrs = [a[:t_hist] for a in arrs]
                 hist[key] = torch.as_tensor(np.stack(arrs),
                                             device=self.device)
-            lane_keys = rollout_keys(seed, lanes // n_samples,
-                                     lanes % n_samples, self.device)
+            lane_keys = keys_all[torch.from_numpy(lanes)].to(self.device)
             with self.obs.span("rollout.chunk"):
                 fut, acts = self._run_chunk(hist, lane_keys, t_hist,
                                             t_total)

@@ -22,8 +22,9 @@ slot keeps ticking.
   eviction is legal at any tick.
 
 * **Isolation under churn.** A lane's sampling key is
-  ``rollout_keys(seed, scene_id, sample_id)``, hashed with the slot's own
-  sim step, so a lane is keyed exactly like the engine's lane
+  ``fold_in(fold_in(key(seed), scene_id), sample_id)``, folded with the
+  slot's own sim step each tick (:mod:`repro_torch.prng`, the reference's
+  ``jax.random`` stream), so a lane is keyed exactly like the engine's lane
   ``(scene_id, sample_id)``. Every kernel on the tick is row-independent
   and bitwise repeatable, so at a fixed slot count a lane's actions and
   poses do not depend on its slot, its co-residents, its arrival order or
@@ -63,11 +64,11 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, prng
 from repro_torch.core.kinematics import step_kinematics
 from repro_torch.device import resolve_device
+from repro_torch.kernels.categorical import categorical
 from repro_torch.nn.agent_sim import install_slot_rows
-from repro_torch.runtime.rollout import gumbel_sample, rollout_keys
 from repro_torch.scenarios.core import ScenarioConfig
 
 __all__ = ["SceneRequest", "SimResult", "SimServer", "serve_scenes",
@@ -81,10 +82,10 @@ class SceneRequest:
     ``tensors`` is a scene tensor dict (or anything with a ``.tensors``).
     ``t_hist`` history steps are teacher-forced, then the lane rolls out
     closed-loop until step ``t_total`` (default: the scenario config's
-    ``num_steps``). The lane's key is ``rollout_keys(seed, scene_id,
-    sample_id)``, so lane ``(scene_id, sample_id)`` is keyed exactly like
-    that lane of ``RolloutEngine.run(..., seed=seed)``. ``scene_id``
-    defaults to ``uid``.
+    ``num_steps``). The lane's key is ``fold_in(fold_in(key(seed),
+    scene_id), sample_id)``, so lane ``(scene_id, sample_id)`` is keyed
+    exactly like that lane of ``RolloutEngine.run(..., seed=seed)``.
+    ``scene_id`` defaults to ``uid``.
     """
     uid: int
     tensors: Any
@@ -174,15 +175,18 @@ class SimServer:
         a = scen_cfg.num_agents
         f32 = dict(dtype=torch.float32, device=dev)
         self.state = {
+            # the model's logits come in the compute dtype, as the
+            # reference's state holds them
             "logits": torch.zeros((num_slots, a, model.cfg.num_actions),
-                                  **f32),
+                                  dtype=model.cfg.compute_dtype, device=dev),
             "pose": torch.zeros((num_slots, a, 3), **f32),
             "speed": torch.zeros((num_slots, a), **f32),
             "proto": torch.zeros((num_slots, a, scen_cfg.agent_feat_dim),
                                  **f32),
             "valid": torch.zeros((num_slots, a), dtype=torch.bool,
                                  device=dev),
-            "keys": torch.zeros((num_slots,), dtype=torch.int64, device=dev),
+            # key data of key(0) in every slot, as the reference's
+            "keys": prng.key(0, device=dev).repeat(num_slots, 1),
         }
         self.slots = [_Slot() for _ in range(num_slots)]
         self.queue: Deque[SceneRequest] = collections.deque()
@@ -287,7 +291,7 @@ class SimServer:
             submit_ts = self._submit_ts.pop(req.uid, now)
             self.obs.histogram("sim_server.queue_wait.seconds") \
                 .record(now - submit_ts)
-            key = int(rollout_keys(req.seed, req.scene_id, req.sample_id))
+            key = prng.lane_key(req.seed, req.scene_id, req.sample_id)
             with self.obs.span("sim_server.admit"):
                 self._admit_impl(req.tensors, si, key)
             slot.req = req
@@ -304,7 +308,7 @@ class SimServer:
             self.obs.counter("sim_server.admitted").inc()
 
     @torch.no_grad()
-    def _admit_impl(self, tensors, si: int, key: int):
+    def _admit_impl(self, tensors, si: int, key: Tuple[int, int]):
         """Cursor reset, re-arm and map-token install of slot ``si``.
 
         The map rows are computed on the 1-slot sub-cache (so admission
@@ -324,7 +328,8 @@ class SimServer:
             # pageable CPU scalar, which waits on the stream
             for k in ("logits", "pose", "speed", "proto", "valid"):
                 self.state[k][si].zero_()
-            self.state["keys"][si].fill_(key)
+            for w in range(2):
+                self.state["keys"][si, w].fill_(key[w])
 
     # -- the tick -------------------------------------------------------------
 
@@ -334,9 +339,9 @@ class SimServer:
         (acts (B, A) int32, poses (B, A, 3)).
 
         Rollout slots run the ``RolloutEngine`` step: sample an action per
-        agent from the previous step's logits (hashed with the slot's own
-        sim step), integrate kinematics, decode the new agent tokens
-        against the slab. Teacher (mid-prefill) slots feed their history
+        agent from the previous step's logits (the slot's key folded with
+        its own sim step ``t``, (B,) int32), integrate kinematics, decode
+        the new agent tokens against the slab. Teacher (mid-prefill) slots feed their history
         step instead: same token path, same mask. Inactive slots are
         carried along shape-stably: their samples are discarded, their
         state frozen and their cursor restored; the A rows the decode
@@ -345,7 +350,8 @@ class SimServer:
         st = self.state
         logits, pose, speed = st["logits"], st["pose"], st["speed"]
         proto, valid = st["proto"], st["valid"]
-        acts = gumbel_sample(logits, st["keys"], t)              # (B, A)
+        acts = categorical(st["keys"], t,
+                           logits.to(torch.float32).contiguous())  # (B, A)
         ai = torch.div(acts, self.scen.yaw_bins, rounding_mode="floor")
         yi = acts % self.scen.yaw_bins
         new_pose, new_speed = step_kinematics(pose, speed, self._accel[ai],
@@ -397,7 +403,7 @@ class SimServer:
         b, a = self.num_slots, self.scen.num_agents
         active = np.zeros(b, bool)
         teacher = np.zeros(b, bool)
-        t_vec = np.zeros(b, np.int64)
+        t_vec = np.zeros(b, np.int32)
         tfeats = np.zeros((b, a, self.scen.agent_feat_dim), np.float32)
         tpose = np.zeros((b, a, 3), np.float32)
         tvalid = np.zeros((b, a), bool)

@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import params as pparams
 from repro_torch.nn.agent_sim import AgentSimModel, action_nll
 from repro_torch.optim import (Optimizer, adamw, apply_updates, chain,
                                clip_by_global_norm, global_norm,
@@ -65,6 +66,17 @@ def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _logits(model: AgentSimModel, batch: Dict[str, torch.Tensor]):
+    """The model's logits with its parameters cast to the compute dtype,
+    as the reference's steps cast theirs (``cast_params``); in float32
+    the module runs as it is."""
+    dt = model.cfg.compute_dtype
+    if dt == torch.float32:
+        return model(batch)
+    return torch.func.functional_call(
+        model, pparams.cast(dict(model.named_parameters()), dt), (batch,))
+
+
 @dataclasses.dataclass(frozen=True)
 class SimTrainStep:
     """One BC update in two halves, so that a caller can read the loss
@@ -93,14 +105,16 @@ def make_sim_train_step(model: AgentSimModel,
     metrics)``. The step updates the parameters in place; start from
     ``optimizer.init(dict(model.named_parameters()))``. ``metrics`` holds
     0-d tensors on the model's device: ``loss``, ``grad_norm`` (of the raw
-    gradients, before clipping) and ``accuracy``.
+    gradients, before clipping) and ``accuracy``. At ``dtype="bfloat16"``
+    the forward runs on the parameters cast to bf16; the parameters, the
+    optimizer's moments and the gradients stay float32.
     """
     model.requires_grad_(True)
     params = dict(model.named_parameters())
 
     def grads_half(batch):
         batch = _on_device(batch, model.device)
-        logits = model(batch)
+        logits = _logits(model, batch)
         loss = action_nll(logits, batch["actions"], batch["agent_valid"])
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
@@ -126,7 +140,7 @@ def make_sim_eval_step(model: AgentSimModel) -> Callable:
     @torch.no_grad()
     def eval_step(batch):
         batch = _on_device(batch, model.device)
-        logits = model(batch)
+        logits = _logits(model, batch)
         return {"nll": action_nll(logits, batch["actions"],
                                   batch["agent_valid"]),
                 "accuracy": _masked_accuracy(logits, batch["actions"],

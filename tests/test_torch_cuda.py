@@ -166,8 +166,13 @@ DECODE_CASES = {
     "gqa_two_blocks": (3, 4, 2, 12, 160, [5, 100, 160]),
 }
 # widths off c = 200, (D, Dv): off the k8 step and unequal (widths read at
-# run time, padding columns zeroed), and past 200 (16-key tiles)
-ODD_WIDTHS = {"d20_dv36": (20, 36), "d232": (232, 232)}
+# run time, padding columns zeroed), and past 200 (16-key tiles); then
+# se2_fourier's c = 50 head_dim / 6 at head_dim 6, 18 and 30 (rows not a
+# multiple of 4 wide: 8-byte float32 copies, 2-byte int8 ones) and two odd
+# widths (4-byte and 1-byte copies, one column at a time on the way out)
+ODD_WIDTHS = {"d20_dv36": (20, 36), "d232": (232, 232), "c50": (50, 50),
+              "c150": (150, 150), "c250": (250, 250),
+              "d75_dv151": (75, 151), "d13_dv7": (13, 7)}
 # the tick's rows (one m16 block a kv head) and the prefill's
 ROW_CASES = {"tick": (3, 2, 2, 12, 160, [5, 100, 160]),
              "prefill": (3, 2, 2, 144, 192, [0, 33, 192])}
@@ -265,15 +270,83 @@ def test_flash_decode_c24_matches_plain(dev, cache_dtype, rows, splits):
     _check_decode(q, k, v, kvl, opts, cache_dtype, splits)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("widths", ["c150", "d75_dv151", "sim"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_bf16_query_matches_plain(dev, cache_dtype, widths,
+                                               splits):
+    """A bfloat16 query (the bf16 model's) lands converted, and the output
+    comes back in bfloat16, as the plain version's and the reference's;
+    held at the bf16 tolerance."""
+    shape = ROW_CASES["tick"]
+    q, k, v, kvl, opts = _decode_case(
+        dev, shape, cache_dtype,
+        widths=(200, 200) if widths == "sim" else ODD_WIDTHS[widths])
+    _check_decode(q.to(torch.bfloat16), k, v, kvl, opts, cache_dtype, splits)
+
+
 def _check_decode(q, k, v, kvl, opts, cache_dtype, splits):
     got = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
     again = fd.flash_decode(q, k, v, kvl, layer=1, num_splits=splits, **opts)
     want = fd.decode_plain(q, k, v, kvl, layer=1, **opts)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(want).all())
-    torch.testing.assert_close(got, want, **DECODE_TOL[cache_dtype])
+    assert got.dtype == want.dtype == q.dtype
+    tol = DECODE_TOL["bfloat16" if q.dtype == torch.bfloat16 else cache_dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, again)
     assert not bool(got[kvl == 0].any())
+
+
+# (B, A, K, steps): the engine's tick (every lane at one step), the
+# server's (each slot at its own step, inactive slots at 0 and past 2^31 as
+# int32 wraps), and a ragged one (K off the warp, not a power of two)
+CATEGORICAL_CASES = {"tick": (64, 12, 63, "one"), "server": (64, 12, 63,
+                                                             "own"),
+                     "ragged": (5, 3, 40, "own")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CATEGORICAL_CASES))
+def test_categorical_kernel_matches_plain(dev, name):
+    """The fused Threefry sampler against ``prng``: the 32-bit words and
+    the uniforms bitwise, the Gumbel noise within 1e-6 (float32 log may
+    round differently by an ulp), actions equal wherever the top two
+    perturbed scores differ by more than 1e-5; bitwise repeatable; a NaN
+    logit wins its row at its first index, as argmax has it."""
+    from repro_torch import prng
+    from repro_torch.kernels import categorical as cat
+    b, a, k, steps_kind = CATEGORICAL_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn((b, a, k), generator=g, device=dev) * 3
+    logits[0, 0, 7] = float("nan")
+    logits[0, 0, 9] = float("nan")
+    base = prng.key(3, device=dev).expand(b, 2)
+    keys = prng.fold_in(base, torch.arange(b, device=dev)).contiguous()
+    if steps_kind == "one":
+        steps = torch.full((b,), 8, dtype=torch.int32, device=dev)
+    else:
+        steps = torch.randint(0, 40, (b,), generator=g, device=dev,
+                              dtype=torch.int32)
+        steps[1], steps[2] = 0, -5
+    acts, words, unif, noise = cat.categorical_debug(keys, steps, logits)
+    got = cat.categorical(keys, steps, logits)
+    again = cat.categorical(keys, steps, logits)
+    keys_t = prng.fold_in(keys, steps)
+    tiny = float(torch.finfo(torch.float32).tiny)
+    assert torch.equal(words, prng.random_bits(keys_t, (a, k)))
+    assert torch.equal(unif, prng.uniform(keys_t, (a, k), minval=tiny))
+    want_noise = prng.gumbel(keys_t, (a, k))
+    torch.testing.assert_close(noise, want_noise, atol=1e-6, rtol=0)
+    want = cat.categorical_plain(keys, steps, logits)
+    assert torch.equal(got, acts) and torch.equal(got, again)
+    assert got.dtype == want.dtype == torch.int64
+    assert int(got[0, 0]) == int(want[0, 0]) == 7
+    top2 = (want_noise + logits).nan_to_num(nan=float("inf")).topk(2).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = got != want
+    assert bool((gap[differ] < 1e-5).all()), gap[differ]
 
 
 @pytest.mark.gpu
@@ -305,6 +378,13 @@ FLASH_CASES = {
     "sim_width": (2, 8, 8, 336, 336, 200, 200, "scene"),
     # the absolute / rope2d / se2_repr arches' width
     "sim_c24": (2, 8, 8, 336, 336, 24, 24, "scene"),
+    # se2_fourier at head_dim 6, 18, 30 (rows not a multiple of 4 wide)
+    # and odd widths, unequal
+    "sim_c50": (2, 4, 4, 336, 336, 50, 50, "scene"),
+    "sim_c150": (2, 8, 8, 336, 336, 150, 150, "scene"),
+    "sim_c250": (2, 4, 4, 336, 336, 250, 250, "scene"),
+    "odd_75_151": (2, 4, 2, 37, 53, 75, 151, dict(causal=True)),
+    "odd_13_7": (2, 2, 2, 45, 45, 13, 7, "scene"),
 }
 
 
@@ -454,16 +534,19 @@ def test_flash_forward_ragged_tile_with_large_padding_rows(dev, dtype):
 
 @pytest.mark.gpu
 def test_flash_kernels_raise_on_what_they_do_not_take(dev):
-    """Widths the kernels do not take, and non-contiguous inputs, raise
-    before any launch; nothing falls back to the plain version."""
+    """Widths past the register-resident accumulators' 256, and
+    non-contiguous inputs, raise before any launch, naming the limit;
+    nothing falls back to the plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     q = torch.zeros((1, 1, 8, 260), device=dev)
-    with pytest.raises(ValueError, match="widths"):
+    with pytest.raises(ValueError, match="widths.*256"):
         fa.flash_attention_fwd(q, q, q)
-    q = torch.zeros((1, 1, 8, 30), device=dev)
-    with pytest.raises(ValueError, match="widths"):
-        fa.flash_attention_fwd(q, q, q)
+    k = torch.zeros((1, 1, 1, 8, 257), device=dev)
+    with pytest.raises(ValueError, match="widths.*256"):
+        fd.flash_decode(q[..., :257].contiguous(), k, k,
+                        torch.full((1,), 8, dtype=torch.int32, device=dev),
+                        layer=0)
     q = torch.zeros((1, 2, 8, 32), device=dev).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.attention(q, q, q, impl="flash")

@@ -2,12 +2,14 @@
 against the JAX reference, on the CPU.
 
 ``scene_metrics`` is numpy on both sides, so on the same futures the two
-agree to 1e-12. The rollouts sample differently by design (the port hashes
-counters into Gumbel noise, the reference draws from ``jax.random``), so
-per-family tables are compared teacher-forced: the reference engine's
-sampled actions are replayed through the port's kinematics and decode, and
-the port scores the futures that come out. The port's ``evaluate_families``
-then runs end to end on the CPU over all seven families, and SE(2)
+agree to 1e-12. Per-family tables are compared teacher-forced (the
+reference engine's sampled actions replayed through the port's kinematics
+and decode) and free-running: both packages sample the ``jax.random``
+stream, so ``evaluate_families``' tables equal the reference's in every
+family none of whose lanes diverged at a near-tie (top-two perturbed
+scores within 1e-5, where the two frameworks' float32 ``log`` may pick
+apart). The port's ``evaluate_families`` also runs end to end on the CPU
+over all seven families at two slot counts, and SE(2)
 property tests hold the port's action probabilities under a global re-pose
 of every family's scenes to the reference's: se2_fourier within its
 truncation bound, se2_repr and rope2d (translations only) within 5e-4
@@ -32,6 +34,7 @@ from repro_torch import scenarios as tscen  # noqa: E402
 from repro_torch.nn import agent_sim as tsim  # noqa: E402
 from repro_torch.runtime import evaluation as teval  # noqa: E402
 from repro_torch.runtime import rollout as trollout  # noqa: E402
+from test_torch_serving_utils import diverged_lanes, score_gaps  # noqa: E402
 
 SCEN_KW = dict(num_map=8, num_agents=3, num_steps=7)
 T_HIST = 3
@@ -159,6 +162,44 @@ def test_teacher_forced_tables_match_reference(setup):
     assert sorted(got) == sorted(want) == sorted(FAMILIES + ["overall"])
     for fam, row in want.items():
         assert got[fam].keys() == row.keys()
+        np.testing.assert_allclose(got[fam]["min_ade"], row["min_ade"],
+                                   atol=1e-4, rtol=0, err_msg=fam)
+        for key in RATES + ("n_scenes", "n_agents"):
+            np.testing.assert_equal(got[fam][key], row[key],
+                                    err_msg=f"{fam} {key}")
+
+
+def test_free_running_tables_match_reference(setup):
+    """``evaluate_families`` in both packages over the seven families:
+    the per-family tables agree (min_ade to 1e-4, every rate and count
+    exactly) wherever no lane of the family diverged, and a lane diverges
+    only at a near-tie, which the engines' actions show."""
+    scen_t, scen_j = setup["scen_t"], setup["scen_j"]
+    tmodel = setup["tmodel"]
+    ecfg = jeval.EvalConfig(t_hist=T_HIST, n_samples=N_SAMPLES, seed=4)
+    want = jeval.evaluate_families(setup["jmodel"], setup["jparams"], scen_j,
+                                   ecfg, n_scenes_per_family=1)
+    got = teval.evaluate_families(tmodel, scen_t,
+                                  teval.EvalConfig(**vars(ecfg)),
+                                  n_scenes_per_family=1, device="cpu")
+    # the same scenes and lanes through both engines, to find divergence
+    scenes = [tscen.generate_scene(f, 777, 0, scen_t) for f in FAMILIES]
+    slots = len(scenes) * N_SAMPLES
+    teng = trollout.RolloutEngine(tmodel, scen_t, device="cpu",
+                                  num_slots=slots)
+    teng.run(scenes, t_hist=T_HIST, n_samples=N_SAMPLES, seed=4)
+    jeng = JaxEngine(setup["jmodel"], setup["jparams"], scen_j,
+                     registry=obs.NULL, num_slots=slots)
+    jeng.run([s.tensors for s in scenes], t_hist=T_HIST,
+             n_samples=N_SAMPLES, seed=4)
+    gaps = score_gaps(tmodel, scen_t, scenes, T_HIST, N_SAMPLES, 4)
+    diverged = diverged_lanes(teng.last_actions, jeng.last_actions, gaps)
+    off = {scenes[si].family for si, _ in diverged}
+    assert len(off) <= 1, diverged
+    assert sorted(got) == sorted(want) == sorted(FAMILIES + ["overall"])
+    for fam, row in want.items():
+        if fam in off or (fam == "overall" and off):
+            continue
         np.testing.assert_allclose(got[fam]["min_ade"], row["min_ade"],
                                    atol=1e-4, rtol=0, err_msg=fam)
         for key in RATES + ("n_scenes", "n_agents"):

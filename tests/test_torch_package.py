@@ -43,7 +43,8 @@ def test_port_import_loads_no_jax_module():
             " repro_torch.launch.train_sim, repro_torch.launch.obs_report,"
             " repro_torch.launch.obs_merge, repro_torch.runtime.sim_server,"
             " repro_torch.chaos, repro_torch.launch.serve_sim,"
-            " repro_torch.launch.chaos;"
+            " repro_torch.launch.chaos, repro_torch.prng,"
+            " repro_torch.kernels.categorical;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

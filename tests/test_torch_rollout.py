@@ -1,11 +1,15 @@
 """Parity: the port's scenarios, kinematics and rollout engine against the
 JAX reference, on the CPU.
 
-Sampling differs by design (the port hashes (seed, scene, sample, t, agent,
-action) into Gumbel noise; the reference draws from jax.random), so the
-engine is compared teacher-forced: the port's prefill, kinematics and step
-driven with the reference engine's sampled actions must reproduce the
-reference's futures. The sampler itself is checked against softmax
+The port samples the reference's ``jax.random`` stream (``repro_torch.prng``:
+Threefry keys ``fold_in(fold_in(key(seed), scene), sample)``, folded with
+the step each tick, Gumbel-max). So the engine is compared free-running:
+the port's ``RolloutEngine.run`` futures equal the reference's in every lane
+whose sampled actions agree, and a lane may diverge only at a step where
+the top two perturbed scores lie within 1e-5 (the two frameworks' float32
+``log`` may differ by an ulp there), which the test checks. The engine is
+also compared teacher-forced (the reference's actions fed to the port's
+prefill, kinematics and step), and the sampler against softmax
 frequencies.
 """
 import numpy as np
@@ -21,10 +25,13 @@ from repro.nn import agent_sim as jsim  # noqa: E402
 from repro.nn import module as jmodule  # noqa: E402
 from repro.runtime.rollout import RolloutEngine as JaxEngine  # noqa: E402
 from repro_torch import params as tparams  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch import scenarios as tscen  # noqa: E402
 from repro_torch.core import kinematics as tkin  # noqa: E402
+from repro_torch.kernels import categorical as tcat  # noqa: E402
 from repro_torch.nn import agent_sim as tsim  # noqa: E402
 from repro_torch.runtime import rollout as trollout  # noqa: E402
+from test_torch_serving_utils import diverged_lanes, score_gaps  # noqa: E402
 
 SCEN_KW = dict(num_map=8, num_agents=3, num_steps=7)
 T_HIST = 3
@@ -116,6 +123,30 @@ def test_teacher_forced_rollout_matches_reference(setup):
             want[:, :, ti], atol=1e-4, err_msg=f"tick {t}")
 
 
+@pytest.mark.parametrize("seed", [7, 2024])
+def test_free_running_rollout_matches_reference(setup, seed):
+    """``RolloutEngine.run`` closed loop against the reference's: every
+    lane's actions and futures equal, except a lane that diverges at a
+    near-tie (top-two gap under 1e-5, checked at its first differing
+    tick), whose futures are compared up to that tick."""
+    scen_j, scen_t, jmodel, jparams, tmodel, scenes = setup
+    n_samples = 2
+    jeng = JaxEngine(jmodel, jparams, scen_j, num_slots=4, registry=obs.NULL)
+    want = jeng.run([s.tensors for s in scenes], t_hist=T_HIST,
+                    n_samples=n_samples, seed=seed)
+    teng = trollout.RolloutEngine(tmodel, scen_t, device="cpu", num_slots=4)
+    got = teng.run(scenes, t_hist=T_HIST, n_samples=n_samples, seed=seed)
+    assert got.shape == want.shape
+    gaps = score_gaps(tmodel, scen_t, scenes, T_HIST, n_samples, seed)
+    diverged = diverged_lanes(teng.last_actions, jeng.last_actions, gaps)
+    for si in range(len(scenes)):
+        for ki in range(n_samples):
+            upto = diverged.get((si, ki), got.shape[2])
+            np.testing.assert_allclose(got[si, ki, :upto], want[si, ki, :upto],
+                                       atol=1e-4, err_msg=f"lane {si}, {ki}")
+    assert len(diverged) <= 1, f"lanes {diverged} diverged at near-ties"
+
+
 def test_futures_independent_of_slot_count(setup):
     _, scen_t, _, _, tmodel, scenes = setup
     outs, acts = [], []
@@ -132,22 +163,24 @@ def test_futures_independent_of_slot_count(setup):
 
 
 def test_sampler_frequencies_match_softmax():
-    """Gumbel-max over the counter hash draws each action with its softmax
-    probability: 60000 independent (lane, step) draws of one 6-way
-    distribution stay within 5 standard errors of it."""
+    """Threefry Gumbel-max draws each action with its softmax probability:
+    60000 independent (lane, step) draws of one 6-way distribution stay
+    within 5 standard errors of it."""
     logits = torch.tensor([1.0, 0.0, -1.0, 2.0, 0.5, -3.0])
     n_lanes, n_steps = 20000, 3
-    keys = trollout.rollout_keys(5, np.arange(n_lanes), np.zeros(n_lanes))
-    draws = torch.cat([trollout.gumbel_sample(
-        logits.expand(n_lanes, 1, -1), keys, t)[:, 0] for t in range(n_steps)])
+    keys = trollout.rollout_keys(5, n_lanes, 1)
+    draws = torch.cat([tcat.categorical_plain(
+        keys, torch.full((n_lanes,), t, dtype=torch.int32),
+        logits.expand(n_lanes, 1, -1))[:, 0] for t in range(n_steps)])
     freq = torch.bincount(draws, minlength=6).double() / draws.numel()
     p = torch.softmax(logits.double(), -1)
     se = torch.sqrt(p * (1 - p) / draws.numel())
     assert torch.all((freq - p).abs() < 5 * se + 1e-12), (freq, p)
-    # distinct streams: other seeds / steps give other draws
-    other = trollout.gumbel_sample(logits.expand(n_lanes, 1, -1),
-                                   trollout.rollout_keys(6, np.arange(n_lanes),
-                                                         np.zeros(n_lanes)), 0)
+    # distinct streams: other seeds give other draws
+    other = tcat.categorical_plain(
+        trollout.rollout_keys(6, n_lanes, 1),
+        torch.zeros((n_lanes,), dtype=torch.int32),
+        logits.expand(n_lanes, 1, -1))
     assert (other[:, 0] != draws[:n_lanes]).float().mean() > 0.3
 
 
@@ -162,21 +195,21 @@ def test_max_len_rounds_to_block(setup):
 
 @pytest.mark.parametrize("t", [0, 5, 2 ** 31 - 1])
 def test_sampler_step_tensor_matches_int_step(t):
-    """A (B,) step tensor (a server's slots, each at its own step) draws
-    bitwise what the int step draws for every lane, in any integer dtype,
-    so the engine's int step is unchanged; lanes at other steps draw from
-    their own streams."""
+    """The sampler folds each lane's own step (a (B,) tensor, as a server's
+    slots are each at their own step) into its key: a tensor of one step,
+    int32 or int64, draws bitwise what ``fold_in`` of the int step draws,
+    and lanes at other steps draw from their own streams."""
     gen = torch.Generator().manual_seed(1)
     logits = torch.randn((64, 3, 63), generator=gen)
-    keys = trollout.rollout_keys(9, np.arange(64), np.arange(64) % 2)
-    want = trollout.gumbel_sample(logits, keys, t)
+    keys = trollout.rollout_keys(9, 32, 2)
+    want = prng.categorical(prng.fold_in(keys, t), logits)
     for dtype in (torch.int32, torch.int64):
-        got = trollout.gumbel_sample(logits, keys,
-                                     torch.full((64,), t, dtype=dtype))
+        got = tcat.categorical_plain(keys, torch.full((64,), t, dtype=dtype),
+                                     logits)
         assert torch.equal(got, want), dtype
-    steps = torch.arange(64) % 4
-    mixed = trollout.gumbel_sample(logits, keys, steps)
+    steps = torch.arange(64, dtype=torch.int32) % 4
+    mixed = tcat.categorical_plain(keys, steps, logits)
     for s in range(4):
         lanes = steps == s
-        assert torch.equal(mixed[lanes], trollout.gumbel_sample(
-            logits, keys, s)[lanes])
+        assert torch.equal(mixed[lanes], prng.categorical(
+            prng.fold_in(keys, s), logits)[lanes])

@@ -70,6 +70,73 @@ def assert_bit_identical(got, want, label: str):
 
 # -- the helpers' own checks -------------------------------------------------
 
+#: the largest top-two gap of perturbed scores at which the port's and the
+#: reference's samples may differ: their float32 ``log`` may round apart by
+#: an ulp, which moves a Gumbel score by up to about 5e-7
+NEAR_TIE = 1e-5
+
+
+def score_gaps(model, scen, scenes, t_hist: int, n_samples: int, seed: int,
+               cache_dtype=None):
+    """The port engine's tick loop over every (scene, sample) lane in one
+    chunk on the model's device, recording at each tick the gap between
+    the top two perturbed scores (Gumbel noise plus logits) of every agent:
+    numpy (S, K, T_fut, A). Lane (si, ki) is keyed as ``RolloutEngine.run``
+    keys it."""
+    from repro_torch import prng
+    from repro_torch.kernels.categorical import categorical
+    from repro_torch.runtime.rollout import RolloutEngine, rollout_keys
+    scenes = [s.tensors if hasattr(s, "tensors") else s for s in scenes]
+    total = len(scenes) * n_samples
+    dev = model.device
+    eng = RolloutEngine(model, scen, device=dev, num_slots=total,
+                        cache_dtype=cache_dtype)
+    lanes = np.arange(total) // n_samples
+    hist = {key: torch.from_numpy(np.stack(
+        [scenes[i][key][:t_hist] if key.startswith("agent")
+         else scenes[i][key] for i in lanes])).to(dev)
+        for key in ("map_feats", "map_pose", "map_valid", "agent_feats",
+                    "agent_pose", "agent_valid")}
+    keys = rollout_keys(seed, len(scenes), n_samples, dev)
+    gaps = []
+    with torch.no_grad():
+        logits, cache = model.prefill(eng.init_cache(), hist)
+        logits = logits[:, -1].float()
+        pose = hist["agent_pose"][:, -1]
+        speed = hist["agent_feats"][:, -1, :, 0] * 10.0
+        feats, valid = hist["agent_feats"][:, -1], hist["agent_valid"][:, -1]
+        for t in range(t_hist, scen.num_steps):
+            steps = torch.full((total,), t, dtype=torch.int32, device=dev)
+            scores = prng.gumbel(prng.fold_in(keys, steps),
+                                 logits.shape[1:]) + logits
+            top2 = scores.topk(2, dim=-1).values
+            gaps.append((top2[..., 0] - top2[..., 1]).cpu().numpy())
+            acts = categorical(keys, steps, logits.contiguous())
+            cache, logits, pose, speed = eng._advance(
+                cache, acts, pose, speed, feats, valid, t)
+            logits = logits.float()
+    return np.stack(gaps, 1).reshape(len(scenes), n_samples, -1,
+                                     scen.num_agents)
+
+
+def diverged_lanes(got_acts, want_acts, gaps):
+    """Compare two packages' sampled actions (S, K, T_fut, A) lane by lane:
+    a lane may differ only from a tick where every differing agent's
+    top-two gap (``gaps``, from :func:`score_gaps`) is under NEAR_TIE.
+    Returns {(si, ki): first differing tick} for the lanes that differ."""
+    agree = np.asarray(got_acts) == np.asarray(want_acts)
+    out = {}
+    for si in range(agree.shape[0]):
+        for ki in range(agree.shape[1]):
+            bad = np.nonzero(~agree[si, ki].all(axis=-1))[0]
+            if len(bad):
+                ti = int(bad[0])
+                assert (gaps[si, ki, ti][~agree[si, ki, ti]] < NEAR_TIE).all(), \
+                    (si, ki, ti, gaps[si, ki, ti][~agree[si, ki, ti]])
+                out[(si, ki)] = ti
+    return out
+
+
 def _cache(dtype):
     l, b, h, s, c = 2, 3, 2, 11, 4
     cache = {"k": torch.zeros((l, b, h, s, c), dtype=dtype),

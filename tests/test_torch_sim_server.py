@@ -4,12 +4,14 @@ against the JAX package's, on the CPU, at the reference's test size
 d_model 32 se2_fourier model, weights crossed with
 ``params.from_reference``).
 
-Sampling differs by design (the port hashes its Gumbel noise, the
-reference draws from jax.random), so the two servers are compared through
-admission and the teacher-forced prefill ticks, before a slot samples.
-Past that, the port is held to the reference's isolation contracts port
-against port: a lane's actions and poses do not depend on its slot, its
-co-residents, its arrival order or NaN garbage in stale rows.
+Both servers sample the ``jax.random`` stream (the port through
+``repro_torch.prng``), so the two are compared through admission, the
+teacher-forced prefill ticks and then closed loop, lane against lane:
+actions equal except where a near-tie (top-two perturbed scores within
+1e-5, the two frameworks' float32 ``log``) flips one. The port is also
+held to the reference's isolation contracts port against port: a lane's
+actions and poses do not depend on its slot, its co-residents, its arrival
+order or NaN garbage in stale rows.
 
 Which server-vs-engine contract holds: on the CPU the streamed prefill
 (a B = 1 map admission, then A rows a tick) gives futures bitwise equal
@@ -48,6 +50,7 @@ from repro_torch.scenarios.core import ScenarioConfig  # noqa: E402
 from repro_torch.scenarios.registry import (generate_mixed,  # noqa: E402
                                             generate_scene)
 from test_torch_serving_utils import (assert_bit_identical,  # noqa: E402
+                                      diverged_lanes, score_gaps,
                                       scribble_stale_rows)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -262,6 +265,31 @@ def test_prefill_ticks_match_reference_server(prefill_run):
         assert tpm[key] == jpm[key], key
     assert sorted(tsrv.done) == [0, 2]
     assert all(r.status == "ok" for r in tsrv.done.values())
+
+
+def test_closed_loop_lanes_match_reference_server(prefill_run, models):
+    """Past the history the two servers sample: lanes 0 and 2 (lane 2
+    admitted into the slot freed mid-prefill) roll out closed loop, each
+    keyed fold_in(fold_in(key(7), uid), 0). Their actions equal the
+    reference server's, except from a tick where the top two perturbed
+    scores lie within NEAR_TIE; their futures agree up to that tick."""
+    jsrv, tsrv = prefill_run["jsrv"], prefill_run["tsrv"]
+    dtype = "int8" if "k_scale" in tsrv.cache else "float32"
+    scenes = generate_mixed(3, 0, 3, SCEN)
+    gaps = score_gaps(models[2], SCEN, scenes, 4, 1, 7, cache_dtype=dtype)
+    uids = (0, 2)
+    for uid in uids:
+        assert tsrv.done[uid].status == "ok"
+    got = np.stack([tsrv.done[u].actions for u in uids])[:, None]
+    want = np.stack([np.asarray(jsrv.done[u].actions) for u in uids])[:, None]
+    diverged = diverged_lanes(got, want, gaps[list(uids)])
+    for i, uid in enumerate(uids):
+        upto = diverged.get((i, 0), got.shape[2])
+        np.testing.assert_allclose(
+            tsrv.done[uid].future[:upto],
+            np.asarray(jsrv.done[uid].future)[:upto], **TOL[dtype],
+            err_msg=f"lane {uid}")
+    assert len(diverged) <= 1, diverged
 
 
 def _names(snapshot, events):
