@@ -55,7 +55,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    each se2 mode at the tick and, in its record's "train", at the train
    step's 32 x 8 x 336 rows; the decode (tick and prefill) and the flash
    kernels again at c = 24, in their records' "c24" and "c24_prefill",
-   and at c = 150 ("c150", "c150_prefill"); the decode, the flash kernels
+   and at c = 150 ("c150", "c150_prefill") and past 256 columns (column
+   windows: "c300", "c300_prefill", the decode also at "c500"); the decode, the flash kernels
    and the se2 modes in bf16 ("bf16", the se2 train shape "bf16_train");
    the sampler at the engine's tick (its record) and the server's
    ("server"), bounded by its integer operations;
@@ -151,7 +152,26 @@ Run from the root of a checkout. Phases, each of which fails the run:
    ticks/s, steps/s, lanes/s, peak memory and slab beside the float32
    model's, and the action probabilities' shift under a re-pose. Every
    sampled path of phases 4, 7-11 launches the categorical kernel once a
-   tick, and those counts are gated too.
+   tick, and those counts are gated too;
+12. (a) rows wider than 256 (balanced column windows): the decode (float32,
+   bf16, int8 caches, a bf16 query) and the flash forward, dq and dk/dv at
+   c = 300 and 500 against their plain versions (phase 6 times them), and
+   sim-se2-fourier at full width with head_dim 36 (c = 300) held to the
+   reference forward, rolled out and trained 3 steps, launches exact; the
+   fleet on torch.distributed, four ranks sharing the card over gloo:
+   (b) a 2 x 2 ("pod", "data") fleet rollout of 64 freeform scenes at full
+   width, each rank's 16 lanes bitwise equal to a single-process engine
+   with 16 slots, the gathered result against one engine running all 64
+   lanes at MODEL_TOL (the bitwise lanes counted), every rank's launches
+   exact and reported to rank 0; (c) the compressed-DP train step
+   (int8 + error feedback over "pod") on the same 2 x 2 mesh, 32 scenes a
+   global batch, and on a 1 x 1 mesh over NCCL: losses finite, parameters
+   bitwise equal on every rank, launches exact, the 1 x 1 step's loss
+   against the plain step's; (d) ``python -m repro_torch.launch.train_sim``
+   over 2 ranks with checkpoints every 3 steps, then its last checkpoint
+   removed and the run restarted from the one before: the final checkpoint
+   bitwise equal to the first run's. Rates of (b)-(d) are of ranks sharing
+   one card, not a scaling curve.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -276,6 +296,20 @@ GAUNTLET_SLOTS, QUARANTINE_LANES = 8, 12
 WIDTH_CASES = {"c50": (50, 50), "c150": (150, 150), "c250": (250, 250),
                "d75_dv151": (75, 151), "d13_dv7": (13, 7)}
 WIDTH_HEAD_DIM = 18
+# phase 12: (a) rows past the 256 columns the attention kernels keep in
+# registers (balanced column windows): c = 300 and 500 (se2_fourier at
+# head_dim 36 and 60), and the full-width model at head_dim 36; (b)-(d) the
+# fleet on torch.distributed, its ranks sharing the one card over gloo:
+# ranks and pods of the mesh, lanes of the fleet rollout (one chunk), DP
+# train steps, and the launcher's steps and checkpoint cadence at world 2
+WIDE_CASES = {"c300": (300, 300), "c500": (500, 500)}
+WIDE_HEAD_DIM = 36
+FLEET_WORLD, FLEET_PODS, FLEET_LANES, FLEET_DP_STEPS = 4, 2, 64, 3
+LAUNCHER_WORLD, LAUNCHER_STEPS, LAUNCHER_CKPT_EVERY = 2, 6, 3
+# the fleet rollout against one process running every lane at once: lanes
+# may part only where sampling meets a near-tie (GEMMs of another shape
+# round the logits apart by ulps); at most this share of them
+FLEET_PARTED_SHARE = 0.02
 # (a) two samplers whose float32 logs round an ulp apart (a Gumbel score
 # moves by up to about 5e-7) may pick apart only where an agent's top two
 # perturbed scores lie closer than this; lanes and slots of the checks
@@ -2230,29 +2264,26 @@ def sampling_phase(model, scen, scenes, t_hist, s_max):
 
 
 def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
-                 max_err):
-    """Phase 11b: the decode (float32, bf16, int8 caches; a bf16 query
-    too) and the flash forward, dq and dk/dv at WIDTH_CASES against their
-    plain versions at phase 3's tolerances; then sim-se2-fourier at full
-    width with head_dim 18 (c = 150): checked against the reference
-    forward, rolled out (float32 and int8, launches exact) and trained 3
-    steps (loss finite, launches exact); and serve_sim's defaults give
-    head_dim 18 (phase 10e served them)."""
+                 max_err, cases, head_dim, title):
+    """Phases 11b and 12a: the decode (float32, bf16, int8 caches; a bf16
+    query too) and the flash forward, dq and dk/dv at ``cases`` against
+    their plain versions at phase 3's tolerances; then sim-se2-fourier at
+    full width with ``head_dim``: checked against the reference forward,
+    rolled out (float32 and int8, launches exact) and trained 3 steps
+    (loss finite, launches exact)."""
     import torch
     from repro_torch.kernels import cuda, ops
-    from repro_torch.launch import serve_sim
     from repro_torch.nn.agent_sim import AgentSimModel
     from repro_torch.training.data import make_batch_fn
     from repro_torch.data import ShardedIterator
     from repro_torch.training.steps import bc_optimizer, make_sim_train_step
-    phase("11b. widths: the attention kernels at rows not a multiple of 4 "
-          "wide")
+    phase(title)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = {"tick": (scen.num_agents, False),
             "prefill": (scen.num_map + t_hist * scen.num_agents, True)}
     cursors = [0, 1, 127, 128, s_max, 200, 300, 64]
-    for name, (d, dv) in WIDTH_CASES.items():
+    for name, (d, dv) in cases.items():
         worst = 0.0
         for cache_dtype, shape in itertools.product(
                 ("float32", "bfloat16", "int8"), rows):
@@ -2306,14 +2337,14 @@ def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
             check_flash(f"D = {d}, Dv = {dv}, causal GQA, "
                         f"{str(dtype)[6:]}", q, k, v, do,
                         dict(causal=True), max_err)
-    # the full-width model at head_dim 18
-    cfg18 = dataclasses.replace(cfg, head_dim=WIDTH_HEAD_DIM)
-    model = AgentSimModel(cfg18, generator=torch.Generator().manual_seed(0))
+    # the full-width model at head_dim
+    cfg_h = dataclasses.replace(cfg, head_dim=head_dim)
+    model = AgentSimModel(cfg_h, generator=torch.Generator().manual_seed(0))
     c = model.blocks[0].attn.cache_dims[0]
-    log(f"sim-se2-fourier at head_dim {WIDTH_HEAD_DIM}: c = {c}, "
+    log(f"sim-se2-fourier at head_dim {head_dim}: c = {c}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
     check_flash(f"train shape c = {c}", *scene_attention_case(
-        gen, dev, model, scen, TRAIN_BATCH, 1.0 / math.sqrt(WIDTH_HEAD_DIM),
+        gen, dev, model, scen, TRAIN_BATCH, 1.0 / math.sqrt(head_dim),
         c), max_err)
     check_against_reference(model, scen, pairs, t_hist, s_max)
     ticks = scen.num_steps - t_hist
@@ -2321,7 +2352,7 @@ def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
     rollouts(model, scen, scenes, t_hist, {
         "flash_decode": per_rollout, "se2_project_q": per_rollout,
         "se2_project_k": 2 * per_rollout, "se2_project_q_t": per_rollout,
-        "categorical": ticks}, launches, f"head_dim {WIDTH_HEAD_DIM} ")
+        "categorical": ticks}, launches, f"head_dim {head_dim} ")
     data = ShardedIterator(make_batch_fn(scen, FAMILIES),
                            batch_size=TRAIN_BATCH, seed=0)
     opt = bc_optimizer(lr=TRAIN_LR, steps=3)
@@ -2341,12 +2372,19 @@ def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
     want = {k_: n * cfg.num_layers for k_, n in want.items()}
     data.close()
     if counts != want or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"head_dim {WIDTH_HEAD_DIM} train: launches "
+        raise AssertionError(f"head_dim {head_dim} train: launches "
                              f"{counts} (want {want}), losses {losses}")
     for k_, n in counts.items():
         launches[k_] += n
-    log(f"head_dim {WIDTH_HEAD_DIM} train: 3 steps x {TRAIN_BATCH} scenes, "
+    log(f"head_dim {head_dim} train: 3 steps x {TRAIN_BATCH} scenes, "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}, launches {counts}")
+    del model
+
+
+def serve_sim_defaults():
+    """Phase 11b's end: serve_sim's defaults give head_dim 18 (phase 10e
+    served them)."""
+    from repro_torch.launch import serve_sim
     args = serve_sim.build_parser().parse_args([])
     _, smodel = serve_sim.build(args)
     if (smodel.cfg.head_dim, smodel.blocks[0].attn.cache_dims[0]) != (18, 150):
@@ -2354,7 +2392,6 @@ def widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches,
                              f"{smodel.cfg.head_dim}")
     log("serve_sim at its defaults builds head_dim 18 (c = 150), as the "
         "reference's launcher; phase 10e served it on the card")
-    del model, smodel
 
 
 def bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches,
@@ -2499,6 +2536,274 @@ def bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches,
     log(f"action probabilities under z = {INVARIANCE_Z['se2_fourier']}: max "
         f"shift bf16 {shifts['bf16']:.3e}, float32 {shifts['float32']:.3e}")
     del m16
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        return s_.getsockname()[1]
+
+
+def fleet_rank(rank, world, port, out, cfg, scen, t_hist, pods, n_steps):
+    """One rank of phase 12b-c (a process of its own, spawned): the fleet
+    rollout and the compressed-DP train step over a (pods, world / pods)
+    mesh; with world 1 (NCCL) the DP step alone, against the plain step's
+    loss. Rank 0 gathers every rank's record into ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import scenarios
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import init_fleet, make_fleet_mesh
+    from repro_torch.nn.agent_sim import AgentSimModel
+    from repro_torch.runtime import RolloutEngine
+    from repro_torch.training.data import make_sim_batch
+    from repro_torch.training.steps import (bc_optimizer,
+                                            make_sim_dp_train_step,
+                                            make_sim_train_step, sim_dp_state)
+    backend = init_fleet(rank, world, f"tcp://localhost:{port}",
+                         device="cuda")
+    mesh = make_fleet_mesh(pods=pods)
+    model = AgentSimModel(cfg, generator=torch.Generator().manual_seed(0))
+    rec = {"rank": rank, "backend": backend,
+           "coord": list(mesh.get_coordinate())}
+    if world > 1:
+        # 12b: one chunk of FLEET_LANES lanes, each rank its block
+        scenes = [scenarios.generate_scene("freeform", 0, i, scen)
+                  for i in range(FLEET_LANES)]
+        run = dict(t_hist=t_hist, n_samples=1, seed=0)
+        eng = RolloutEngine(model, scen, num_slots=FLEET_LANES, mesh=mesh)
+        eng.run(scenes, **run)                              # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        fut = eng.run(scenes, **run)
+        torch.cuda.synchronize()
+        rec["rollout"] = dict(secs=time.perf_counter() - t0,
+                              counts=dict(cuda.LAUNCHES),
+                              local_slots=eng.local_slots,
+                              ticks=scen.num_steps - t_hist)
+        if rank == 0:
+            acts = eng.last_actions
+            local = RolloutEngine(model, scen, num_slots=eng.local_slots)
+            want_local = local.run(scenes, **run)
+            full = RolloutEngine(model, scen, num_slots=FLEET_LANES)
+            want_full = full.run(scenes, **run)
+            np.savez(f"{out}/fleet.npz", fut=fut, acts=acts,
+                     local=want_local, local_acts=local.last_actions,
+                     full=want_full, full_acts=full.last_actions)
+        dist.barrier()
+    # 12c: the compressed-DP step, TRAIN_BATCH scenes a global batch
+    opt = bc_optimizer(TRAIN_LR, n_steps)
+    step = make_sim_dp_train_step(model, opt, mesh, compress=True)
+    state = sim_dp_state(opt, dict(model.named_parameters()))
+    batches = [make_sim_batch(0, i * TRAIN_BATCH, TRAIN_BATCH, scen,
+                              FAMILIES) for i in range(n_steps)]
+    if world == 1:
+        # the plain step's loss on the first batch, from the same weights
+        plain = make_sim_train_step(model, opt)
+        rec["plain_loss"] = float(plain.grads(batches[0])[1]["loss"])
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    losses, secs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        grads, metrics = step.grads(batch)
+        losses.append(float(metrics["loss"]))
+        state = step.update(state, grads)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    digest = hashlib.sha256()
+    for p_ in model.parameters():
+        digest.update(p_.detach().cpu().numpy().tobytes())
+    rec["dp"] = dict(losses=losses, secs=secs, counts=dict(cuda.LAUNCHES),
+                     params=digest.hexdigest(),
+                     residual_max=max(float(r.abs().max()) for r in
+                                      state["residual"].values()))
+    got = [None] * world if rank == 0 else None
+    dist.gather_object(rec, got, dst=0)
+    if rank == 0:
+        Path(f"{out}/ranks.json").write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def fleet_phase(cfg, scen, t_hist, launches):
+    """Phase 12b-c: FLEET_WORLD spawned ranks sharing the card over gloo,
+    then one rank over NCCL (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    out = ROOT / "build" / "phase12"
+    out.mkdir(parents=True, exist_ok=True)
+    per_rollout = cfg.num_layers * (1 + scen.num_steps - t_hist)
+    want_rollout = {"flash_decode": per_rollout,
+                    "se2_project_q": per_rollout,
+                    "se2_project_k": 2 * per_rollout,
+                    "se2_project_q_t": per_rollout,
+                    "categorical": scen.num_steps - t_hist}
+    want_dp = {k_: FLEET_DP_STEPS * n * cfg.num_layers for k_, n in {
+        "flash_attention_fwd": 1, "flash_attention_dq": 1,
+        "flash_attention_dkv": 1, "se2_project_q": 2, "se2_project_q_t": 2,
+        "se2_project_k": 2, "se2_project_k_t": 2}.items()}
+    for world, pods, title in (
+            (FLEET_WORLD, FLEET_PODS, "12b-c. fleet: 2 x 2 gloo ranks "
+             "sharing the card"),
+            (1, 1, "12c. the compressed-DP step on a 1 x 1 NCCL mesh")):
+        phase(title)
+        t0 = time.perf_counter()
+        mp.spawn(fleet_rank, args=(world, free_port(), str(out), cfg, scen,
+                                   t_hist, pods, FLEET_DP_STEPS),
+                 nprocs=world, join=True)
+        ranks = json.loads((out / "ranks.json").read_text())
+        log(f"{world} rank(s) spawned, ran and joined in "
+            f"{time.perf_counter() - t0:.1f} s; backends "
+            f"{sorted({r['backend'] for r in ranks})}")
+        for r in ranks:
+            if "rollout" in r:
+                ro = r["rollout"]
+                if ro["counts"] != want_rollout:
+                    raise AssertionError(f"fleet rank {r['rank']} rollout "
+                                         f"launches {ro['counts']} (want "
+                                         f"{want_rollout})")
+                for k_, n in ro["counts"].items():
+                    launches[k_] += n
+                log(f"fleet rollout, rank {r['rank']} {r['coord']}: "
+                    f"{ro['local_slots']} lanes x {ro['ticks']} ticks in "
+                    f"{ro['secs']:.3f} s = {ro['ticks'] / ro['secs']:.1f} "
+                    f"ticks/s, launches {ro['counts']}")
+            dp = r["dp"]
+            if dp["counts"] != want_dp or not all(
+                    math.isfinite(x) for x in dp["losses"]):
+                raise AssertionError(f"DP rank {r['rank']}: launches "
+                                     f"{dp['counts']} (want {want_dp}), "
+                                     f"losses {dp['losses']}")
+            for k_, n in dp["counts"].items():
+                launches[k_] += n
+            log(f"DP step, rank {r['rank']} {r['coord']} ({r['backend']}): "
+                f"losses {', '.join(f'{x:.5f}' for x in dp['losses'])}, "
+                f"s/step {', '.join(f'{x:.3f}' for x in dp['secs'])}, "
+                f"residual max {dp['residual_max']:.3e}, launches "
+                f"{dp['counts']}")
+        if len({r["dp"]["params"] for r in ranks}) != 1 or len(
+                {tuple(r["dp"]["losses"]) for r in ranks}) != 1:
+            raise AssertionError("DP ranks ended with other parameters or "
+                                 "losses")
+        log(f"DP step: {world} rank(s) end with bitwise equal parameters "
+            f"and losses")
+        if world == 1:
+            err = abs(ranks[0]["dp"]["losses"][0] - ranks[0]["plain_loss"])
+            if err > 1e-6 * abs(ranks[0]["plain_loss"]):
+                raise AssertionError(f"1 x 1 DP loss {ranks[0]['dp']} "
+                                     f"against the plain step's "
+                                     f"{ranks[0]['plain_loss']}")
+            log(f"1 x 1 NCCL DP step: first loss within {err:.2e} of the "
+                f"plain step's {ranks[0]['plain_loss']:.6f}")
+            continue
+        res = dict(np.load(out / "fleet.npz"))
+        if not (np.array_equal(res["fut"], res["local"])
+                and np.array_equal(res["acts"], res["local_acts"])):
+            raise AssertionError("the fleet rollout differs from a "
+                                 "single-process engine with the local "
+                                 "lane count")
+        same = (res["acts"] == res["full_acts"]).reshape(FLEET_LANES, -1)
+        parted = int((~same.all(axis=1)).sum())
+        kept = same.all(axis=1)
+        close_or_raise("fleet rollout vs one engine of every lane",
+                       torch.from_numpy(res["fut"][kept]),
+                       torch.from_numpy(res["full"][kept]),
+                       **MODEL_TOL["float32"])
+        bitwise = int(sum(np.array_equal(res["fut"][i], res["full"][i])
+                          for i in range(FLEET_LANES)))
+        if parted > FLEET_PARTED_SHARE * FLEET_LANES:
+            raise AssertionError(f"{parted} fleet lanes parted from the "
+                                 f"single engine's")
+        one = ranks[0]["rollout"]
+        log(f"fleet rollout: every rank's lanes bitwise equal to a "
+            f"{one['local_slots']}-slot single-process engine; against one "
+            f"engine of all {FLEET_LANES} lanes {bitwise} lanes bitwise, "
+            f"{parted} parted at a sampled action, the rest within "
+            f"MODEL_TOL; {FLEET_LANES / max(r['rollout']['secs'] for r in ranks):.1f} "
+            f"scenes/s over {world} ranks sharing one card")
+    torch.cuda.empty_cache()
+
+
+def launcher_phase():
+    """Phase 12d: ``python -m repro_torch.launch.train_sim`` over
+    LAUNCHER_WORLD ranks (one process each) at full width, a checkpoint
+    every LAUNCHER_CKPT_EVERY steps; then the last checkpoint is removed
+    and the same command restarts from the one before: its final
+    checkpoint must equal the first run's bitwise."""
+    import os
+    import shutil
+    import numpy as np
+    phase("12d. train_sim over 2 ranks: checkpoint and restart")
+    work = ROOT / "build" / "phase12d"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def launch():
+        port = free_port()
+        cmd = [sys.executable, "-m", "repro_torch.launch.train_sim",
+               "--steps", str(LAUNCHER_STEPS),
+               "--ckpt-every", str(LAUNCHER_CKPT_EVERY), "--batch",
+               str(TRAIN_BATCH // LAUNCHER_WORLD), "--ckpt-dir",
+               str(work / "ckpt"), "--eval-scenes-per-family", "1",
+               "--eval-samples", "1", "--holdout-batches", "1"]
+        # torchrun's variables, one process a rank
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   WORLD_SIZE=str(LAUNCHER_WORLD), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r)),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(LAUNCHER_WORLD)]
+        logs = [p_.communicate(timeout=600)[0] for p_ in procs]
+        secs = time.perf_counter() - t0
+        for r, (p_, text) in enumerate(zip(procs, logs)):
+            (work / f"rank{r}.log").write_text(text)
+            if p_.returncode != 0:
+                raise AssertionError(f"train_sim rank {r} exited "
+                                     f"{p_.returncode}:\n{text[-3000:]}")
+        done = [line for line in logs[0].splitlines() if "finished:" in line]
+        return secs, done[-1] if done else "", logs
+
+    secs, done, logs = launch()
+    steps = sorted((work / "ckpt").glob("*/step_*"))
+    if [int(p_.name.split("_")[1]) for p_ in steps] != list(range(
+            LAUNCHER_CKPT_EVERY, LAUNCHER_STEPS + 1, LAUNCHER_CKPT_EVERY)):
+        raise AssertionError(f"checkpoints {[p_.name for p_ in steps]}")
+    last = steps[-1]
+    with np.load(last / "arrays.npz") as z:
+        first = {k: z[k] for k in z.files}
+    log(f"train_sim at world {LAUNCHER_WORLD}: {LAUNCHER_STEPS} steps x "
+        f"{TRAIN_BATCH} scenes (a share a rank) in {secs:.1f} s wall, "
+        f"checkpoints {[p_.name for p_ in steps]}; {done.split('INFO')[-1][:200]}")
+    shutil.rmtree(last)
+    secs, done, logs = launch()
+    if not any("restored from step" in line for line in logs[0].splitlines()):
+        raise AssertionError("the restart did not restore a checkpoint")
+    with np.load(last / "arrays.npz") as z:
+        again = {k: z[k] for k in z.files}
+    if sorted(again) != sorted(first):
+        raise AssertionError("the restarted run's final checkpoint holds "
+                             "other arrays")
+    import torch
+    for k_ in (k_ for k_ in first if first[k_].size):
+        close_or_raise(f"restarted checkpoint {k_}",
+                       torch.from_numpy(np.asarray(again[k_])),
+                       torch.from_numpy(np.asarray(first[k_])),
+                       atol=RESTART_PARAM_ATOL, rtol=RESTART_LOSS_RTOL)
+    bitwise = sum(np.array_equal(again[k_], first[k_]) for k_ in first)
+    log(f"train_sim restart from step {LAUNCHER_STEPS - LAUNCHER_CKPT_EVERY}: "
+        f"{secs:.1f} s wall; final checkpoint within the reference's "
+        f"restart tolerance of the straight run's, {bitwise} of "
+        f"{len(first)} arrays bitwise; both ranks exited 0")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -2774,6 +3079,8 @@ def main() -> int:
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
     c150 = SE2Fourier(head_dim=WIDTH_HEAD_DIM,
                       num_terms=cfg.fourier_terms).expanded_dim
+    c300 = SE2Fourier(head_dim=WIDE_HEAD_DIM,
+                      num_terms=cfg.fourier_terms).expanded_dim
 
     def decode_timing(sq, cursor, prefill, c, b_=n_slots, s_=s_max,
                       dtype="float32"):
@@ -2892,6 +3199,15 @@ def main() -> int:
         "flash_decode_bf16": dict(
             decode_timing(tick_rows, kvl, False, c, dtype="bfloat16"),
             nest="bf16"),
+        # past 256 columns (column windows): se2_fourier at head_dim 36
+        # (c = 300), and c = 500 at the tick
+        "flash_decode_c300": dict(
+            decode_timing(tick_rows, kvl, False, c300), nest="c300"),
+        "flash_decode_prefill_c300": dict(
+            decode_timing(prefill_rows, prefill_rows, True, c300),
+            nest="c300_prefill"),
+        "flash_decode_c500": dict(
+            decode_timing(tick_rows, kvl, False, 500), nest="c500"),
         **{f"{name}_bf16": dict(se2_timing(name, n_slots, tick_rows,
                                            torch.bfloat16), nest="bf16")
            for name in SE2_MODES},
@@ -2962,6 +3278,8 @@ def main() -> int:
             ("c24", train_case_24),
             ("c150", scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
                                           attn_scale, c150)),
+            ("c300", scene_attention_case(gen, dev, model, scen, TRAIN_BATCH,
+                                          attn_scale, c300)),
             ("bf16", (*(t_.to(torch.bfloat16) for t_ in train_case[:4]),
                       train_case[4]))):
         timings.update({f"{name}_{nest}": dict(tm, kernel=name, nest=nest)
@@ -3131,9 +3449,21 @@ def main() -> int:
 
     # 11. jax.random-exact sampling, widths off 4, bfloat16 ---------------
     sampling_phase(model, scen, scenes, t_hist, s_max)
-    widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err)
+    widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err,
+                 WIDTH_CASES, WIDTH_HEAD_DIM, "11b. widths: the attention "
+                 "kernels at rows not a multiple of 4 wide")
+    serve_sim_defaults()
     bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches, max_err,
                f32_rollout, bare_rate)
+
+    # 12. rows past 256; the fleet on torch.distributed --------------------
+    widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err,
+                 WIDE_CASES, WIDE_HEAD_DIM, "12a. rows wider than 256: "
+                 "column windows")
+    del model
+    torch.cuda.empty_cache()
+    fleet_phase(cfg, scen, t_hist, launches)
+    launcher_phase()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

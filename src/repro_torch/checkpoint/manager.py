@@ -26,9 +26,15 @@ the other's checkpoints.
     gathered into one buffer and copied with one transfer, so a save
     from the card waits for it once (:func:`_to_host`).
   * **portable** — arrays are stored whole; ``restore(device=...)`` puts
-    every leaf on a device as a tensor (the reference's ``shardings``
-    argument waits for the port's mesh path, ROADMAP A9). A checkpoint
-    in the reference's tree layout restores in either package.
+    every leaf on a device as a tensor. The port replicates its
+    parameters on every rank, so ``device`` stands in for the reference's
+    ``shardings``: each rank restores onto its own device. A checkpoint in
+    the reference's tree layout restores in either package.
+  * **across ranks** — with a ``torch.distributed`` process group up,
+    rank 0 alone snapshots and writes (every rank holds the same
+    replicated state), and every ``wait()`` ends in a barrier, so no rank
+    passes a ``wait()`` or a later ``save()`` before the write it follows
+    has landed.
   * **self-describing** — the manifest stores the flattened key paths, so
     restore validates structure and reports missing/unexpected keys.
 
@@ -49,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 log = logging.getLogger("repro_torch.checkpoint")
 
@@ -127,6 +134,10 @@ def _to_host(flat: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return host
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
 
@@ -153,7 +164,10 @@ class CheckpointManager:
         #: filled by every ``restore(fallback=True)``: the step restored
         #: plus the corrupt steps walked over, each with its reason
         self.last_restore_report: Dict[str, Any] = {}
-        self._cleanup_stale_tmp()
+        # rank 0 writes (and sweeps); the others only read
+        self.writer = not _distributed() or dist.get_rank() == 0
+        if self.writer:
+            self._cleanup_stale_tmp()
 
     # ------------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
@@ -211,6 +225,8 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if _distributed():
+            dist.barrier()
         if self._save_error is not None:
             err, self._save_error = self._save_error, None
             raise CheckpointWriteError(
@@ -225,7 +241,11 @@ class CheckpointManager:
         Raises a :class:`CheckpointWriteError` from the *previous* save
         if that one failed (via the ``wait()`` below) — an async
         failure is surfaced one save late at worst, never swallowed.
+        Across ranks only rank 0 writes; the others pass the barrier.
         """
+        if not self.writer:
+            self.wait()
+            return
         flat = _flatten(tree)
         host = _to_host(flat)
         crcs = {k: _crc(v) for k, v in host.items()}

@@ -65,6 +65,15 @@
 //     the k8 padding columns of a width that is not a multiple of 8, and
 //     the rows past Sk of a ragged last key tile (which would otherwise
 //     hold an earlier tile's rows). P = 0 times a stale NaN is NaN.
+//   * Rows wider than 256 (se2_fourier at head_dim >= 36: c >= 300): O would
+//     not fit the registers, so the launch runs ceil(width / 256) balanced
+//     column windows (mma_tf32.cuh: 300 as 2 x 150). Each pass recomputes S
+//     over the whole rows and writes its columns of out; all passes compute
+//     the same m and l, and the first writes lse. Q and K stay whole in
+//     shared memory beside V's window where they fit (up to about 500
+//     columns, kWinStaged), else every pass reads them from device memory
+//     (kWinGlobal). Widths up to 256 launch as before, one pass through the
+//     instances below.
 //   * Any row width from 1 to 256 (se2_fourier's c = 50 head_dim / 6:
 //     c = 150 at head_dim 18). A float32 row of a width that is not a
 //     multiple of 4 does not start 16-byte aligned (a c = 150 row is 600
@@ -90,21 +99,25 @@ namespace {
 
 // One CTA per (batch row, q head, 64 query rows); warp w takes the query
 // block mirrored_block(w) and the half w / 4 of every key tile.
-template <typename T, int NT, int W, int kWidth>
+template <typename T, int NT, int W, int kWidth, int kWin>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int* __restrict__ q_times,
            const int* __restrict__ k_times, const int* __restrict__ q_seg,
            const int* __restrict__ k_seg, T* __restrict__ out,
            float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int D_arg,
-           int Dv_arg, float scale, float softcap, Mask mk) {
+           int Dv_arg, float scale, float softcap, Mask mk, Win win) {
   constexpr bool kExact = !std::is_same<T, float>::value;
   const int D = kWidth ? kWidth : D_arg, Dv = kWidth ? kWidth : Dv_arg;
+  // the output columns this launch writes: all, or a window (mma_tf32.cuh;
+  // with kWinGlobal Q and K stay in device memory, none in shared memory)
+  constexpr bool kStaged = kWin != kWinGlobal;
+  const int Do = kWin ? win.vw : Dv;
   constexpr int kHalf = W / 2;               // keys of a tile a warp takes
   constexpr int kNS = kHalf / 8;             // its n8 tiles of S
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int qs = mma_stride(D), vs = mma_stride(Dv);
+  const int qs = kStaged ? mma_stride(D) : 0, vs = mma_stride(Do);
   const int walk = W * (qs + vs);            // floats of one K/V buffer
   float* s_q = smem;                         // [kOwn][qs]
   float* s_walk = s_q + kOwn * qs;           // 2 x (K [W][qs], V [W][vs])
@@ -123,7 +136,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   zero_shared(smem4, (int)(reinterpret_cast<float*>(s_own + 3 * kOwn) - smem) / 4);
   __syncthreads();
-  load_rows<T>(q + (bh * Sq + q0) * D, min(kOwn, Sq - q0), D, s_q, qs);
+  if constexpr (kStaged) load_rows<T>(q + (bh * Sq + q0) * D, min(kOwn, Sq - q0), D, s_q, qs);
   cp_async_commit();
   load_owned_meta(s_own, q0, Sq, q_times, q_seg, (size_t)b * Sq);
   cp_async_wait<0>();
@@ -156,8 +169,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* sk = s_walk + buf * walk;
     float* sv = sk + W * qs;
     const int k0 = kt * W, nk = min(W, Sk - k0);
-    load_rows<T>(kh + (size_t)k0 * D, nk, D, sk, qs);
-    load_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sv, vs);
+    if constexpr (kStaged) load_rows<T>(kh + (size_t)k0 * D, nk, D, sk, qs);
+    if constexpr (kWin != kWinNone)
+      load_window<T>(vh + (size_t)k0 * Dv + win.v0, nk, Do, Dv, sv, vs);
+    else
+      load_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sv, vs);
     cp_async_commit();
     if (nk < W) {                            // ragged last tile: zero the rest
       zero_shared(reinterpret_cast<float4*>(sk + nk * qs), (W - nk) * qs / 4);
@@ -207,7 +223,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kNS][4] = {}, lo[kNS][4] = {};
     for (int k0 = 0; k0 < D; k0 += 8 * kChunk) {
       float d[kNS][4] = {};
-      score_chunk<kNS, kExact>(d, s_q, qs, blk * 16, sk, qs, j_half, k0, D, g, t);
+      if constexpr (kWin == kWinGlobal)
+        score_chunk_g<kNS, kExact, kExact>(d, q + (bh * Sq + q0) * D, Sq - q0, blk * 16,
+                                           kh + (size_t)kt * W * D, Sk - kt * W, j_half,
+                                           k0, D, g, t);
+      else
+        score_chunk<kNS, kExact>(d, s_q, qs, blk * 16, sk, qs, j_half, k0, D, g, t);
       join_chunk<kNS>(s, lo, d);
     }
     // scaled, capped and masked scores; the rows' max over the tile
@@ -255,7 +276,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < kNS; ++n) a[n] = frag_a_from_c(s[n]);
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      if (c * 8 < Dv) {
+      if (c * 8 < Do) {
         float d[4] = {};
 #pragma unroll
         for (int n = 0; n < kNS; ++n)
@@ -271,7 +292,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // order: the second warp of each block hands its state to the first
   cp_async_wait<0>();
   __syncthreads();
-  const int nd = (Dv + 7) / 8;
+  const int nd = (Do + 7) / 8;
   float4* red = reinterpret_cast<float4*>(smem);  // [kBlocks][nd][32]
   float4* red_ml = red + kBlocks * nd * 32;        // [kBlocks][32]
   if (j_half) {
@@ -297,7 +318,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     lr = fmaxf(lr, 1e-30f);
     inv_l[r] = 1.f / lr;                     // a multiply an element, not a division
-    if (t == 0 && row_i[r] < Sq) lse[bh * Sq + row_i[r]] = m_fin + logf(lr);
+    if (t == 0 && row_i[r] < Sq && (kWin == kWinNone || win.v0 == 0))
+      lse[bh * Sq + row_i[r]] = m_fin + logf(lr);
   }
   T* o = out + bh * Sq * Dv;
 #pragma unroll
@@ -308,7 +330,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         acc[c][i] = (acc[c][i] * a_self[i / 2] + xo[i] * a_other[i / 2]) * inv_l[i / 2];
-      store_tile<T>(o, acc[c], q0 + blk * 16, Sq, c * 8, Dv, g, t);
+      if constexpr (kWin != kWinNone)
+        store_tile_window<T>(o + win.v0, acc[c], q0 + blk * 16, Sq, c * 8, Do, Dv, g, t);
+      else
+        store_tile<T>(o, acc[c], q0 + blk * 16, Sq, c * 8, Dv, g, t);
     }
   }
 }
@@ -316,30 +341,39 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared bytes of a CTA: Q, K/V twice, the key tiles' mask fields (2 x 2
 // ints a row) and the owned rows' (3 ints); at least what the final merge
 // takes (O and (m, l) of the 4 second warps).
+// D is 0 with kWinGlobal (no Q or K in shared memory); Dv the window's.
 template <int W>
 size_t smem_bytes(int D, int Dv) {
-  const size_t qs = mma_stride(D), vs = mma_stride(Dv);
+  const size_t qs = D ? mma_stride(D) : 0, vs = mma_stride(Dv);
   const size_t main = sizeof(float) * (kOwn * qs + 2 * W * (qs + vs) + 4 * W + 3 * kOwn);
   const size_t merge = sizeof(float4) * kBlocks * 32 * ((Dv + 7) / 8 + 1);
   return main > merge ? main : merge;
 }
 
-template <typename T, int NT, int W, int kWidth>
+// One launch of every column window: one for widths up to kMaxWindow,
+// window_passes(D, Dv) for wider rows (kWin != kWinNone).
+template <typename T, int NT, int W, int kWidth, int kWin = kWinNone>
 cudaError_t launch_tiles(const void* q, const void* k, const void* v,
                          const int* q_times, const int* k_times, const int* q_seg,
                          const int* k_seg, void* out, float* lse, int B, int Hq,
                          int Hkv, int Sq, int Sk, int D, int Dv, float scale,
                          float softcap, Mask mk, cudaStream_t stream) {
-  const size_t smem = smem_bytes<W>(D, Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, NT, W, kWidth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Sq + kOwn - 1) / kOwn), Hq, B);
-  fwd_kernel<T, NT, W, kWidth><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, q_times, k_times, q_seg, k_seg,
-      (T*)out, lse, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk);
-  return cudaGetLastError();
+  const int passes = kWin ? window_passes(D, Dv) : 1;
+  for (int p = 0; p < passes; ++p) {
+    const Win win = kWin ? window_of(p, passes, D, Dv) : Win{0, D, 0, Dv};
+    const size_t smem = smem_bytes<W>(kWin == kWinGlobal ? 0 : D, win.vw);
+    cudaError_t err = cudaFuncSetAttribute(
+        fwd_kernel<T, NT, W, kWidth, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((Sq + kOwn - 1) / kOwn), Hq, B);
+    fwd_kernel<T, NT, W, kWidth, kWin><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, q_times, k_times, q_seg, k_seg,
+        (T*)out, lse, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, win);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -348,6 +382,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_tim
                    void* out, float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                    int D, int Dv, float scale, float softcap, Mask mk,
                    cudaStream_t stream) {
+  if (D > kMaxWindow || Dv > kMaxWindow) {
+    // whole Q and K rows staged where they fit beside the widest V window
+    const int passes = window_passes(D, Dv);
+    const bool staged = smem_bytes<16>(D, window_of(passes - 1, passes, D, Dv).vw) <=
+                        max_shared_bytes();
+    return staged ? launch_tiles<T, 32, 16, 0, kWinStaged>(
+                        q, k, v, q_times, k_times, q_seg, k_seg, out, lse, B, Hq, Hkv,
+                        Sq, Sk, D, Dv, scale, softcap, mk, stream)
+                  : launch_tiles<T, 32, 16, 0, kWinGlobal>(
+                        q, k, v, q_times, k_times, q_seg, k_seg, out, lse, B, Hq, Hkv,
+                        Sq, Sk, D, Dv, scale, softcap, mk, stream);
+  }
   DISPATCH_WIDTH(launch_tiles, q, k, v, q_times, k_times, q_seg, k_seg, out, lse,
                  B, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, stream);
 }
@@ -359,7 +405,8 @@ extern "C" {
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv) of one type
 // (0 float32, 1 bfloat16); times / segment ids (B, S) int32 or null;
 // out (B, Hq, Sq, Dv) of the same type; lse (B, Hq, Sq) float32. window < 0
-// means none; softcap <= 0 means none. Widths are any of 1 .. 256.
+// means none; softcap <= 0 means none. Any widths; past 256 columns the
+// launch runs balanced column windows of at most 256.
 // Returns cudaGetLastError().
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            const void* q_times, const void* k_times,

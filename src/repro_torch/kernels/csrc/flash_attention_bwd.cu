@@ -46,7 +46,14 @@
 //     round_up(width, 8) + 4, an odd multiple of 4 words, which keeps both
 //     the direct (row g, column t) and the permuted (row 2t, column g)
 //     fragment reads free of bank conflicts; the contraction is zero-padded
-//     to a multiple of 8. Any width from 1 to 256 is taken: the copies and
+//     to a multiple of 8. Rows wider than 256 run as ceil(width / 256)
+//     balanced column windows of dq, dk and dv (mma_tf32.cuh), each pass
+//     recomputing S and dP over the whole rows: with whole rows on both
+//     sides in shared memory where they fit (kWinStaged), else the owned
+//     rows' whole rows in shared memory and the walked rows read from
+//     device memory, the walked tiles holding the windows of K (dq) or of
+//     Q and dO (dk/dv) (kWinOwned: c = 300), else every S and dP operand
+//     from device memory (kWinGlobal). Any width from 1 to 256 is taken: the copies and
 //     stores of mma_tf32.cuh pick their unit by the rows' alignment (see
 //     flash_attention.cu's header).
 //   * A CTA of 8 warps owns 64 rows (4 blocks of 16) and walks 32-row tiles
@@ -100,7 +107,7 @@ __device__ __forceinline__ void probs(float qk, float lse, float scale,
 // One CTA per (batch row, q head, 64 query rows); warp w takes the query
 // block w % 4 and the half w / 4 of every key tile, and walks the key tiles
 // in order, keeping its dQ partial sum (16 rows x D) in registers.
-template <typename T, int NT, int W, int kWidth>
+template <typename T, int NT, int W, int kWidth, int kWin>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
@@ -108,18 +115,27 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int* __restrict__ q_times, const int* __restrict__ k_times,
           const int* __restrict__ q_seg, const int* __restrict__ k_seg,
           T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk, int D_arg,
-          int Dv_arg, float scale, float softcap, Mask mk) {
+          int Dv_arg, float scale, float softcap, Mask mk, Win win) {
   constexpr bool kExact = !std::is_same<T, float>::value;
   const int D = kWidth ? kWidth : D_arg, Dv = kWidth ? kWidth : Dv_arg;
+  // the dq columns this launch writes: all, or a window (mma_tf32.cuh).
+  // Whole Q and dO rows stay in shared memory unless kWinGlobal; whole K
+  // and V tiles unless the walked rows are read from device memory, when
+  // K's tile holds the window only and there is no V tile.
+  constexpr bool kOwnStaged = kWin != kWinGlobal;
+  constexpr bool kWalkStaged = kWin == kWinNone || kWin == kWinStaged;
+  const int Do = kWin ? win.dw : D;
   constexpr int kHalf = W / 2;               // keys of a tile a warp takes
   constexpr int kNS = kHalf / 8;             // its n8 tiles of S and dP
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int qs = mma_stride(D), vs = mma_stride(Dv);
-  const int walk = W * (qs + vs);            // floats of one K/V buffer
+  const int qs = kOwnStaged ? mma_stride(D) : 0, vs = kOwnStaged ? mma_stride(Dv) : 0;
+  const int ks = mma_stride(kWalkStaged ? D : Do);  // K tile
+  const int vw = kWalkStaged ? mma_stride(Dv) : 0;  // V tile
+  const int walk = W * (ks + vw);            // floats of one K/V buffer
   float* s_q = smem;                         // [kOwn][qs]
   float* s_do = s_q + kOwn * qs;             // [kOwn][vs]
-  float* s_walk = s_do + kOwn * vs;          // 2 x (K [W][qs], V [W][vs])
+  float* s_walk = s_do + kOwn * vs;          // 2 x (K [W][ks], V [W][vw])
   int* s_meta = reinterpret_cast<int*>(s_walk + 2 * walk);  // 2 x [2][W]
   int* s_own = s_meta + 4 * W;               // [3][kOwn]
 
@@ -136,8 +152,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_shared(smem4, (int)(reinterpret_cast<float*>(s_own + 3 * kOwn) - smem) / 4);
   __syncthreads();
   const int nq = min(kOwn, Sq - q0);
-  load_tile<T>(q + (bh * Sq + q0) * D, nq, D, s_q, qs);
-  load_tile<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, s_do, vs);
+  if constexpr (kOwnStaged) {
+    load_tile<T>(q + (bh * Sq + q0) * D, nq, D, s_q, qs);
+    load_tile<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, s_do, vs);
+  }
   load_owned_meta(s_own, q0, Sq, q_times, q_seg, (size_t)b * Sq);
 
   // this thread's accumulator rows: g and g + 8 of the warp's block
@@ -166,8 +184,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto issue = [&](int kt, int buf) {        // start loading key tile kt
     float* sk = s_walk + buf * walk;
     const int k0 = kt * W, nk = min(W, Sk - k0);
-    load_rows<T>(kh + (size_t)k0 * D, nk, D, sk, qs);
-    load_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sk + W * qs, vs);
+    if constexpr (kWalkStaged) {
+      load_rows<T>(kh + (size_t)k0 * D, nk, D, sk, ks);
+      load_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sk + W * ks, vw);
+    } else {
+      load_window<T>(kh + (size_t)k0 * D + win.d0, nk, Do, D, sk, ks);
+    }
     cp_async_commit();
     if (threadIdx.x < W) {
       int* m = s_meta + buf * 2 * W;
@@ -191,7 +213,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                         // tile kt in place
 
     const float* sk = s_walk + buf * walk;
-    const float* sv = sk + W * qs;
+    const float* sv = sk + W * ks;
     const int* m = s_meta + buf * 2 * W;
     // the mask on this warp's 16 x 16 pairs; a warp none of whose pairs is
     // admitted has nothing to add
@@ -213,8 +235,21 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kNS][4] = {}, dp[kNS][4] = {}, s_lo[kNS][4] = {}, dp_lo[kNS][4] = {};
     for (int k0 = 0; k0 < D || k0 < Dv; k0 += 8 * kChunk) {
       float ds_[kNS][4] = {}, dd_[kNS][4] = {};
-      score_chunk<kNS, kExact>(ds_, s_q, qs, blk * 16, sk, qs, j_half, k0, D, g, t);
-      score_chunk<kNS, kExact>(dd_, s_do, vs, blk * 16, sv, vs, j_half, k0, Dv, g, t);
+      const size_t r0 = bh * Sq + q0, j0 = (size_t)kt * W;
+      if constexpr (kWin == kWinGlobal) {
+        score_chunk_g<kNS, kExact, kExact>(ds_, q + r0 * D, Sq - q0, blk * 16, kh + j0 * D,
+                                           Sk - kt * W, j_half, k0, D, g, t);
+        score_chunk_g<kNS, kExact, kExact>(dd_, dout + r0 * Dv, Sq - q0, blk * 16,
+                                           vh + j0 * Dv, Sk - kt * W, j_half, k0, Dv, g, t);
+      } else if constexpr (kWin == kWinOwned) {
+        score_chunk_sg<kNS, kExact, kExact>(ds_, s_q, qs, blk * 16, kh + j0 * D,
+                                            Sk - kt * W, j_half, k0, D, g, t);
+        score_chunk_sg<kNS, kExact, kExact>(dd_, s_do, vs, blk * 16, vh + j0 * Dv,
+                                            Sk - kt * W, j_half, k0, Dv, g, t);
+      } else {
+        score_chunk<kNS, kExact>(ds_, s_q, qs, blk * 16, sk, ks, j_half, k0, D, g, t);
+        score_chunk<kNS, kExact>(dd_, s_do, vs, blk * 16, sv, vw, j_half, k0, Dv, g, t);
+      }
       join_chunk<kNS>(s, s_lo, ds_);
       join_chunk<kNS>(dp, dp_lo, dd_);
     }
@@ -235,13 +270,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     FragA a[kNS];                            // dQ += dS K, a tile at a time
 #pragma unroll
     for (int n = 0; n < kNS; ++n) a[n] = frag_a_from_c(s[n]);
+    // K's columns of the window: at d0 of a whole tile
+    const float* skw = sk;
+    if constexpr (kWin == kWinStaged) skw += win.d0;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      if (c * 8 < D) {
+      if (c * 8 < Do) {
         float d[4] = {};
 #pragma unroll
         for (int n = 0; n < kNS; ++n)
-          mma3<false, kExact>(d, a[n], frag_b_cols<kExact>(sk, qs, j_half + n * 8, c * 8, g, t));
+          mma3<false, kExact>(d, a[n], frag_b_cols<kExact>(skw, ks, j_half + n * 8, c * 8, g, t));
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[c][i] += d[i];
       }
@@ -252,8 +290,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the two halves' partial sums meet in the freed Q tile, in a fixed order
   cp_async_wait<0>();
   __syncthreads();
-  float4* red = reinterpret_cast<float4*>(s_q);   // [kBlocks][ceil(D / 8)][32]
-  const int nd = (D + 7) / 8;
+  float4* red = reinterpret_cast<float4*>(s_q);   // [kBlocks][ceil(Do / 8)][32]
+  const int nd = (Do + 7) / 8;
   if (j_half) {
 #pragma unroll
     for (int c = 0; c < NT; ++c)
@@ -272,7 +310,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[c][1] += o.y;
         acc[c][2] += o.z;
         acc[c][3] += o.w;
-        store_tile<T>(out, acc[c], q0 + blk * 16, Sq, c * 8, D, g, t);
+        if constexpr (kWin != kWinNone)
+          store_tile_window<T>(out + win.d0, acc[c], q0 + blk * 16, Sq, c * 8, Do, D, g, t);
+        else
+          store_tile<T>(out, acc[c], q0 + blk * 16, Sq, c * 8, D, g, t);
       }
     }
   }
@@ -283,7 +324,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // One CTA per (batch row, kv head, 64 keys) walks every (q head of the GQA
 // group, W-row q tile) in a fixed order. Of the two warps of a key block,
 // w < 4 computes S^T and dV = P^T dO, w >= 4 computes dP^T and dK = dS^T Q.
-template <typename T, int NT, int W, int kWidth>
+template <typename T, int NT, int W, int kWidth, int kWin>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
@@ -291,17 +332,27 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const int* __restrict__ q_times, const int* __restrict__ k_times,
            const int* __restrict__ q_seg, const int* __restrict__ k_seg,
            T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Sq,
-           int Sk, int D_arg, int Dv_arg, float scale, float softcap, Mask mk) {
+           int Sk, int D_arg, int Dv_arg, float scale, float softcap, Mask mk,
+           Win win) {
   constexpr bool kExact = !std::is_same<T, float>::value;
   const int D = kWidth ? kWidth : D_arg, Dv = kWidth ? kWidth : Dv_arg;
+  // the dk and dv columns this launch writes: all, or windows (mma_tf32.cuh).
+  // Whole K and V rows stay in shared memory unless kWinGlobal; whole Q and
+  // dO tiles unless the walked rows are read from device memory, when the
+  // tiles hold the windows of Q and dO only.
+  constexpr bool kOwnStaged = kWin != kWinGlobal;
+  constexpr bool kWalkStaged = kWin == kWinNone || kWin == kWinStaged;
+  const int Dko = kWin ? win.dw : D, Dvo = kWin ? win.vw : Dv;
   constexpr int kNS = W / 8;                 // n8 tiles of S^T and dP^T
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ks = mma_stride(D), vs = mma_stride(Dv);
+  const int ks = mma_stride(kWalkStaged ? D : Dko);   // Q tile
+  const int vs = mma_stride(kWalkStaged ? Dv : Dvo);  // dO tile
+  const int ko = kOwnStaged ? mma_stride(D) : 0, vo = kOwnStaged ? mma_stride(Dv) : 0;
   const int walk = W * (ks + vs);            // floats of one Q/dO buffer
-  float* s_k = smem;                         // [kOwn][ks]
-  float* s_v = s_k + kOwn * ks;              // [kOwn][vs]
-  float* s_walk = s_v + kOwn * vs;           // 2 x (Q [W][ks], dO [W][vs])
+  float* s_k = smem;                         // [kOwn][ko]
+  float* s_v = s_k + kOwn * ko;              // [kOwn][vo]
+  float* s_walk = s_v + kOwn * vo;           // 2 x (Q [W][ks], dO [W][vs])
   float4* s_pd = reinterpret_cast<float4*>(s_walk + 2 * walk);  // [kBlocks][kNS][32]
   float* s_meta = reinterpret_cast<float*>(s_pd + kBlocks * kNS * 32);
   // 2 x [4][W]: lse, delta (float), times, segment ids (int)
@@ -319,8 +370,10 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero_shared(smem4, (int)(reinterpret_cast<float*>(s_own + 3 * kOwn) - smem) / 4);
   __syncthreads();
   const int nk = min(kOwn, Sk - k0);
-  load_tile<T>(k + (head * Sk + k0) * D, nk, D, s_k, ks);
-  load_tile<T>(v + (head * Sk + k0) * Dv, nk, Dv, s_v, vs);
+  if constexpr (kOwnStaged) {
+    load_tile<T>(k + (head * Sk + k0) * D, nk, D, s_k, ko);
+    load_tile<T>(v + (head * Sk + k0) * Dv, nk, Dv, s_v, vo);
+  }
   load_owned_meta(s_own, k0, Sk, k_times, k_seg, (size_t)b * Sk);
 
   // this thread's accumulator rows: keys g and g + 8 of the warp's block
@@ -347,8 +400,13 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bh = (size_t)b * Hq + hk * group + wt / nqt;
     const int q0 = (wt % nqt) * W, nq = min(W, Sq - q0);
     float* sq = s_walk + buf * walk;
-    load_rows<T>(q + (bh * Sq + q0) * D, nq, D, sq, ks);
-    load_rows<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, sq + W * ks, vs);
+    if constexpr (kWalkStaged) {
+      load_rows<T>(q + (bh * Sq + q0) * D, nq, D, sq, ks);
+      load_rows<T>(dout + (bh * Sq + q0) * Dv, nq, Dv, sq + W * ks, vs);
+    } else {
+      load_window<T>(q + (bh * Sq + q0) * D + win.d0, nq, Dko, D, sq, ks);
+      load_window<T>(dout + (bh * Sq + q0) * Dv + win.v0, nq, Dvo, Dv, sq + W * ks, vs);
+    }
     cp_async_commit();
     if (threadIdx.x < W) {
       float* m = s_meta + buf * 4 * W;
@@ -397,13 +455,32 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // S^T = K Q^T (dv warps) or dP^T = V dO^T
     float s[kNS][4] = {}, lo[kNS][4] = {};
     if (live) {
-      const float* sa = dv_warp ? s_k : s_v;
-      const float* sb = dv_warp ? sq : sdo;
-      const int stride = dv_warp ? ks : vs, width = dv_warp ? D : Dv;
-      for (int k0 = 0; k0 < width; k0 += 8 * kChunk) {
-        float d[kNS][4] = {};
-        score_chunk<kNS, kExact>(d, sa, stride, blk * 16, sb, stride, 0, k0, width, g, t);
-        join_chunk<kNS>(s, lo, d);
+      const int width = dv_warp ? D : Dv;
+      if constexpr (!kWalkStaged) {
+        const size_t bh = (size_t)b * Hq + hk * group + wt / nqt;
+        const T* ga = dv_warp ? k + (head * Sk + k0) * D : v + (head * Sk + k0) * Dv;
+        const T* gb = dv_warp ? q + (bh * Sq + q0) * D : dout + (bh * Sq + q0) * Dv;
+        const float* sa = dv_warp ? s_k : s_v;
+        const int sa_stride = dv_warp ? ko : vo;
+        for (int c0 = 0; c0 < width; c0 += 8 * kChunk) {
+          float d[kNS][4] = {};
+          if constexpr (kWin == kWinOwned)
+            score_chunk_sg<kNS, kExact, kExact>(d, sa, sa_stride, blk * 16, gb, Sq - q0, 0,
+                                                c0, width, g, t);
+          else
+            score_chunk_g<kNS, kExact, kExact>(d, ga, Sk - k0, blk * 16, gb, Sq - q0, 0,
+                                               c0, width, g, t);
+          join_chunk<kNS>(s, lo, d);
+        }
+      } else {
+        const float* sa = dv_warp ? s_k : s_v;
+        const float* sb = dv_warp ? sq : sdo;
+        const int stride = dv_warp ? ks : vs;
+        for (int k0 = 0; k0 < width; k0 += 8 * kChunk) {
+          float d[kNS][4] = {};
+          score_chunk<kNS, kExact>(d, sa, stride, blk * 16, sb, stride, 0, k0, width, g, t);
+          join_chunk<kNS>(s, lo, d);
+        }
       }
     }
     if (live && dv_warp) {
@@ -441,8 +518,10 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     FragA a[kNS];
 #pragma unroll
     for (int n = 0; n < kNS; ++n) a[n] = frag_a_from_c(s[n]);
+    // dO's or Q's columns of the window: at v0 or d0 of a whole tile
     const float* sb = dv_warp ? sdo : sq;
-    const int sb_stride = dv_warp ? vs : ks, width = dv_warp ? Dv : D;
+    if constexpr (kWin == kWinStaged) sb += dv_warp ? win.v0 : win.d0;
+    const int sb_stride = dv_warp ? vs : ks, width = dv_warp ? Dvo : Dko;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       if (c * 8 < width) {
@@ -459,10 +538,17 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 
   T* out = dv_warp ? dv + head * Sk * Dv : dk + head * Sk * D;
-  const int width = dv_warp ? Dv : D;
+  const int width = dv_warp ? Dvo : Dko;
 #pragma unroll
-  for (int c = 0; c < NT; ++c)
-    if (c * 8 < width) store_tile<T>(out, acc[c], k0 + blk * 16, Sk, c * 8, width, g, t);
+  for (int c = 0; c < NT; ++c) {
+    if (c * 8 < width) {
+      if constexpr (kWin != kWinNone)
+        store_tile_window<T>(out + (dv_warp ? win.v0 : win.d0), acc[c], k0 + blk * 16, Sk,
+                             c * 8, width, dv_warp ? Dv : D, g, t);
+      else
+        store_tile<T>(out, acc[c], k0 + blk * 16, Sk, c * 8, width, g, t);
+    }
+  }
 }
 
 // ---- launches ----------------------------------------------------------------
@@ -478,47 +564,103 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Shared bytes of a CTA: the owned pair, the walked pair twice, dk/dv's
 // P softcap' scale, the walked rows' mask fields (2 x 2 ints a row for dq,
 // 2 x 4 words for dk/dv) and the owned rows' (3 ints).
+// Shared bytes of a CTA: the owned rows' tiles (`own` floats a row), the
+// walked tiles twice (`walk` floats a row), dk/dv's P softcap' scale, the
+// walked rows' mask fields (2 x 2 ints a row for dq, 2 x 4 words for dk/dv)
+// and the owned rows' (3 ints); at least what dq's final merge of
+// `merge_cols` columns takes.
 template <int W>
-size_t smem_bytes(int D, int Dv, bool dkv) {
-  const size_t pair = (size_t)mma_stride(D) + mma_stride(Dv);
-  return sizeof(float) * ((kOwn + 2 * W) * pair + (dkv ? kOwn * W + 8 * W : 4 * W) +
-                          3 * kOwn);
+size_t smem_bytes(int own, int walk, bool dkv, int merge_cols) {
+  const size_t main = sizeof(float) * ((size_t)kOwn * own + 2 * W * walk +
+                                       (dkv ? kOwn * W + 8 * W : 4 * W) + 3 * kOwn);
+  const size_t merge = dkv ? 0 : sizeof(float4) * kBlocks * 32 * ((merge_cols + 7) / 8);
+  return main > merge ? main : merge;
 }
 
-template <typename T, int NT, int W, int kWidth>
+// The shared bytes of a window mode (mma_tf32.cuh) for window w: whole rows
+// of both widths owned and walked, or only the windows of the walked rows.
+template <int W>
+size_t smem_for(int win_mode, bool dkv, int D, int Dv, const Win& w) {
+  const int whole = mma_stride(D) + mma_stride(Dv);
+  const int own = win_mode == kWinGlobal ? 0 : whole;
+  const int walk = win_mode == kWinNone || win_mode == kWinStaged
+                       ? whole
+                       : mma_stride(w.dw) + (dkv ? mma_stride(w.vw) : 0);
+  return smem_bytes<W>(own, walk, dkv, win_mode ? w.dw : D);
+}
+
+// One launch of every column window: one for widths up to kMaxWindow,
+// window_passes(D, Dv) for wider rows (kWin != kWinNone).
+template <typename T, int NT, int W, int kWidth, int kWin = kWinNone>
 cudaError_t launch_dq_tiles(KERNEL_PARAMS, void* dq, int B, int Hq, int Hkv,
                             int Sq, int Sk, int D, int Dv, float scale,
                             float softcap, Mask mk, cudaStream_t stream) {
-  const size_t smem = smem_bytes<W>(D, Dv, false);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, NT, W, kWidth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Sq + kOwn - 1) / kOwn), Hq, B);
-  dq_kernel<T, NT, W, kWidth><<<grid, kThreads, smem, stream>>>(
-      KERNEL_ARGS, (T*)dq, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk);
-  return cudaGetLastError();
+  const int passes = kWin ? window_passes(D, Dv) : 1;
+  for (int p = 0; p < passes; ++p) {
+    const Win win = kWin ? window_of(p, passes, D, Dv) : Win{0, D, 0, Dv};
+    const size_t smem = smem_for<W>(kWin, false, D, Dv, win);
+    cudaError_t err = cudaFuncSetAttribute(
+        dq_kernel<T, NT, W, kWidth, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((Sq + kOwn - 1) / kOwn), Hq, B);
+    dq_kernel<T, NT, W, kWidth, kWin><<<grid, kThreads, smem, stream>>>(
+        KERNEL_ARGS, (T*)dq, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, win);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-template <typename T, int NT, int W, int kWidth>
+template <typename T, int NT, int W, int kWidth, int kWin = kWinNone>
 cudaError_t launch_dkv_tiles(KERNEL_PARAMS, void* dk, void* dv, int B, int Hq,
                              int Hkv, int Sq, int Sk, int D, int Dv, float scale,
                              float softcap, Mask mk, cudaStream_t stream) {
-  const size_t smem = smem_bytes<W>(D, Dv, true);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, NT, W, kWidth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((Sk + kOwn - 1) / kOwn), Hkv, B);
-  dkv_kernel<T, NT, W, kWidth><<<grid, kThreads, smem, stream>>>(
-      KERNEL_ARGS, (T*)dk, (T*)dv, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk);
-  return cudaGetLastError();
+  const int passes = kWin ? window_passes(D, Dv) : 1;
+  for (int p = 0; p < passes; ++p) {
+    const Win win = kWin ? window_of(p, passes, D, Dv) : Win{0, D, 0, Dv};
+    const size_t smem = smem_for<W>(kWin, true, D, Dv, win);
+    cudaError_t err = cudaFuncSetAttribute(
+        dkv_kernel<T, NT, W, kWidth, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((Sk + kOwn - 1) / kOwn), Hkv, B);
+    dkv_kernel<T, NT, W, kWidth, kWin><<<grid, kThreads, smem, stream>>>(
+        KERNEL_ARGS, (T*)dk, (T*)dv, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, win);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
+
+// Rows past kMaxWindow: the first window mode whose widest window fits the
+// card's shared memory, staged before owned before global.
+int wide_mode(bool dkv, int D, int Dv) {
+  const int passes = window_passes(D, Dv);
+  const Win widest = window_of(passes - 1, passes, D, Dv);
+  const size_t limit = max_shared_bytes();
+  const int modes[2] = {kWinStaged, kWinOwned};
+  for (int mode : modes)
+    if (smem_for<16>(mode, dkv, D, Dv, widest) <= limit) return mode;
+  return kWinGlobal;
+}
+
+#define WIDE_LAUNCH(dkv, launch, ...)                                          \
+  do {                                                                         \
+    switch (wide_mode(dkv, D, Dv)) {                                           \
+      case kWinStaged: return launch<T, 32, 16, 0, kWinStaged>(__VA_ARGS__);   \
+      case kWinOwned: return launch<T, 32, 16, 0, kWinOwned>(__VA_ARGS__);     \
+      default: return launch<T, 32, 16, 0, kWinGlobal>(__VA_ARGS__);           \
+    }                                                                          \
+  } while (0)
 
 template <typename T>
 cudaError_t launch_dq(KERNEL_PARAMS, void* dq, int B, int Hq, int Hkv, int Sq,
                       int Sk, int D, int Dv, float scale, float softcap, Mask mk,
                       cudaStream_t stream) {
+  if (D > kMaxWindow || Dv > kMaxWindow)
+    WIDE_LAUNCH(false, launch_dq_tiles, q, k, v, dout, lse, delta, q_times, k_times, q_seg,
+                k_seg, dq, B, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, stream);
   DISPATCH_WIDTH(launch_dq_tiles, q, k, v, dout, lse, delta, q_times, k_times,
                  q_seg, k_seg, dq, B, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk,
                  stream);
@@ -528,6 +670,9 @@ template <typename T>
 cudaError_t launch_dkv(KERNEL_PARAMS, void* dk, void* dv, int B, int Hq, int Hkv,
                        int Sq, int Sk, int D, int Dv, float scale, float softcap,
                        Mask mk, cudaStream_t stream) {
+  if (D > kMaxWindow || Dv > kMaxWindow)
+    WIDE_LAUNCH(true, launch_dkv_tiles, q, k, v, dout, lse, delta, q_times, k_times, q_seg,
+                k_seg, dk, dv, B, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap, mk, stream);
   DISPATCH_WIDTH(launch_dkv_tiles, q, k, v, dout, lse, delta, q_times, k_times,
                  q_seg, k_seg, dk, dv, B, Hq, Hkv, Sq, Sk, D, Dv, scale, softcap,
                  mk, stream);
@@ -540,8 +685,9 @@ extern "C" {
 // q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, Dv), dout
 // (B, Hq, Sq, Dv) of one type (0 float32, 1 bfloat16); lse, delta
 // (B, Hq, Sq) float32; times / segment ids (B, S) int32 or null; dq like q.
-// window < 0 means none; softcap <= 0 means none. Widths are any of
-// 1 .. 256. Returns cudaGetLastError().
+// window < 0 means none; softcap <= 0 means none. Any widths; past 256
+// columns the launch runs balanced column windows of at most 256.
+// Returns cudaGetLastError().
 int flash_attention_dq_launch(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, const void* delta,
                               const void* q_times, const void* k_times,

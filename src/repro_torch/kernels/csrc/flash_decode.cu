@@ -73,6 +73,14 @@
 //   * Shared memory at c = 200, float32: Q 13,056 B (tick) / 52,224 B
 //     (prefill), the ring 208,896 B / 104,448 B, the keys' fields 2 KB /
 //     1 KB: one CTA of 8 warps an SM.
+//   * Rows wider than 256 (se2_fourier at head_dim >= 36: c >= 300): the
+//     launch runs ceil(width / 256) balanced column windows of O (300 as
+//     2 x 150), each recomputing S over the whole rows and writing its
+//     columns of out, or of the split partials, which combine_kernel joins
+//     once over the whole rows. Every pass computes the same m and l. Q
+//     and the ring's K stay whole beside V's window where they fit (to
+//     about 500 columns in float32, kWinStaged); wider, every pass reads
+//     them from device memory (kWinGlobal).
 //   * Any row width from 1 to 256 (se2_fourier caches c = 50 head_dim / 6,
 //     c = 150 at head_dim 18). Rows are copied in the widest cp.async unit
 //     that every row start allows: 16 bytes at c = 200 float32, 8 bytes at
@@ -244,6 +252,14 @@ __device__ __forceinline__ void store_pair(T* row, int col, int width, float a,
   }
 }
 
+// Columns col, col + 1 (where < width) of a row window, a column at a time.
+template <typename T>
+__device__ __forceinline__ void store_window(T* row, int col, int width, float a,
+                                             float b) {
+  if (col < width) row[col] = from_f<T>(a);
+  if (col + 1 < width) row[col + 1] = from_f<T>(b);
+}
+
 // The warp of block `blk` that takes key slice `slice` (mirrored_block's
 // inverse for 4 blocks).
 template <int MB>
@@ -256,7 +272,8 @@ __device__ __forceinline__ int warp_of(int blk, int slice) {
 // r0 .. r_end of the group's R (q head, query) rows, q head major; the
 // m16 blocks of R are dealt evenly over the ceil(blocks / MB) row tiles
 // (the prefill's 9 blocks as 3 + 3 + 3, not 4 + 4 + 1).
-template <typename T, typename TQ, int MB, int NS, int NT, int kStages, int kWidth>
+template <typename T, typename TQ, int MB, int NS, int NT, int kStages, int kWidth,
+          int kWin>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -266,13 +283,19 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               TQ* __restrict__ out, float* __restrict__ o_part,
               float* __restrict__ m_part, float* __restrict__ l_part, int B,
               int Hq, int Hkv, int Sq, int S, int D_arg, int Dv_arg, int layer,
-              int num_splits, int tiles_per_split, float scale) {
+              int num_splits, int tiles_per_split, float scale, Win win) {
   using C = Cfg<MB, NS>;
   constexpr int W = C::W, kRows = C::kRows, kWPB = C::kWPB, kWords = (W + 31) / 32;
   constexpr bool kExact = !std::is_same<T, float>::value;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   const int D = kWidth ? kWidth : D_arg, Dv = kWidth ? kWidth : Dv_arg;
-  const int qs = mma_stride(D), ks = kv_stride<T>(D), vs = kv_stride<T>(Dv);
+  // the output columns this launch writes: all, or a window (mma_tf32.cuh;
+  // with kWinGlobal Q and K stay in device memory and the ring holds V's
+  // window only)
+  constexpr bool kStaged = kWin != kWinGlobal;
+  const int Do = kWin ? win.vw : Dv;
+  const int qs = kStaged ? mma_stride(D) : 0, ks = kStaged ? kv_stride<T>(D) : 0;
+  const int vs = kv_stride<T>(Do);
   const int slot = W * (ks + vs);            // elements of one ring buffer
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);                   // [kRows][qs]
@@ -295,7 +318,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   // A width off the k8 step: the padding columns of Q and K that the
   // tensor cores read are zeroed. (Rows past the live ones may hold any
   // bits: their scores are masked and their P is 0 by a select.)
-  if (D % 8) {
+  if (kStaged && D % 8) {
     zero_shared(smem4, kRows * qs / 4);
     const int pad = 8 - D % 8, n = kStages * W * pad;
     for (int e = threadIdx.x; e < n; e += kThreads) {
@@ -307,7 +330,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   }
   {
     // a float32 query lands by cp.async, a bf16 one converted as it loads
-    const int nrow = r_end - r0;
+    const int nrow = kStaged ? r_end - r0 : 0;
     if constexpr (std::is_same<TQ, float>::value) {
       // 16-byte copies where the rows allow them (widths that are multiples
       // of 4), else 4-byte ones
@@ -413,8 +436,11 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   auto issue = [&](int kt, int sl) {
     T* sk = s_ring + sl * slot;
     const int k0 = kt * W, nk = min(W, kv_end - k0);
-    copy_rows<T>(kh + (size_t)k0 * D, nk, D, sk, ks);
-    copy_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sk + W * ks, vs);
+    if constexpr (kStaged) copy_rows<T>(kh + (size_t)k0 * D, nk, D, sk, ks);
+    if constexpr (kWin != kWinNone)
+      load_window<T>(vh + (size_t)k0 * Dv + win.v0, nk, Do, Dv, sk + W * ks, vs);
+    else
+      copy_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sk + W * ks, vs);
     if ((int)threadIdx.x < nk) {
       char* mt = reinterpret_cast<char*>(s_meta + sl * 4 * W + threadIdx.x);
       const int j = k0 + threadIdx.x;
@@ -479,7 +505,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       }
       constexpr uint32_t kMine = C::kKeys == 32 ? 0xffffffffu : (1u << C::kKeys) - 1;
       uint32_t dead = ~mine & kMine;
-      const int words = (Dv * (int)sizeof(T) + 3) / 4;  // into the padding
+      const int words = (Do * (int)sizeof(T) + 3) / 4;  // into the padding
       while (dead) {
         const int r = __ffs(dead) - 1;
         dead &= dead - 1;
@@ -492,14 +518,20 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
     float s[NS][4] = {}, lo[NS][4] = {};
     for (int c0 = 0; c0 < D; c0 += 8 * kChunk) {
       float d[NS][4] = {};
+      if constexpr (kWin == kWinGlobal) {
+        score_chunk_g<NS, false, kExact>(
+            d, q + ((size_t)(b * Hq + hk * group) * Sq + r0) * D, r_end - r0, blk * 16,
+            kh + (size_t)kt * W * D, kv_end - kt * W, j_off, c0, D, g, t);
+      } else {
 #pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int kk = c0 + 8 * u;
-        if (kk < D) {
-          const FragA a = frag_a<false>(s_q, qs, blk * 16, kk, g, t);
+        for (int u = 0; u < kChunk; ++u) {
+          const int kk = c0 + 8 * u;
+          if (kk < D) {
+            const FragA a = frag_a<false>(s_q, qs, blk * 16, kk, g, t);
 #pragma unroll
-          for (int n = 0; n < NS; ++n)
-            mma3<false, kExact>(d[n], a, kv_rows<T>(sk, ks, j_off + n * 8, kk, g, t));
+            for (int n = 0; n < NS; ++n)
+              mma3<false, kExact>(d[n], a, kv_rows<T>(sk, ks, j_off + n * 8, kk, g, t));
+          }
         }
       }
       join_chunk<NS>(s, lo, d);
@@ -550,7 +582,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < NS; ++n) a[n] = frag_a_from_c(s[n]);
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      if (c * 8 < Dv) {
+      if (c * 8 < Do) {
         float d[4] = {};
 #pragma unroll
         for (int n = 0; n < NS; ++n)
@@ -595,7 +627,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   // some (block, 8-column tile) items, its block's warps in key order
   cp_async_wait<0>();
   __syncthreads();
-  const int nd = (Dv + 7) / 8;
+  const int nd = (Do + 7) / 8;
   float4* red = smem4;                       // [kWarps][nd][32]
   float4* red_ml = red + kWarps * nd * 32;   // [kWarps][32]
 #pragma unroll
@@ -642,11 +674,18 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       if (num_splits == 1) {
         // what combine_kernel makes of one split, without its launch
         const float inv = 1.f / fmaxf(lr[r], 1e-30f);
-        store_pair(out + (bh * Sq + qi) * Dv, col, Dv, o[2 * r] * inv,
-                   o[2 * r + 1] * inv);
+        if constexpr (kWin != kWinNone)
+          store_window(out + (bh * Sq + qi) * Dv + win.v0, col, Do, o[2 * r] * inv,
+                       o[2 * r + 1] * inv);
+        else
+          store_pair(out + (bh * Sq + qi) * Dv, col, Dv, o[2 * r] * inv,
+                     o[2 * r + 1] * inv);
       } else {
         const size_t prow = (bh * num_splits + split) * Sq + qi;
-        store_pair(o_part + prow * Dv, col, Dv, o[2 * r], o[2 * r + 1]);
+        if constexpr (kWin != kWinNone)
+          store_window(o_part + prow * Dv + win.v0, col, Do, o[2 * r], o[2 * r + 1]);
+        else
+          store_pair(o_part + prow * Dv, col, Dv, o[2 * r], o[2 * r + 1]);
         if (c == 0 && t == 0) {
           m_part[prow] = m_fin[r];
           l_part[prow] = lr[r];
@@ -708,11 +747,12 @@ combine_kernel(const float* __restrict__ o_part, const float* __restrict__ m_par
 
 // Shared bytes of a CTA: Q, the ring, the owned rows' mask fields, the
 // tile test's ballots; at least what the final merge takes.
+// D is 0 with kWinGlobal (no Q or K in shared memory); Dv the window's.
 template <typename T, int MB, int NS, int kStages>
 size_t smem_bytes(int D, int Dv) {
   using C = Cfg<MB, NS>;
-  const size_t main = sizeof(float) * C::kRows * mma_stride(D) +
-                      sizeof(T) * kStages * C::W * (kv_stride<T>(D) + kv_stride<T>(Dv)) +
+  const size_t main = sizeof(float) * C::kRows * (D ? mma_stride(D) : 0) +
+                      sizeof(T) * kStages * C::W * ((D ? kv_stride<T>(D) : 0) + kv_stride<T>(Dv)) +
                       sizeof(int) * (3 * C::kRows + 2 * kWarps + kStages * 4 * C::W);
   const size_t merge = sizeof(float4) * kWarps * 32 * ((Dv + 7) / 8 + 1);
   return main > merge ? main : merge;
@@ -757,7 +797,11 @@ int num_splits_for(int B, int Hq, int Hkv, int Sq, int S, int D, int Dv,
   });
 }
 
-template <typename T, typename TQ, int MB, int NS, int NT, int kWidth>
+// One launch of every column window (one for widths up to kMaxWindow,
+// window_passes(D, Dv) for wider rows: kWin != kWinNone), then the split
+// combine over the whole rows.
+template <typename T, typename TQ, int MB, int NS, int NT, int kWidth,
+          int kWin = kWinNone>
 cudaError_t launch_cfg(const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale,
                        const int* kv_length, const int* q_times, const int* k_times,
@@ -767,21 +811,27 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v,
                        int num_splits, float scale, int q_bf16, cudaStream_t stream) {
   constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
   using C = Cfg<MB, NS>;
-  const size_t smem = smem_bytes<T, MB, NS, kStages>(D, Dv);
-  auto kernel = decode_kernel<T, TQ, MB, NS, NT, kStages, kWidth>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  auto kernel = decode_kernel<T, TQ, MB, NS, NT, kStages, kWidth, kWin>;
   const int row_tiles = (Hq / Hkv * Sq + C::kRows - 1) / C::kRows;
   const int tiles = (S + C::W - 1) / C::W;
   const int tiles_per_split = (tiles + num_splits - 1) / num_splits;
   const dim3 grid((unsigned)(row_tiles * num_splits), Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const TQ*)q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times,
-      k_times, q_seg, k_seg, (TQ*)out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D,
-      Dv, layer, num_splits, tiles_per_split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || num_splits == 1) return err;
+  const int passes = kWin ? window_passes(D, Dv) : 1;
+  cudaError_t err = cudaSuccess;
+  for (int p = 0; p < passes; ++p) {
+    const Win win = kWin ? window_of(p, passes, D, Dv) : Win{0, D, 0, Dv};
+    const size_t smem = smem_bytes<T, MB, NS, kStages>(kWin == kWinGlobal ? 0 : D, win.vw);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        (const TQ*)q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times,
+        k_times, q_seg, k_seg, (TQ*)out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D,
+        Dv, layer, num_splits, tiles_per_split, scale, win);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (num_splits == 1) return err;
   const int rows = B * Hq * Sq;
   combine_kernel<<<(rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32, 0,
                    stream>>>(o_part, m_part, l_part, out, rows, Sq, Dv, num_splits, q_bf16);
@@ -795,8 +845,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
                    float* o_part, float* m_part, float* l_part, void* out, int B,
                    int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
                    int num_splits, float scale, int q_bf16, cudaStream_t stream) {
-  if (D > 256 || Dv > 256) return cudaErrorInvalidValue;
   num_splits = num_splits_for(B, Hq, Hkv, Sq, S, D, Dv, num_splits < 1 ? 1 : num_splits, 0);
+  if (D > kMaxWindow || Dv > kMaxWindow) {   // with_cta_shape's (4, 1, 32) shape
+    // whole Q and K rows staged where they fit beside the widest V window
+    constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
+    const int passes = window_passes(D, Dv);
+    const bool staged = smem_bytes<T, 4, 1, kStages>(
+                            D, window_of(passes - 1, passes, D, Dv).vw) <= max_shared_bytes();
+    auto go = [&](auto tq, auto mode) {
+      return launch_cfg<T, decltype(tq), 4, 1, 32, 0, decltype(mode)::value>(
+          q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
+          stream);
+    };
+    if (q_bf16)
+      return staged ? go(__nv_bfloat16{}, Int<kWinStaged>{})
+                    : go(__nv_bfloat16{}, Int<kWinGlobal>{});
+    return staged ? go(float{}, Int<kWinStaged>{}) : go(float{}, Int<kWinGlobal>{});
+  }
   return with_cta_shape(Hq / Hkv * Sq, D, Dv, [&](auto mb, auto ns, auto nt, auto width) {
     auto go = [&](auto tq) {
       return launch_cfg<T, decltype(tq), decltype(mb)::value, decltype(ns)::value,
@@ -820,8 +886,8 @@ extern "C" {
 // num_splits is held to [1, key tiles] (flash_decode_num_splits). Scratch
 // o_part (B, Hq, splits, Sq, Dv), m_part, l_part (B, Hq, splits, Sq) f32 for
 // at least that many splits (unread with one split); out (B, Hq, Sq, Dv) of
-// q's type. Widths are any of 1 .. 256. Returns cudaGetLastError() after
-// the launches.
+// q's type. Any widths; past 256 columns the launch runs balanced column
+// windows of at most 256. Returns cudaGetLastError() after the launches.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* k_scale, const void* v_scale,
                         const void* kv_length, const void* q_times,

@@ -295,6 +295,171 @@ __device__ __forceinline__ void store_tile(T* out, const float (&c)[4], int r0,
   }
 }
 
+// ---- rows wider than 256: output column windows ---------------------------
+//
+// A row wider than kMaxWindow columns does not fit the register-resident
+// accumulators. The launch then runs ceil(width / kMaxWindow) balanced
+// passes; pass p accumulates and writes only the output columns
+// [d0, d0 + dw) of the D-wide outputs (dq, dk) and [v0, v0 + vw) of the
+// Dv-wide ones (out, dv). Every pass recomputes the scores S (and dP) over
+// the whole rows in the same order, so the passes' softmax statistics
+// agree bitwise. Where S's operands come from is the kernels' template
+// argument kWin, picked by the launch from what fits shared memory:
+constexpr int kWinNone = 0;    // rows up to kMaxWindow: every column, one pass
+constexpr int kWinStaged = 1;  // whole rows staged in shared memory, as kWinNone,
+                               // the output's own operand (V, or K / Q / dO of
+                               // the backward's products) read at its window
+constexpr int kWinOwned = 2;   // the backward: the owned rows' whole rows
+                               // staged, the walked rows' read from device memory
+constexpr int kWinGlobal = 3;  // every S operand read from device memory
+                               // (score_chunk_g): any width
+constexpr int kMaxWindow = 256;
+
+struct Win {
+  int d0, dw, v0, vw;
+};
+
+__host__ __device__ __forceinline__ int window_passes(int D, int Dv) {
+  const int w = D > Dv ? D : Dv;
+  return (w + kMaxWindow - 1) / kMaxWindow;
+}
+
+// Pass p of `passes` balanced windows over both widths.
+__host__ __device__ __forceinline__ Win window_of(int p, int passes, int D, int Dv) {
+  return Win{p * D / passes, (p + 1) * D / passes - p * D / passes,
+             p * Dv / passes, (p + 1) * Dv / passes - p * Dv / passes};
+}
+
+// A (16 x 8) as frag_a, from a row-major (n, width) array in device
+// memory: zero past its n rows and its width.
+template <bool kExact, typename T>
+__device__ __forceinline__ FragA frag_a_g(const T* __restrict__ a, int n, int width,
+                                          int m0, int k0, int g, int t) {
+  FragA f;
+  const int c0 = k0 + t, c1 = c0 + 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + g + 8 * h;
+    const T* p = a + (size_t)r * width;
+    const bool in = r < n;
+    split<kExact>(in && c0 < width ? to_f(p[c0]) : 0.f, f.big[h], f.small[h]);
+    split<kExact>(in && c1 < width ? to_f(p[c1]) : 0.f, f.big[2 + h], f.small[2 + h]);
+  }
+  return f;
+}
+
+// B (8 x 8) as frag_b_rows, from a row-major (n, width) array in device
+// memory: zero past its n rows and its width.
+template <bool kExact, typename T>
+__device__ __forceinline__ FragB frag_b_rows_g(const T* __restrict__ b, int n, int width,
+                                               int n0, int k0, int g, int t) {
+  FragB f;
+  const int r = n0 + g, c0 = k0 + t, c1 = c0 + 4;
+  const T* p = b + (size_t)r * width;
+  const bool in = r < n;
+  split<kExact>(in && c0 < width ? to_f(p[c0]) : 0.f, f.big[0], f.small[0]);
+  split<kExact>(in && c1 < width ? to_f(p[c1]) : 0.f, f.big[1], f.small[1]);
+  return f;
+}
+
+// score_chunk with both operands read from device memory: A rows m0 ..
+// m0 + 16 of the (an, width) array a, B rows n0 ... of the (bn, width)
+// array b.
+template <int NS, bool kAExact, bool kBExact, typename TA, typename TB>
+__device__ __forceinline__ void score_chunk_g(float (&d)[NS][4], const TA* a, int an,
+                                              int m0, const TB* b, int bn, int n0,
+                                              int k0, int width, int g, int t) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int kk = k0 + 8 * u;
+    if (kk < width) {
+      const FragA fa = frag_a_g<kAExact>(a, an, width, m0, kk, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mma3<kAExact, kBExact>(d[n], fa,
+                               frag_b_rows_g<kBExact>(b, bn, width, n0 + n * 8, kk, g, t));
+    }
+  }
+}
+
+// score_chunk with A from shared memory (rows m0 .. m0 + 16 of sa) and B
+// from device memory (rows n0 ... of the (bn, width) array b).
+template <int NS, bool kAExact, bool kBExact, typename TB>
+__device__ __forceinline__ void score_chunk_sg(float (&d)[NS][4], const float* sa,
+                                               int sa_stride, int m0, const TB* b,
+                                               int bn, int n0, int k0, int width,
+                                               int g, int t) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int kk = k0 + 8 * u;
+    if (kk < width) {
+      const FragA fa = frag_a<kAExact>(sa, sa_stride, m0, kk, g, t);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mma3<kAExact, kBExact>(d[n], fa,
+                               frag_b_rows_g<kBExact>(b, bn, width, n0 + n * 8, kk, g, t));
+    }
+  }
+}
+
+// Copy columns [0, width) of rows [0, nrows) of a row-major array of row
+// stride ld (a window of wider rows) into shared memory at row stride
+// `stride`: float32 into float32 by cp.async (8-byte units where every
+// row start allows them, else 4; the caller commits and waits), any other
+// case an element a thread, synchronously (TS float converts).
+template <typename T, typename TS>
+__device__ void load_window(const T* __restrict__ src, int nrows, int width, int ld,
+                            TS* dst, int stride) {
+  if constexpr (std::is_same<T, float>::value && std::is_same<TS, float>::value) {
+    const bool pairs = ((reinterpret_cast<uintptr_t>(src) & 7) == 0) &&
+                       ((reinterpret_cast<uintptr_t>(dst) & 7) == 0) && ld % 2 == 0 &&
+                       stride % 2 == 0 && width % 2 == 0;
+    const int unit = pairs ? 2 : 1, per = width / unit, n = nrows * per;
+    for (int c = threadIdx.x; c < n; c += blockDim.x) {
+      const int r = c / per, col = (c - r * per) * unit;
+      if (pairs)
+        cp_async_small<2>(dst + r * stride + col, src + (size_t)r * ld + col);
+      else
+        cp_async_small<1>(dst + r * stride + col, src + (size_t)r * ld + col);
+    }
+  } else {
+    const int n = nrows * width;
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const int r = e / width, c = e - r * width;
+      if constexpr (std::is_same<TS, float>::value)
+        dst[r * stride + c] = to_f(src[(size_t)r * ld + c]);
+      else
+        dst[r * stride + c] = src[(size_t)r * ld + c];
+    }
+  }
+}
+
+// The shared memory a CTA of the current device may opt into.
+inline size_t max_shared_bytes() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)bytes;
+}
+
+// store_tile into a column window: columns c0 + 2t, c0 + 2t + 1 (where <
+// width) of rows of stride ld, a column at a time.
+template <typename T>
+__device__ __forceinline__ void store_tile_window(T* out, const float (&c)[4], int r0,
+                                                  int n, int c0, int width, int ld,
+                                                  int g, int t) {
+  const int col = c0 + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row < n) {
+      T* p = out + (size_t)row * ld + col;
+      if (col < width) p[0] = from_f<T>(c[2 * h]);
+      if (col + 1 < width) p[1] = from_f<T>(c[2 * h + 1]);
+    }
+  }
+}
+
 // The m16 block of warp w: w for w < 4, 7 - w for the second warp of each
 // block. A scheduler runs warps w and w + 4, so each pairs a block near
 // the top of the owned rows with one near the bottom; where the mask

@@ -27,7 +27,6 @@ from repro_torch.kernels import cuda
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_WIDTH = 256
 _BLOCK_K = 128          # keys per block of the plain version
 
 
@@ -167,10 +166,8 @@ def check_inputs(q, k, v, *, causal, window, softcap, scale, q_segment_ids,
             raise ValueError(f"{name} must be a contiguous {q.dtype} "
                              f"{tuple(shape)} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if not (0 < d <= _MAX_WIDTH and 0 < dv <= _MAX_WIDTH):
-        raise ValueError(f"row widths D={d}, Dv={dv}: the kernels take 1 .. "
-                         f"{_MAX_WIDTH} (their accumulators live in "
-                         f"registers)")
+    if d < 1 or dv < 1:
+        raise ValueError(f"row widths D={d}, Dv={dv} must be positive")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if (q_times is None) != (k_times is None) or \

@@ -141,7 +141,6 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_WIDTH = 256
 
 
 def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
@@ -152,7 +151,8 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Shapes as :func:`decode_plain`; q float32 or
     bfloat16, and the (B, Hq, Sq, Dv) output in q's dtype, as the
-    reference's. Row widths are any of 1 .. 256. ``num_splits`` (CUDA
+    reference's. Any row width (past 256 columns the kernel runs column
+    windows of at most 256, each recomputing the scores). ``num_splits`` (CUDA
     only) splits each row's key range over that many CTAs, whose partials
     a second kernel joins; the kernel holds it to its count of key tiles,
     and None picks enough to give every SM a CTA."""
@@ -201,10 +201,8 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
     for name, t in (("k", k), ("v", v)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
-    if not (0 < d <= _MAX_WIDTH and 0 < dv <= _MAX_WIDTH):
-        raise ValueError(f"row widths D={d}, Dv={dv}: the kernel takes 1 .. "
-                         f"{_MAX_WIDTH} (its O accumulator lives in "
-                         f"registers)")
+    if d < 1 or dv < 1:
+        raise ValueError(f"row widths D={d}, Dv={dv} must be positive")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or quant != (v_scale is not None):
         raise ValueError("int8 caches need k_scale and v_scale; other "

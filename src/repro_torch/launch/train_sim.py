@@ -18,8 +18,17 @@ Modes:
 
 ``--smoke`` shrinks everything to CI size and asserts the run is healthy:
 loss decreased from init and the final checkpoint round-trips bit-exactly
-(``--smoke --device cpu`` runs on the CPU). The reference's
-``--production-mesh`` waits for the port's mesh path (ROADMAP A9).
+(``--smoke --device cpu`` runs on the CPU).
+
+Across ranks: start one process a rank with torchrun's variables set
+(``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; ``torchrun
+--nproc-per-node N -m repro_torch.launch.train_sim`` sets them), or call
+:func:`train_single` in a process whose group is up. Each rank draws its
+share of every global
+batch (``--batch`` rows a rank) and the step is the single-process step
+on the global batch (``make_sim_train_step(..., group=)``); rank 0 writes
+the checkpoints. ``--production-mesh`` asks for the production mesh,
+which needs 256 ranks and raises on a smaller world.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import SIM_ARCHS, get_sim_arch
 from repro_torch.data.pipeline import ShardedIterator
+from repro_torch.launch.mesh import (init_fleet, make_production_mesh,
+                                     rank0_tempdir)
 from repro_torch.nn.agent_sim import AgentSimModel
 from repro_torch.params import to_reference
 from repro_torch.runtime.evaluation import EvalConfig, evaluate_scenes
@@ -68,7 +79,7 @@ def resolve_ckpt_dir(root, arch, smoke: bool) -> str:
     and must not silently resume a finished earlier run.
     """
     if root is None:
-        root = (tempfile.mkdtemp(prefix="repro_torch_sim_smoke_") if smoke
+        root = (rank0_tempdir("repro_torch_sim_smoke_") if smoke
                 else DEFAULT_CKPT_ROOT)
     sig = (f"{arch.name}_d{arch.d_model}x{arch.num_layers}"
            f"_m{arch.num_map}a{arch.num_agents}t{arch.num_steps}")
@@ -159,15 +170,20 @@ def train_single(args, families=None) -> dict:
     scen = arch.scenario_config()
     model = AgentSimModel(arch.agent_sim_config(), device=args.device,
                           generator=torch.Generator().manual_seed(args.seed))
+    rank, world = _host_coords()
+    if args.production_mesh:
+        make_production_mesh()        # raises on a world under 256 ranks
     ckpt_dir = resolve_ckpt_dir(args.ckpt_dir, arch, args.smoke)
     opt = bc_optimizer(args.lr, args.steps)
-    rank, world = _host_coords()
     data = ShardedIterator(make_batch_fn(scen, families),
                            batch_size=args.batch, seed=args.seed,
                            host_rank=rank, world=world)
     holdout = holdout_batches(scen, args.batch, args.holdout_batches,
                               seed=args.seed)
-    step = make_sim_train_step(model, opt)
+    # across ranks, the step on the global batch: each rank its share
+    step = make_sim_train_step(
+        model, opt, group=torch.distributed.group.WORLD if world > 1
+        else None)
     opt_state = opt.init(dict(model.named_parameters()))
     if args.inject_nan_at is not None:
         step = _with_nan_injection(step, args.inject_nan_at)
@@ -309,6 +325,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="CPU-sized same-encoding config")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) production mesh: needs 256 ranks")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-3)
@@ -367,6 +385,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # a multi-process run: torchrun's variables give this rank its place
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    joined = world > 1 and not torch.distributed.is_initialized()
+    if joined:
+        init_fleet(int(os.environ["RANK"]), world,
+                   f"tcp://{os.environ.get('MASTER_ADDR', 'localhost')}:"
+                   f"{os.environ['MASTER_PORT']}", device=args.device)
     if args.smoke and args.steps == 200:
         args.steps = 40
     # one fresh registry as the process default: the Trainer and the eval
@@ -404,6 +429,8 @@ def main(argv=None):
                 f.write(obs.prometheus_text(reg))
             log.info("prometheus exposition: %s", args.prom_out)
         obs.set_registry(old_reg)
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

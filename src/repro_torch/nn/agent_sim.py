@@ -459,9 +459,16 @@ class AgentSimModel(nn.Module):
         return self._extend(cache, x, agent_pose, times, seg, impl=impl)
 
 
-def action_nll(logits, actions, valid):
-    """Mean NLL of ground-truth actions over valid agent steps."""
+def nll_terms(logits, actions, valid):
+    """:func:`action_nll`'s numerator and denominator: the summed NLL of
+    the ground-truth actions over valid agent steps, and their count."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, actions[..., None].long())[..., 0]
     w = valid.to(torch.float32)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(nll * w), torch.sum(w)
+
+
+def action_nll(logits, actions, valid):
+    """Mean NLL of ground-truth actions over valid agent steps."""
+    total, count = nll_terms(logits, actions, valid)
+    return total / torch.clamp(count, min=1.0)

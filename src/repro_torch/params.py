@@ -56,6 +56,15 @@ def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
     return out
 
 
+def reference_leaf(name: str) -> str:
+    """The reference's leaf of a port parameter name: ``blocks.{i}.rest``
+    belongs to the stacked ``blocks.rest``; any other name is its own."""
+    parts = name.split(".")
+    if parts[0] == _STACKED and len(parts) > 2 and parts[1].isdigit():
+        return ".".join([_STACKED] + parts[2:])
+    return name
+
+
 def reference_tensors(named: Mapping[str, torch.Tensor]):
     """The reference's tree of tensors from a flat name -> tensor dict, on
     the tensors' device: the ``blocks`` layers stacked by ``torch.stack``

@@ -188,19 +188,22 @@ def evaluate_families(model, scen_cfg: ScenarioConfig,
                       eval_cfg: EvalConfig, *,
                       families: Optional[Sequence[str]] = None,
                       n_scenes_per_family: int = 4, scene_seed: int = 777,
-                      num_slots: Optional[int] = None, device=None
-                      ) -> Dict[str, Dict[str, float]]:
+                      num_slots: Optional[int] = None, device=None,
+                      mesh=None) -> Dict[str, Dict[str, float]]:
     """Generate ``n_scenes_per_family`` scenes for every family and run
     the closed-loop evaluation in one mixed batch.
 
     ``device`` goes to the :class:`RolloutEngine`: ``None`` is the card
     (it raises without one), ``"cpu"`` runs the plain versions, and it
-    must be the device the model lives on. There is no ``mesh`` argument:
-    the engine's scene-axis mesh path is not ported yet (ROADMAP A9).
+    must be the device the model lives on. ``mesh``: a scene-axis mesh
+    (``launch.mesh.make_fleet_mesh``); the engine then splits its lanes
+    over the mesh's ranks, and every rank scores the gathered rollouts,
+    so the tables equal the single-process engine's.
     """
     fams = list(families) if families is not None else registry.names()
     scenes = [registry.generate_scene(f, scene_seed, i, scen_cfg)
               for f in fams for i in range(n_scenes_per_family)]
     slots = num_slots or min(32, len(scenes) * eval_cfg.n_samples)
-    engine = RolloutEngine(model, scen_cfg, num_slots=slots, device=device)
+    engine = RolloutEngine(model, scen_cfg, num_slots=slots, device=device,
+                           mesh=mesh)
     return evaluate_scenes(engine, scenes, eval_cfg)

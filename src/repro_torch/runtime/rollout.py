@@ -1,5 +1,5 @@
 """Batched closed-loop rollouts over the cached SE(2) decode path (port of
-``repro/runtime/rollout.py``, one device).
+``repro/runtime/rollout.py``).
 
 Fixed scene slots advance in lockstep: each tick samples an action per
 agent from the previous logits, integrates unicycle kinematics, and decodes
@@ -22,6 +22,13 @@ the ``rollout.cache_bytes`` gauge from shape metadata. No instrument reads
 a device value, so telemetry adds no synchronisation and obs-on and
 obs-off rollouts are bitwise equal. The reference's compiled-cost
 wrappers (``CostAccounted``) are not ported yet (ROADMAP A10).
+
+Fleet rollouts (``mesh=``, a ("pod", "data") mesh of
+:mod:`repro_torch.launch.mesh`): the slots split over the mesh's ranks,
+each running every chunk on its own block of lanes with a replica of the
+model, and the futures and actions are all-gathered in rank order, so
+every rank returns the whole result. Keys come from each lane's global
+index, so a lane's future does not depend on which rank ran it.
 """
 from __future__ import annotations
 
@@ -30,11 +37,18 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import obs, prng
 from repro_torch.core.kinematics import step_kinematics
 from repro_torch.device import resolve_device
 from repro_torch.kernels.categorical import categorical
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.scenarios.core import ScenarioConfig
+
+# the scene axes a fleet mesh may carry (lanes split over both)
+FLEET_AXES = ("pod", "data")
+
 
 def rollout_keys(seed: int, n_scenes: int, n_samples: int,
                  device=None) -> torch.Tensor:
@@ -57,11 +71,16 @@ class RolloutEngine:
     def __init__(self, model, scen_cfg: ScenarioConfig, *, num_slots: int,
                  max_len: Optional[int] = None, cache_dtype=None,
                  decode_impl: Optional[str] = None, device=None,
-                 registry: Optional[obs.Registry] = None):
+                 mesh=None, registry: Optional[obs.Registry] = None):
         """``cache_dtype``: "float32" (default) / "bfloat16" / "int8"
         storage of the K/V cache. ``decode_impl`` overrides the model's
         decode attention backend (``ops.decode_attention`` names).
         ``device``: default ``cuda``; must be the model's device.
+        ``mesh``: a scene-axis mesh carrying the axes of
+        :data:`FLEET_AXES` only (``make_fleet_mesh``); ``num_slots`` is
+        rounded up to a multiple of its ranks, each of which runs
+        ``num_slots / ranks`` lanes of every chunk (its block, in rank
+        order) and gets the gathered result.
         ``registry``: telemetry home, ``None`` the process default,
         ``obs.NULL`` off."""
         self.obs = registry if registry is not None else obs.get_registry()
@@ -71,7 +90,26 @@ class RolloutEngine:
                              f"{self.device}")
         self.model = model
         self.scen = scen_cfg
+        self.mesh = mesh
         self.num_slots = num_slots
+        self.shards, self.shard = 1, 0
+        if mesh is not None:
+            sizes = mesh_shape(mesh)
+            extra = [a for a, n in sizes.items()
+                     if a not in FLEET_AXES and n > 1]
+            if extra or not any(a in sizes for a in FLEET_AXES):
+                raise ValueError(f"fleet mesh must carry only the scene axes "
+                                 f"{FLEET_AXES}; got {sizes} (not scene "
+                                 f"axes: {extra})")
+            coord = mesh.get_coordinate()
+            if coord is None:
+                raise ValueError("this rank is not in the fleet mesh")
+            for i, n in enumerate(sizes.values()):
+                self.shards *= n
+                self.shard = self.shard * n + coord[i]
+            self.num_slots = -(-num_slots // self.shards) * self.shards
+        # lanes this process runs of each chunk
+        self.local_slots = self.num_slots // self.shards
         max_len = max_len or (scen_cfg.num_map
                               + scen_cfg.num_steps * scen_cfg.num_agents)
         # a multiple of the decode kernels' key-block size, as in the
@@ -87,7 +125,7 @@ class RolloutEngine:
         self.last_actions = None      # (S, K, T_fut, A) after each run()
 
     def init_cache(self):
-        cache = self.model.init_cache(self.num_slots, self.max_len,
+        cache = self.model.init_cache(self.local_slots, self.max_len,
                                       self.cache_dtype)
         # shape metadata only: no device read
         self.obs.gauge("rollout.cache_bytes").set(
@@ -174,9 +212,13 @@ class RolloutEngine:
         # the per-(scene, sample) stream is fixed up front, on the host
         keys_all = rollout_keys(seed, n_scenes, n_samples)
         futures, actions = [], []
+        mine = slice(self.shard * self.local_slots,
+                     (self.shard + 1) * self.local_slots)
         for start in range(0, total, self.num_slots):
-            # pad the tail chunk by repeating the last lane
-            lanes = np.minimum(start + np.arange(self.num_slots), total - 1)
+            # pad the tail chunk by repeating the last lane; this process
+            # runs its block of the chunk's lanes
+            lanes = np.minimum(start + np.arange(self.num_slots),
+                               total - 1)[mine]
             hist = {}
             for key in keys:
                 arrs = [scenes[i // n_samples][key] for i in lanes]
@@ -188,6 +230,8 @@ class RolloutEngine:
             with self.obs.span("rollout.chunk"):
                 fut, acts = self._run_chunk(hist, lane_keys, t_hist,
                                             t_total)
+                if self.mesh is not None:
+                    fut, acts = self._gather(fut), self._gather(acts)
                 futures.append(fut[:total - start].cpu().numpy())
                 actions.append(acts[:total - start].cpu().numpy())
         t_fut = t_total - t_hist
@@ -196,3 +240,17 @@ class RolloutEngine:
             n_scenes, n_samples, t_fut, a)
         return np.concatenate(futures, 0).reshape(n_scenes, n_samples,
                                                   t_fut, a, 3)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's lanes of ``x``, concatenated in rank order: an
+        all-gather over each mesh axis, the last axis first (over gloo
+        through host memory)."""
+        staged = x.is_cuda and dist.get_backend() != "nccl"
+        out = x.cpu() if staged else x
+        for axis in reversed(self.mesh.mesh_dim_names):
+            group = self.mesh.get_group(axis)
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, out.contiguous(), group=group)
+            out = torch.cat(parts, 0)
+        return out.to(x.device) if staged else out

@@ -28,8 +28,15 @@ Fault-tolerance contract, as in the reference:
   * **periodic eval**: every ``eval_every`` steps ``eval_cb(step, model)``
     runs; it must only read the model, so resume is unaffected.
 
-The reference's ``param_shardings`` (a mesh placement of the restored
-parameters) waits for the port's mesh path (ROADMAP A9).
+Across ranks (a ``torch.distributed`` process group up) every rank runs
+the same loop on a replica of the parameters, with a step that reduces
+over the ranks (``make_sim_dp_train_step``, or ``make_sim_train_step(...,
+group=)``), so every rank reads the same loss and skips or updates alike.
+Rank 0 writes the checkpoints (:class:`CheckpointManager`); every rank
+restores onto its own device, and its data cursor resumes from the same
+step (each rank keeps its own ``host_rank``). The reference's
+``param_shardings`` places restored parameters on a mesh; the port's
+parameters are replicated, so the model's device stands in for it.
 """
 from __future__ import annotations
 

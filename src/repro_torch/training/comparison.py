@@ -16,18 +16,18 @@ Each run goes through the full fault-tolerant :class:`Trainer` (NaN guard,
 checkpointing, restartable data cursor), so the comparison exercises the
 production path end to end, not a side-channel loop.
 
-Port of ``repro/training/comparison.py`` on one device: ``device`` (default
-the card) goes to every model and to the evaluation. The reference's
-``mesh`` / ``dp_compress`` (sharded compressed-DP training) and
-``eval_mesh`` (scene-sharded evaluation) wait for the port's mesh path
-(ROADMAP A9), and its compiled-cost gauges for ``obs/cost.py`` (A10).
+Port of ``repro/training/comparison.py``: ``device`` (default the card)
+goes to every model and to the evaluation; ``mesh`` / ``dp_compress``
+train through the compressed-DP step over a ("pod", "data") mesh, every
+rank of it calling :func:`run_comparison` alike, and ``eval_mesh`` splits
+the closed-loop scoring's lanes over a fleet mesh. The reference's
+compiled-cost gauges wait for ``obs/cost.py`` (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import os
-import tempfile
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -36,13 +36,15 @@ import torch
 
 from repro_torch.configs import SimArch
 from repro_torch.data.pipeline import ShardedIterator
+from repro_torch.launch.mesh import rank0_tempdir
 from repro_torch.nn.agent_sim import AgentSimModel
 from repro_torch.runtime.evaluation import EvalConfig, evaluate_families
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.training.data import holdout_batches, make_batch_fn
 from repro_torch.training.steps import (bc_optimizer, loss_summary,
+                                        make_sim_dp_train_step,
                                         make_sim_train_step,
-                                        open_loop_metrics)
+                                        open_loop_metrics, sim_dp_state)
 
 log = logging.getLogger("repro_torch.training.comparison")
 
@@ -58,7 +60,8 @@ CLOSED_LOOP_METRICS = ("min_ade", "miss_rate", "collision_rate",
 
 def train_one(arch: SimArch, *, steps: int, batch: int, lr: float = 3e-3,
               seed: int = 0, ckpt_dir: Optional[str] = None,
-              eval_every: int = 0, eval_cb=None, device=None
+              eval_every: int = 0, eval_cb=None, device=None, mesh=None,
+              dp_compress: bool = True
               ) -> Tuple[AgentSimModel, Dict[str, float]]:
     """Train one encoding through the fault-tolerant Trainer.
 
@@ -67,16 +70,27 @@ def train_one(arch: SimArch, *, steps: int, batch: int, lr: float = 3e-3,
     moved. A fresh ``ckpt_dir`` per call keeps encodings from restoring
     each other's checkpoints; pass an existing one to resume. The weights
     are drawn from ``seed`` (the port's generator, not ``jax.random``).
+
+    ``mesh``: a ("pod", "data") mesh; the run then goes through
+    :func:`make_sim_dp_train_step` (each rank on its rows of every global
+    batch, ``dp_compress`` selecting the int8 + error-feedback cross-pod
+    reduction), on every rank of the mesh.
     """
     model = AgentSimModel(arch.agent_sim_config(), device=device,
                           generator=torch.Generator().manual_seed(seed))
     opt = bc_optimizer(lr, steps)
-    step_fn = make_sim_train_step(model, opt)
-    opt_state = opt.init(dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    if mesh is None:
+        step_fn = make_sim_train_step(model, opt)
+        opt_state = opt.init(params)
+    else:
+        step_fn = make_sim_dp_train_step(model, opt, mesh,
+                                         compress=dp_compress)
+        opt_state = sim_dp_state(opt, params)
     data = ShardedIterator(make_batch_fn(arch.scenario_config()),
                            batch_size=batch, seed=seed)
     if ckpt_dir is None:
-        ckpt_dir = tempfile.mkdtemp(prefix=f"simcmp_{arch.encoding}_")
+        ckpt_dir = rank0_tempdir(f"simcmp_{arch.encoding}_")
     t0 = time.time()
     trainer = Trainer(
         step_fn, model, opt_state, data, ckpt_dir,
@@ -107,6 +121,7 @@ def run_comparison(arch: SimArch,
                    seed: int = 0, holdout_n: int = 4,
                    n_scenes_per_family: int = 2, eval_samples: int = 4,
                    ckpt_root: Optional[str] = None, report=None,
+                   mesh=None, dp_compress: bool = True, eval_mesh=None,
                    eval_num_slots: Optional[int] = None, device=None
                    ) -> Dict[str, Dict[str, float]]:
     """Train every encoding under one budget; score open- and closed-loop.
@@ -117,6 +132,11 @@ def run_comparison(arch: SimArch,
     with the paper's qualitative claim (best relative NLL <= absolute NLL)
     evaluated on this run. ``eval_num_slots`` sets the evaluation's
     rollout lanes.
+
+    ``mesh``/``dp_compress`` route training through the compressed-DP
+    step (see :func:`train_one`); ``eval_mesh`` runs the closed-loop
+    scoring through the scene-sharded fleet engine. Every rank of the
+    meshes calls this alike and gets the same rows.
     """
     report = report or (lambda name, value, extra="": None)
     scen = arch.scenario_config()
@@ -129,12 +149,14 @@ def run_comparison(arch: SimArch,
             arch, name=f"{arch.name}-cmp-{enc}", encoding=enc)
         ckpt = (os.path.join(ckpt_root, enc) if ckpt_root else None)
         model, summary = train_one(arch_e, steps=steps, batch=batch, lr=lr,
-                                   seed=seed, ckpt_dir=ckpt, device=device)
+                                   seed=seed, ckpt_dir=ckpt, device=device,
+                                   mesh=mesh, dp_compress=dp_compress)
         open_m = open_loop_metrics(model, holdout)
         closed = evaluate_families(
             model, scen, eval_cfg,
             n_scenes_per_family=n_scenes_per_family,
-            scene_seed=seed + 777, num_slots=eval_num_slots, device=device)
+            scene_seed=seed + 777, num_slots=eval_num_slots, device=device,
+            mesh=eval_mesh)
         row = dict(summary)
         row["open_loop_nll"] = open_m["nll"]
         row["open_loop_accuracy"] = open_m["accuracy"]

@@ -172,7 +172,14 @@ DECODE_CASES = {
 # widths (4-byte and 1-byte copies, one column at a time on the way out)
 ODD_WIDTHS = {"d20_dv36": (20, 36), "d232": (232, 232), "c50": (50, 50),
               "c150": (150, 150), "c250": (250, 250),
-              "d75_dv151": (75, 151), "d13_dv7": (13, 7)}
+              "d75_dv151": (75, 151), "d13_dv7": (13, 7),
+              # past 256: column windows (se2_fourier at head_dim 36 and
+              # 60, c = 300 and 500, Q and K staged in shared memory), one
+              # side only past 256, and rows too wide to stage (c = 700:
+              # every pass reads Q and K from device memory)
+              "c300": (300, 300), "c500": (500, 500),
+              "d300_dv100": (300, 100), "d40_dv520": (40, 520),
+              "c700": (700, 700)}
 # the tick's rows (one m16 block a kv head) and the prefill's
 ROW_CASES = {"tick": (3, 2, 2, 12, 160, [5, 100, 160]),
              "prefill": (3, 2, 2, 144, 192, [0, 33, 192])}
@@ -272,7 +279,7 @@ def test_flash_decode_c24_matches_plain(dev, cache_dtype, rows, splits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("splits", [1, 5])
-@pytest.mark.parametrize("widths", ["c150", "d75_dv151", "sim"])
+@pytest.mark.parametrize("widths", ["c150", "d75_dv151", "sim", "c300"])
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
 def test_flash_decode_bf16_query_matches_plain(dev, cache_dtype, widths,
                                                splits):
@@ -385,6 +392,15 @@ FLASH_CASES = {
     "sim_c250": (2, 4, 4, 336, 336, 250, 250, "scene"),
     "odd_75_151": (2, 4, 2, 37, 53, 75, 151, dict(causal=True)),
     "odd_13_7": (2, 2, 2, 45, 45, 13, 7, "scene"),
+    # past 256 columns: balanced column windows (se2_fourier at head_dim
+    # 36 and 60: the backward stages its owned rows at c = 300 and reads
+    # every operand from device memory at 500), one side only past 256
+    # (whole rows staged), and rows too wide to stage anywhere (c = 700)
+    "sim_c300": (2, 4, 4, 336, 336, 300, 300, "scene"),
+    "sim_c500": (1, 2, 2, 336, 336, 500, 500, "scene"),
+    "sim_c700": (1, 2, 2, 96, 96, 700, 700, "scene"),
+    "wide_300_100": (2, 4, 2, 37, 53, 300, 100, dict(causal=True)),
+    "wide_40_520": (1, 2, 2, 45, 45, 40, 520, "scene"),
 }
 
 
@@ -534,17 +550,17 @@ def test_flash_forward_ragged_tile_with_large_padding_rows(dev, dtype):
 
 @pytest.mark.gpu
 def test_flash_kernels_raise_on_what_they_do_not_take(dev):
-    """Widths past the register-resident accumulators' 256, and
-    non-contiguous inputs, raise before any launch, naming the limit;
-    nothing falls back to the plain version."""
+    """Empty rows and non-contiguous inputs raise before any launch;
+    nothing falls back to the plain version. (Rows of any width are taken:
+    past 256 columns the kernels run column windows.)"""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    q = torch.zeros((1, 1, 8, 260), device=dev)
-    with pytest.raises(ValueError, match="widths.*256"):
+    q = torch.zeros((1, 1, 8, 0), device=dev)
+    with pytest.raises(ValueError, match="widths.*positive"):
         fa.flash_attention_fwd(q, q, q)
-    k = torch.zeros((1, 1, 1, 8, 257), device=dev)
-    with pytest.raises(ValueError, match="widths.*256"):
-        fd.flash_decode(q[..., :257].contiguous(), k, k,
+    k = torch.zeros((1, 1, 1, 8, 0), device=dev)
+    with pytest.raises(ValueError, match="widths.*positive"):
+        fd.flash_decode(q, k, k,
                         torch.full((1,), 8, dtype=torch.int32, device=dev),
                         layer=0)
     q = torch.zeros((1, 2, 8, 32), device=dev).transpose(1, 2)

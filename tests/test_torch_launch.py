@@ -45,7 +45,7 @@ def test_flags_are_the_reference_flags():
         argparse.ArgumentParser.parse_args = orig
     ref = _flags(captured["parser"])
     port = _flags(train_sim.build_parser())
-    assert ref - port == {"--production-mesh"}
+    assert ref - port == set()
     assert port - ref == {"--device"}
 
 
