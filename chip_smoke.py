@@ -171,7 +171,36 @@ Run from the root of a checkout. Phases, each of which fails the run:
    over 2 ranks with checkpoints every 3 steps, then its last checkpoint
    removed and the run restarted from the one before: the final checkpoint
    bitwise equal to the first run's. Rates of (b)-(d) are of ranks sharing
-   one card, not a scaling curve.
+   one card, not a scaling curve;
+13. the dense LM serving stack: (a) the decode at phi4-mini-3.8b's tick
+   (8 slots x 24 / 8 heads x 128, cursors spread over 1-2,048; float32,
+   bf16 and int8 caches with float32 and bf16 queries; a 40-token chunk
+   causal through its positions), stablelm-3b's 80-wide MHA and
+   granite-20b's MQA (a group of 48), and the flash forward at the prefill
+   (2 x 1,024 tokens, causal, float32 and bf16, and the same two archs'
+   heads) against their plain versions, timed beside SDPA and the bound;
+   (b) phi4-mini-3.8b at full width and depth (3.8 B parameters, float32,
+   random weights from a CUDA generator seeded 0): the prefill step's last
+   logits for 2 prompts of 512 tokens, and every position's, against the
+   same prompts fed token by token through the serve step, within 2e-3 /
+   2e-2, launches exact (32 flash forward, 32 x 512 decode) and no plain
+   attention call; the registered bf16 config on the same weights: top-1
+   equal to float32's at 85% of the positions at least, and in the
+   prefill step's rows except at near-ties (float32's top two within
+   1e-3), the disagreements counted; (c) the LM
+   Server at full width (8 layers), 16 requests (prompts 16-256 tokens, 32 new each,
+   greedy) through 8 slots with float32 and int8 caches: every request
+   done with 32 tokens, the shortest, the longest and two admitted mid-run
+   equal to their runs in a 1-slot server, decode launches exactly layers
+   x ticks, no plain attention call; tokens/s, tick p50/p99, peak memory
+   and the device profile of the float32 drive's first 40 ticks (launches
+   a tick, busy share);
+   (d) ``python -m repro_torch.launch.serve --arch phi4-mini-3.8b`` exits
+   0 with its decode launches logged; (e) stablelm-3b, granite-20b and
+   internvl2-26b at full width and 2 layers (internvl with its 256-token
+   prefix, decoded as one chunk): token-by-token decode against the full
+   forward as in (b), launches exact. (c) runs phi4-mini at full width and
+   8 of its 32 layers (its ticks are host-bound); (b) and (d) run all 32.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -323,6 +352,35 @@ SAMPLING_SCENES, SAMPLING_SAMPLES = 32, 2
 BF16_MODEL_TOL = dict(atol=8e-2, rtol=8e-2)
 BF16_GRAD_REL_TOL = 8e-2
 BF16_EVAL_SCENES, BF16_SERVE_SCENES = 4, 32
+# phase 13: the dense LM serving stack. (a) the decode at phi4-mini-3.8b's
+# tick (slots, cursors spread over 1 up to this many rows) and the flash
+# forward at its prefill (prompts x tokens); (b) the full-width model's
+# prefill step against token-by-token decode at the reference's gate
+# (tests/test_archs_smoke.py:118-120), its bf16 config's top-1 against
+# float32's except at near-ties (float32's top two within LM_NEAR_TIE);
+# (c) the Server: requests, slots, new tokens a request, prompt lengths,
+# the cache's rows; (e) the other dense archs at full width, cut in depth
+LM_ARCH = "phi4-mini-3.8b"
+LM_SLOTS, LM_MAX_CURSOR = 8, 2048
+LM_PREFILL_B, LM_PREFILL_S = 2, 1024
+LM_GATE_PROMPTS, LM_GATE_LEN = 2, 512
+LM_GATE_TOL = dict(atol=2e-3, rtol=2e-2)
+LM_NEAR_TIE = 1e-3
+# bf16 rounding moves the random-weight model's logits by about 0.1 a
+# position (max abs on an H100, PERF.md §6), past most of float32's top-two
+# gaps (median 0.15): over every position top-1 agreement is a share, not
+# an identity
+LM_BF16_AGREE = 0.85
+LM_SERVE_REQUESTS, LM_SERVE_SLOTS, LM_SERVE_NEW = 16, 8, 32
+LM_SERVE_PROMPT, LM_SERVE_MAX_LEN = (16, 256), 320
+# the server's depth: a tick is host-bound (about 60 launches a layer,
+# 57 ms at 32 layers on an H100, PERF.md §5), and 16 requests with
+# four solo runs a cache dtype took 209 s at full depth; a quarter of it
+# keeps phase 13 near its 150 s (13b and 13d run the full 32 layers)
+LM_SERVE_LAYERS = 8
+LM_PROFILE_TICKS = 40
+LM_SHALLOW_ARCHS = ("stablelm-3b", "granite-20b", "internvl2-26b")
+LM_SHALLOW_LAYERS, LM_SHALLOW_TOKENS = 2, 64
 # bound_ms denominators of phase 6's new rows: bf16 products on the tensor
 # cores (H100 SXM data sheet), and 32-bit integer operations for the
 # sampler's hash: 64 a clock an SM on compute capability 9.0 (the CUDA C++
@@ -2806,6 +2864,504 @@ def launcher_phase():
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense LM serving stack
+# ---------------------------------------------------------------------------
+
+def lm_decode_case(gen, dev, *, b, hq, hkv, d, s, cursors, cache_dtype,
+                   q_dtype, sq=1):
+    """An LM cache of two layers read at layer 1 (rows past each cursor
+    NaN; int8: NaN scales) and sq query rows a slot at the last sq
+    positions before its cursor (causal through q_times / k_times where
+    sq > 1)."""
+    import torch
+    from repro_torch.kernels.flash_decode import quantize_kv
+    k = torch.randn((2, b, hkv, s, d), generator=gen, device=dev)
+    v = torch.randn((2, b, hkv, s, d), generator=gen, device=dev)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(q_dtype)
+    kvl = torch.as_tensor(cursors, dtype=torch.int32, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+    nan = torch.tensor(float("nan"), device=dev)
+    opts = dict(k_scale=None, v_scale=None, q_times=None, k_times=None)
+    if cache_dtype == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        opts["k_scale"] = torch.where(past[None, :, None], nan,
+                                      ks).contiguous()
+        opts["v_scale"] = torch.where(past[None, :, None], nan,
+                                      vs).contiguous()
+    else:
+        dt = getattr(torch, cache_dtype)
+        k = torch.where(past[None, :, None, :, None], nan, k).to(dt)
+        v = torch.where(past[None, :, None, :, None], nan, v).to(dt)
+    if sq > 1:
+        opts["q_times"] = (kvl[:, None] - sq + torch.arange(sq, device=dev)
+                           ).to(torch.int32).contiguous()
+        opts["k_times"] = torch.arange(s, dtype=torch.int32, device=dev)[
+            None].expand(b, s).contiguous()
+    return q, k.contiguous(), v.contiguous(), kvl, opts
+
+
+class PlainCalls:
+    """Counts calls of the attention kernels' plain versions and of the
+    plain attention paths while it is entered (module attributes wrapped,
+    so calls through the dispatchers are seen)."""
+
+    TARGETS = (("repro_torch.kernels.flash_decode", "decode_plain"),
+               ("repro_torch.kernels.flash_attention", "flash_fwd_plain"),
+               ("repro_torch.kernels.flash_attention_bwd", "flash_bwd_plain"),
+               ("repro_torch.kernels.ref", "mha_chunked"),
+               ("repro_torch.kernels.ref", "mha_reference"))
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._saved = {}, []
+        for mod_name, fn_name in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, fn_name)
+            self._saved.append((mod, fn_name, fn))
+
+            def counted(*a, _fn=fn, _name=fn_name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            setattr(mod, fn_name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self._saved:
+            setattr(mod, fn_name, fn)
+
+
+def lm_kernels(gen, dev, max_err, records):
+    """Phase 13a: the decode and the flash forward at the LM shapes against
+    their plain versions (phase 3's tolerances), each timed as phase 6
+    times (events and CUPTI) beside its plain version, SDPA and its bound;
+    the rows nest in the two kernels' records."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import dequantize_kv
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(13)
+    cursors = np.concatenate([[1, LM_MAX_CURSOR], rng.integers(
+        1, LM_MAX_CURSOR + 1, LM_SLOTS - 2)])
+    # the decode: (b, hq, hkv, d, s, cursors) a case
+    tick = (LM_SLOTS, 24, 8, 128, LM_MAX_CURSOR, cursors)
+    decode_checks = {f"{cd} cache, {str(qd)[6:]} query": (tick, cd, qd, 1)
+                     for cd in ("float32", "bfloat16", "int8")
+                     for qd in (f32, bf16)}
+    decode_checks["phi4 chunk of 40, float32"] = (
+        (2, 24, 8, 128, 512, [40, 300]), "float32", f32, 40)
+    decode_checks["stablelm MHA 32 x 80, float32"] = (
+        (LM_SLOTS, 32, 32, 80, LM_MAX_CURSOR, cursors), "float32", f32, 1)
+    decode_checks["granite MQA 48 / 1, float32"] = (
+        (LM_SLOTS, 48, 1, 128, LM_MAX_CURSOR, cursors), "float32", f32, 1)
+    timed = {"float32 cache, float32 query": "lm_tick",
+             "bfloat16 cache, bfloat16 query": "lm_tick_bf16",
+             "int8 cache, bfloat16 query": "lm_tick_int8_bf16q",
+             "stablelm MHA 32 x 80, float32": "lm_tick_stablelm",
+             "granite MQA 48 / 1, float32": "lm_tick_granite"}
+    timings = {}
+    for what, ((b, hq, hkv, d, s, cur), cd, qd, sq) in decode_checks.items():
+        q, k, v, kvl, opts = lm_decode_case(
+            gen, dev, b=b, hq=hq, hkv=hkv, d=d, s=s, cursors=cur,
+            cache_dtype=cd, q_dtype=qd, sq=sq)
+        run = lambda q=q, k=k, v=v, kvl=kvl, opts=opts: \
+            ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                 impl="flash_decode", **opts)
+        got, again = run(), run()
+        want = ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                    impl="plain", **opts)
+        torch.cuda.synchronize()
+        tol = DECODE_TOL["bfloat16" if qd == bf16 else cd]
+        err = close_or_raise(f"13a flash_decode {what}", got, want, **tol)
+        if not torch.equal(got, again):
+            raise AssertionError(f"13a flash_decode {what}: not bitwise "
+                                 f"repeatable")
+        max_err["flash_decode"] = max(max_err["flash_decode"], err)
+        log(f"13a flash_decode {what}: {b} slots x {hq}/{hkv} heads x {d}, "
+            f"{sq} query rows, cursors {min(cur)}-{max(cur)}: max abs err "
+            f"{err:.3e}, bitwise repeatable")
+        if what not in timed:
+            continue
+        live = int(kvl.sum())
+        es = k.element_size()
+        # SDPA over layer 1 in the query's dtype (int8 dequantized), the
+        # NaN rows past the cursors zeroed (a masked NaN V row is NaN in P V)
+        kl, vl = (torch.nan_to_num(
+            dequantize_kv(t_[1], sc[1], dtype=qd) if cd == "int8"
+            else t_[1].to(qd))
+            for t_, sc in ((k, opts["k_scale"]), (v, opts["v_scale"])))
+        mask = (torch.arange(s, device=dev)[None, :] < kvl[:, None].long()
+                )[:, None, None, :]
+        timings[timed[what]] = dict(
+            fn=run, plain=lambda q=q, k=k, v=v, kvl=kvl, opts=opts:
+            ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                 impl="plain", **opts),
+            library=lambda q=q, kl=kl, vl=vl, mask=mask:
+            F.scaled_dot_product_attention(q, kl, vl, attn_mask=mask,
+                                           enable_gqa=True),
+            bytes=(live * hkv * 2 * d * es + (live * hkv * 2 * 4
+                                              if cd == "int8" else 0)
+                   + 2 * b * hq * sq * d * q.element_size() + b * 4),
+            flops=2 * live * hq * sq * 2 * d,
+            rate=SPLIT_TF32_FLOP_PER_S if cd == "float32"
+            else BF16_FLOP_PER_S, kernel="flash_decode",
+            shape=f"{what}: {b} slots x {hq}/{hkv} heads x {d}, {live} live "
+                  f"rows over {s}")
+    # the forward at the prefill: causal, (b, hq, hkv, s, d, dtype)
+    fwd_checks = {
+        "lm_prefill": (LM_PREFILL_B, 24, 8, LM_PREFILL_S, 128, f32),
+        "lm_prefill_bf16": (LM_PREFILL_B, 24, 8, LM_PREFILL_S, 128, bf16),
+        "lm_prefill_stablelm": (LM_PREFILL_B, 32, 32, LM_PREFILL_S, 80, f32),
+        "lm_prefill_granite": (LM_PREFILL_B, 48, 1, LM_PREFILL_S, 128, f32)}
+    for name, (b, hq, hkv, s, d, dt) in fwd_checks.items():
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dt)
+        run = lambda q=q, k=k, v=v: fa.flash_attention_fwd(  # noqa: E731
+            q, k, v, causal=True)
+        (got, lse), (again, _) = run(), run()
+        want, want_lse = fa.flash_fwd_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        key = "float32" if dt == f32 else "bfloat16"
+        err = close_or_raise(f"13a flash forward {name}", got, want,
+                             **FLASH_TOL[key])
+        close_or_raise(f"13a flash forward {name} lse", lse, want_lse,
+                       atol=1e-4, rtol=1e-5)
+        if not torch.equal(got, again):
+            raise AssertionError(f"13a flash forward {name}: not bitwise "
+                                 f"repeatable")
+        if dt == f32:
+            max_err["flash_attention_fwd"] = max(
+                max_err["flash_attention_fwd"], err)
+        log(f"13a flash forward {name}: {b} x {hq}/{hkv} heads x {s} x {d} "
+            f"causal, {key}: max abs err {err:.3e}, bitwise repeatable")
+        es = q.element_size()
+        pairs = b * s * (s + 1) // 2
+        timings[name] = dict(
+            fn=run, plain=lambda q=q, k=k, v=v: fa.flash_fwd_plain(
+                q, k, v, causal=True),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            bytes=(2 * b * hq * s * d + 2 * b * hkv * s * d) * es
+            + b * hq * s * 4,
+            flops=2 * pairs * hq * 2 * d,
+            rate=SPLIT_TF32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S,
+            kernel="flash_attention_fwd",
+            shape=f"{b} x {hq}/{hkv} heads x {s} x {d}, causal, {key}")
+    for name, tm in timings.items():
+        ms = time_ms(tm["fn"])
+        plain_ms = time_ms(tm["plain"], batches=5, per_batch=4)
+        library_ms = time_ms(tm["library"])
+        device = {"ms": kernel_ms(tm["fn"]),
+                  "plain_ms": kernel_ms(tm["plain"], reps=5),
+                  "library_ms": kernel_ms(tm["library"])}
+        byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        flop_ms = tm["flops"] / tm["rate"] * 1e3
+        nested = {"ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(byte_ms, flop_ms),
+                  "bound_by": "bytes" if byte_ms >= flop_ms
+                  else "operations", "library_ms": library_ms,
+                  "bound_f32_ms": max(byte_ms,
+                                      tm["flops"] / F32_FLOP_PER_S * 1e3)}
+        owner = next(r for r in records if r["name"] == tm["kernel"])
+        owner[name] = nested
+        log(json.dumps({"kernel": tm["kernel"], "row": name,
+                        "shape": tm["shape"], **nested,
+                        "device_time_ms": device}))
+
+
+def lm_tokenwise(model, toks, prefix, max_len):
+    """Logits of every token position decoded over a fresh float32 cache:
+    the prefix (if any) and the first token as one chunk (the decode kernel
+    with q_times / k_times), then one token a serve step."""
+    import torch
+    from repro_torch.runtime.steps import make_serve_step
+    serve = make_serve_step(model)
+    p = 0 if prefix is None else prefix.shape[1]
+    cache = model.init_cache(toks.shape[0], max_len, torch.float32)
+    first, _, cache = model(toks[:, :1], prefix_embeds=prefix, cache=cache,
+                            cache_index=0)
+    outs = [first[:, p:]]
+    for i in range(1, toks.shape[1]):
+        lg, cache = serve(cache, toks[:, i:i + 1], p + i)
+        outs.append(lg[:, None])
+    return torch.cat(outs, 1)
+
+
+def lm_served(model, requests, cache_dtype, slots, max_len,
+              max_ticks=None):
+    """Drive a Server over ``requests`` [(uid, prompt, max_new)] (to the
+    end, or ``max_ticks`` ticks); returns (server, wall s, per-tick s,
+    launches, tick a request was admitted, plain attention calls, peak
+    memory above the model's)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime.server import Request, Server
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = Server(model, num_slots=slots, max_len=max_len,
+                 cache_dtype=cache_dtype)
+    for uid, prompt, new in requests:
+        srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    admitted, ticks = {}, []
+    with PlainCalls() as plain:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        while (srv.queue or any(s.request for s in srv.slots)) and (
+                max_ticks is None or srv.ticks < max_ticks):
+            ts = time.perf_counter()
+            srv.step()
+            ticks.append(time.perf_counter() - ts)
+            for s in srv.slots:
+                if s.request is not None:
+                    admitted.setdefault(s.request.uid, srv.ticks - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    return srv, wall, ticks, counts, admitted, plain.calls, peak
+
+
+def lm_phase(launches, max_err, records):
+    """Phase 13: the dense LM serving stack (see the module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.module import count_params
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.runtime.steps import make_prefill_step
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+
+    phase("13a. the LM stack: the decode and the flash forward at the LM "
+          "shapes")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lm_kernels(gen, dev, max_err, records)
+
+    phase(f"13b. {LM_ARCH} at full width and depth: prefill against "
+          f"token-by-token decode")
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_q_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab} (tied), {count_params(model):,} parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, drawn by a CUDA "
+        f"generator seeded 0 in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(13)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_GATE_PROMPTS, LM_GATE_LEN))).to(dev)
+    prefill = make_prefill_step(model)
+    cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if dict(cuda.LAUNCHES) != {"flash_attention_fwd": cfg.num_layers}:
+        raise AssertionError(f"13b prefill launches {dict(cuda.LAUNCHES)}")
+    launches["flash_attention_fwd"] += cfg.num_layers
+    with torch.no_grad():
+        full, _, _ = model(toks)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with PlainCalls() as plain:
+        dec = lm_tokenwise(model, toks, None, LM_GATE_LEN)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    want = {"flash_decode": cfg.num_layers * LM_GATE_LEN}
+    if dict(cuda.LAUNCHES) != want or plain.calls:
+        raise AssertionError(f"13b decode launches {dict(cuda.LAUNCHES)} != "
+                             f"{want}; plain calls {plain.calls}")
+    launches["flash_decode"] += want["flash_decode"]
+    err_last = close_or_raise("13b the prefill step's last logits against "
+                              "the serve step's", dec[:, -1], last,
+                              **LM_GATE_TOL)
+    err_all = close_or_raise("13b every position's logits, decode against "
+                             "the full forward", dec, full, **LM_GATE_TOL)
+    log(f"13b {LM_GATE_PROMPTS} prompts x {LM_GATE_LEN} tokens: the prefill "
+        f"step in {prefill_s:.3f} s ({cfg.num_layers} flash forward "
+        f"launches); {LM_GATE_LEN} serve steps in {dec_s:.2f} s "
+        f"({dec_s / LM_GATE_LEN * 1e3:.2f} ms a step, "
+        f"{cfg.num_layers * LM_GATE_LEN} decode launches, no plain "
+        f"attention call); last logits max abs err {err_last:.3e}, every "
+        f"position {err_all:.3e} (gate {LM_GATE_TOL})")
+    del dec
+    # the registered bf16 config on the same weights: top-1 against
+    # float32's at every position, and at the prefill step's last positions
+    bmodel = build_model(configs.get_config(LM_ARCH), device="meta")
+    bmodel.load_state_dict(model.state_dict(), assign=True)
+    with torch.no_grad():
+        bfull, _, _ = bmodel(toks)
+        blast = make_prefill_step(bmodel)({"tokens": toks})
+    f, b_ = full.float(), bfull.float()
+    top2 = torch.topk(f, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    agree = f.argmax(-1) == b_.argmax(-1)
+    near = gap < LM_NEAR_TIE
+    diff = (f - b_).abs().amax(-1)
+    share = float(agree.float().mean())
+    gq = torch.quantile(gap.flatten(), torch.tensor([0.1, 0.5], device=dev))
+    log(f"13b bf16 ({LM_ARCH} as registered, the same weights): top-1 "
+        f"equal to float32's at {int(agree.sum())} of {agree.numel()} "
+        f"positions ({share:.1%}); of the {int((~agree).sum())} that differ, "
+        f"{int((~agree & near).sum())} are near-ties (float32's top two "
+        f"within {LM_NEAR_TIE}), the largest float32 gap among them "
+        f"{float(gap[~agree].max()) if (~agree).any() else 0.0:.4f}; "
+        f"float32's top-two gap p10 {float(gq[0]):.4f}, p50 "
+        f"{float(gq[1]):.4f}; bf16 logits' max abs diff a position p50 "
+        f"{float(diff.median()):.4f}, max {float(diff.max()):.4f}; logits' "
+        f"max abs {float(f.abs().max()):.3f}")
+    if share < LM_BF16_AGREE:
+        raise AssertionError(f"13b bf16: top-1 agreement {share:.1%} under "
+                             f"{LM_BF16_AGREE:.0%}")
+    lgap = torch.topk(last.float(), 2, dim=-1).values
+    lgap = lgap[:, 0] - lgap[:, 1]
+    last_agree = last.float().argmax(-1) == blast.float().argmax(-1)
+    if bool((~last_agree & (lgap >= LM_NEAR_TIE)).any()):
+        raise AssertionError(f"13b bf16: the prefill step's top-1 differs "
+                             f"from float32's away from a near-tie (gaps "
+                             f"{lgap.tolist()}, equal {last_agree.tolist()})")
+    log(f"13b bf16: the prefill step's last logits' top-1 equal to "
+        f"float32's in {int(last_agree.sum())} of {last_agree.numel()} rows "
+        f"(float32 gaps {', '.join(f'{g_:.4f}' for g_ in lgap.tolist())})")
+    del bmodel, bfull, blast, full, f, b_, last, model
+    torch.cuda.empty_cache()
+
+    phase(f"13c. the LM Server at full width and {LM_SERVE_LAYERS} layers: "
+          f"{LM_SERVE_REQUESTS} requests through {LM_SERVE_SLOTS} slots")
+    cfg = dataclasses.replace(cfg, num_layers=LM_SERVE_LAYERS)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    rng = np.random.default_rng(131)
+    lens = rng.integers(LM_SERVE_PROMPT[0], LM_SERVE_PROMPT[1] + 1,
+                        LM_SERVE_REQUESTS)
+    requests = [(uid, rng.integers(1, cfg.vocab_size, n), LM_SERVE_NEW)
+                for uid, n in enumerate(lens)]
+    for cache_dtype in ("float32", "int8"):
+        srv, wall, ticks, counts, admitted, plain_calls, peak = lm_served(
+            model, requests, cache_dtype, LM_SERVE_SLOTS, LM_SERVE_MAX_LEN)
+        done = srv.done
+        if sorted(done) != list(range(LM_SERVE_REQUESTS)) or any(
+                len(r.generated) != LM_SERVE_NEW for r in done.values()):
+            raise AssertionError(f"13c {cache_dtype}: requests "
+                                 f"{sorted(done)} or lengths wrong")
+        want = {"flash_decode": cfg.num_layers * srv.ticks}
+        if counts != want or plain_calls:
+            raise AssertionError(f"13c {cache_dtype}: launches {counts} != "
+                                 f"{want}; plain calls {plain_calls}")
+        launches["flash_decode"] += want["flash_decode"]
+        checked = {int(np.argmin(lens)): "shortest",
+                   int(np.argmax(lens)): "longest"}
+        mid = sorted((t, u) for u, t in admitted.items()
+                     if t > 0 and u not in checked)
+        for t, u in (mid[0], mid[-1]):
+            checked[u] = f"admitted at tick {t}"
+        if len(checked) != 4:
+            raise AssertionError(f"13c: {checked} are not 4 requests")
+        for uid, why in checked.items():
+            solo, *_ = lm_served(model, [requests[uid]], cache_dtype, 1,
+                                 LM_SERVE_MAX_LEN)
+            if solo.done[uid].generated != done[uid].generated:
+                raise AssertionError(
+                    f"13c {cache_dtype}: request {uid} ({why}) gave "
+                    f"{done[uid].generated} beside others and "
+                    f"{solo.done[uid].generated} alone")
+        n_tok = sum(len(r.generated) for r in done.values())
+        tick_ms = np.asarray(ticks) * 1e3
+        log(f"13c {cache_dtype} cache: {LM_SERVE_REQUESTS} requests (prompts "
+            f"{lens.min()}-{lens.max()} tokens, {LM_SERVE_NEW} new each, "
+            f"greedy) in {srv.ticks} ticks, {wall:.2f} s: "
+            f"{n_tok / wall:.1f} generated tokens/s, "
+            f"{(n_tok + int(lens.sum())) / wall:.1f} tokens/s with the "
+            f"prompts; tick p50 {np.percentile(tick_ms, 50):.2f} ms, p99 "
+            f"{np.percentile(tick_ms, 99):.2f} ms; {cfg.num_layers} decode "
+            f"launches a tick, no plain attention call; peak memory "
+            f"{peak / 2**30:.2f} GiB above the model's; requests "
+            + ", ".join(f"{u} ({w})" for u, w in checked.items())
+            + " equal to their solo runs")
+        if cache_dtype == "float32":     # the first ticks, profiled
+            part = lambda: lm_served(  # noqa: E731
+                model, requests, cache_dtype, LM_SERVE_SLOTS,
+                LM_SERVE_MAX_LEN, max_ticks=LM_PROFILE_TICKS)
+            device_profile(part, part()[1], ("tick", lambda: LM_PROFILE_TICKS),
+                           f"13c LM server, float32 cache, its first "
+                           f"{LM_PROFILE_TICKS} ticks")
+        del srv
+    del model
+    torch.cuda.empty_cache()
+
+    phase(f"13d. python -m repro_torch.launch.serve --arch {LM_ARCH}")
+    work = ROOT / "build" / "phase13"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         LM_ARCH], cwd=work, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if run.returncode != 0:
+        raise AssertionError(f"launch.serve exited {run.returncode}:\n"
+                             f"{run.stderr[-3000:]}")
+    served = [ln for ln in run.stderr.splitlines() if "served" in ln]
+    if not served or "flash_decode" not in served[0]:
+        raise AssertionError(f"launch.serve: no decode launch reported:\n"
+                             f"{run.stderr[-2000:]}")
+    log(f"13d launch.serve exited 0 in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(run.stderr.strip().splitlines()[:2] + served))
+
+    phase("13e. stablelm-3b, granite-20b, internvl2-26b at full width and "
+          f"{LM_SHALLOW_LAYERS} layers")
+    for arch in LM_SHALLOW_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  num_layers=LM_SHALLOW_LAYERS,
+                                  dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        model = build_model(cfg, device=dev, generator=gen)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, LM_SHALLOW_TOKENS))).to(dev)
+        prefix = None
+        if cfg.vision_prefix:
+            prefix = torch.randn((2, cfg.vision_prefix, cfg.d_model),
+                                 generator=gen, device=dev)
+        p = 0 if prefix is None else cfg.vision_prefix
+        cuda.reset_launches()
+        with torch.no_grad():
+            full, _, _ = model(toks, prefix_embeds=prefix)
+            with PlainCalls() as plain:
+                dec = lm_tokenwise(model, toks, prefix, p + LM_SHALLOW_TOKENS)
+        torch.cuda.synchronize()
+        want = {"flash_attention_fwd": cfg.num_layers,
+                "flash_decode": cfg.num_layers * LM_SHALLOW_TOKENS}
+        if dict(cuda.LAUNCHES) != want or plain.calls:
+            raise AssertionError(f"13e {arch}: launches "
+                                 f"{dict(cuda.LAUNCHES)} != {want}; plain "
+                                 f"calls {plain.calls}")
+        for name, n in want.items():
+            launches[name] += n
+        err = close_or_raise(f"13e {arch} decode against the full forward",
+                             dec, full[:, p:], **LM_GATE_TOL)
+        log(f"13e {arch}: {count_params(model):,} parameters at "
+            f"{cfg.num_layers} layers ({count_params(model) * 4 / 2**30:.2f} "
+            f"GiB), {cfg.num_q_heads}/{cfg.num_kv_heads} heads x "
+            f"{cfg.resolved_head_dim}"
+            + (f", a {p}-token prefix decoded as one chunk" if p else "")
+            + f": {LM_SHALLOW_TOKENS} tokens x 2, decode against the full "
+            f"forward max abs err {err:.3e}")
+        del model, full, dec
+        torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3464,6 +4020,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_phase(cfg, scen, t_hist, launches)
     launcher_phase()
+
+    # 13. the dense LM serving stack ----------------------------------------
+    lm_phase(launches, max_err, records)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

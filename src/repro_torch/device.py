@@ -13,7 +13,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     The port never falls back to the CPU on its own: a caller that wants
     the CPU (the parity tests) asks for ``device="cpu"``. On the card the
     reference precision is float32, so TF32 is switched off for matrix
-    products and cuDNN alike (PyTorch's cuDNN default is TF32).
+    products and cuDNN alike (PyTorch's cuDNN default is TF32). ``meta``
+    builds shapes without storage (parameter counts).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -23,6 +24,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "device='cpu' to run the plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or 'meta' "
+                         f"for shapes), got {dev}")
     return dev

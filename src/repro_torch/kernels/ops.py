@@ -100,7 +100,7 @@ def attention(q, k, v, *, impl: str = "auto", causal: bool = False,
               window: Optional[int] = None, softcap: Optional[float] = None,
               scale: Optional[float] = None,
               q_segment_ids=None, k_segment_ids=None,
-              q_times=None, k_times=None, kv_length=None):
+              q_times=None, k_times=None, q_offset=0, kv_length=None):
     """Full multi-head attention, differentiable in q, k and v.
 
     ``impl``:
@@ -108,20 +108,32 @@ def attention(q, k, v, *, impl: str = "auto", causal: bool = False,
         CUDA tensors, their plain versions for CPU tensors;
       * ``"plain"``: the plain versions (blocked online softmax forward,
         blocked backward) on any device;
+      * ``"chunked"``: the reference's linear-memory plain path
+        (:func:`ref.mha_chunked`), chosen by name only: nothing else
+        routes to it;
       * ``"ref"``: the O(S^2) oracle, differentiated by autograd.
 
-    ``kv_length`` (decode cursors) is taken by ``"ref"`` only: the decode
-    shape goes through :func:`decode_attention`.
+    ``q_offset`` (an int or a (B,) tensor: queries that are a suffix of
+    the keys) and ``kv_length`` (decode cursors) are taken by ``"chunked"``
+    and ``"ref"`` only: the decode shape goes through
+    :func:`decode_attention`.
     """
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_segment_ids=q_segment_ids, k_segment_ids=k_segment_ids,
               q_times=q_times, k_times=k_times)
     if impl == "ref":
-        return ref.mha_reference(q, k, v, kv_length=kv_length, **kw)
+        return ref.mha_reference(q, k, v, q_offset=q_offset,
+                                 kv_length=kv_length, **kw)
+    if impl == "chunked":
+        return ref.mha_chunked(q, k, v, q_offset=q_offset,
+                               kv_length=kv_length, **kw)
     if impl not in ("auto", "flash", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if kv_length is not None:
-        raise ValueError("kv_length takes impl='ref'; use decode_attention")
+        raise ValueError("kv_length takes impl='ref' or 'chunked'; use "
+                         "decode_attention")
+    if isinstance(q_offset, torch.Tensor) or q_offset:
+        raise NotImplementedError("q_offset takes impl='ref' or 'chunked'")
     return FlashAttention.apply(q, k, v, q_segment_ids, k_segment_ids,
                                 q_times, k_times, causal, window, softcap,
                                 scale, impl == "plain")

@@ -1,6 +1,11 @@
-"""Model stack of the port: layers, the gated MLP, the agent-sim model."""
-from repro_torch.nn import agent_sim, attention, layers, mlp, module
+"""Model stack of the port: layers, MLPs, attention, blocks, the LM and
+the agent-sim model."""
+from repro_torch.nn import (agent_sim, attention, blocks, layers, mlp, module,
+                            transformer)
 from repro_torch.nn.agent_sim import AgentSimConfig, AgentSimModel
+from repro_torch.nn.module import count_params
+from repro_torch.nn.transformer import TransformerLM, build_model
 
-__all__ = ["agent_sim", "attention", "layers", "mlp", "module",
-           "AgentSimConfig", "AgentSimModel"]
+__all__ = ["agent_sim", "attention", "blocks", "layers", "mlp", "module",
+           "transformer", "AgentSimConfig", "AgentSimModel", "count_params",
+           "TransformerLM", "build_model"]

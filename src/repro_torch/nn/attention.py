@@ -1,7 +1,38 @@
-"""Head split/merge helpers (port of ``repro/nn/attention.py:39-49``)."""
+"""LM attention with grouped KV heads and a decode cache (port of
+``repro/nn/attention.py``: ``_split_heads``, ``_merge_heads``,
+``_cache_update`` and ``Attention``).
+
+GQA, MQA and MHA; rotary positions (``Rope1D``) on all or a fraction of
+each head's columns (stablelm rotates 20 of 80); ``query_scale``; biases.
+
+The cache is one layer-stacked buffer per layer group: ``k`` / ``v``
+(L, B, Hkv, max_len, D) in float32, bfloat16 or int8, int8 with float32
+``k_scale`` / ``v_scale`` (L, B, Hkv, max_len), one scale per row,
+quantized on write. A layer writes its new rows in place and attends the
+buffer in place at its own index.
+
+Where the two packages part ways, on purpose: the reference's decode runs
+``"chunked"`` attention over the whole preallocated cache with
+``q_offset=cache_index`` (causality masks the rows past the cursor). The
+port's ``impl="auto"`` runs the decode kernel (``ops.decode_attention``)
+bounded by each slot's cursor (``kv_length = index + S``): the kernel
+reads no row past it. For a chunk of S > 1 new tokens, causality inside
+the chunk comes from ``q_times`` / ``k_times`` set to the positions.
+``impl="chunked"`` (and ``"ref"``) run the reference's way.
+"""
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Union
+
 import torch
+from torch import nn
+
+from repro_torch.core.encodings import GroupEncoding
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import (canonical_cache_dtype,
+                                              dequantize_kv, quantize_kv)
+from repro_torch.nn.layers import Dense
 
 
 def _split_heads(x: torch.Tensor, num_heads: int, head_dim: int
@@ -17,3 +48,189 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, H, S, D) -> (B, S, H, D); the output projection contracts both
     head axes."""
     return x.transpose(1, 2)
+
+
+@dataclasses.dataclass
+class CacheStep:
+    """Where a chunk of ``n`` new tokens goes in every layer's cache and what
+    its queries attend; built once a model call by :func:`cache_step`.
+
+    ``index`` is the reference's ``cache_index``: an int (every slot at
+    one position) or a (B,) tensor (per-slot cursors, single-token
+    steps). ``start`` (int index) is the first row written, clamped to
+    [0, max_len - n] as ``dynamic_update_slice`` clamps; ``rows`` / ``valid``
+    (tensor index) are each slot's row and whether it lies in the cache (a
+    row past the cache is dropped, as the reference's scatter drops it).
+    ``kv_length`` (B,) int32 = min(index + n, max_len); ``q_times`` /
+    ``k_times`` are the positions (n > 1 only).
+    """
+    index: Union[int, torch.Tensor]
+    n: int
+    start: Optional[int]
+    rows: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    kv_length: torch.Tensor
+    q_times: Optional[torch.Tensor]
+    k_times: Optional[torch.Tensor]
+
+
+def cache_step(index, n: int, batch: int, max_len: int,
+               device) -> CacheStep:
+    """The :class:`CacheStep` of ``n`` new tokens at ``index``."""
+    if isinstance(index, torch.Tensor) and index.ndim == 1:
+        if n != 1:
+            raise ValueError("vector cursors require single-token steps")
+        idx = index.to(device, torch.int64)
+        valid = (idx >= 0) & (idx < max_len)
+        return CacheStep(
+            index=index.to(device), n=1, start=None,
+            rows=torch.clamp(idx, 0, max_len - 1), valid=valid,
+            kv_length=torch.clamp(idx + 1, max=max_len).to(torch.int32),
+            q_times=None, k_times=None)
+    index = int(index)
+    q_times = k_times = None
+    if n > 1:
+        q_times = (index + torch.arange(n, dtype=torch.int32, device=device)
+                   )[None].expand(batch, n).contiguous()
+        k_times = torch.arange(max_len, dtype=torch.int32, device=device
+                               )[None].expand(batch, max_len).contiguous()
+    return CacheStep(
+        index=index, n=n, start=min(max(index, 0), max_len - n), rows=None,
+        valid=None,
+        kv_length=torch.full((batch,), min(index + n, max_len),
+                             dtype=torch.int32, device=device),
+        q_times=q_times, k_times=k_times)
+
+
+def _cache_update(buf: torch.Tensor, layer: int, new: torch.Tensor,
+                  step: CacheStep) -> None:
+    """Write ``new`` (B, H, n, ...) into layer ``layer`` of the stacked
+    ``buf`` (L, B, H, max_len, ...) in place, at ``step``'s rows."""
+    view = buf[layer]
+    new = new.to(buf.dtype)
+    if step.rows is None:
+        view[:, :, step.start:step.start + step.n] = new
+        return
+    bi = torch.arange(new.shape[0], device=buf.device)
+    old = view[bi, :, step.rows]                      # (B, H, ...)
+    keep = step.valid.reshape((-1,) + (1,) * (old.ndim - 1))
+    view[bi, :, step.rows] = torch.where(keep, new[:, :, 0], old)
+
+
+class Attention(nn.Module):
+    """Causal multi-head attention with ``num_kv_heads`` dividing
+    ``num_q_heads`` (no sliding window and no softcap: those come with
+    gemma2 and hymba, ROADMAP A10.2).
+
+    ``impl``: "auto" (the flash forward and the decode kernel on the card,
+    their plain versions on the CPU), "plain", "chunked" or "ref" (the
+    reference's paths by name; see the module docstring).
+    """
+
+    def __init__(self, d_model: int, num_q_heads: int, num_kv_heads: int,
+                 head_dim: int, *, encoding: Optional[GroupEncoding] = None,
+                 rope_fraction: float = 1.0,
+                 query_scale: Optional[float] = None,
+                 use_bias: bool = False, impl: str = "auto", device=None):
+        super().__init__()
+        if num_q_heads % num_kv_heads:
+            raise ValueError(f"{num_kv_heads} kv heads do not divide "
+                             f"{num_q_heads} query heads")
+        self.num_q_heads, self.num_kv_heads = num_q_heads, num_kv_heads
+        self.head_dim = head_dim
+        self.encoding = encoding
+        self.rope_fraction = rope_fraction
+        self.query_scale = query_scale
+        self.impl = impl
+        h, hk, hd, d = num_q_heads, num_kv_heads, head_dim, d_model
+        self.q = Dense((d,), (h, hd), device, use_bias=use_bias)
+        self.k = Dense((d,), (hk, hd), device, use_bias=use_bias)
+        self.v = Dense((d,), (hk, hd), device, use_bias=use_bias)
+        self.o = Dense((h, hd), (d,), device, use_bias=use_bias)
+
+    @property
+    def rot_dim(self) -> int:
+        """Columns the encoding rotates (even)."""
+        if self.encoding is None:
+            return 0
+        rd = int(self.head_dim * self.rope_fraction)
+        return rd - rd % 2
+
+    def _encode(self, q, k, pose):
+        """The encoding on the first ``rot_dim`` columns of q and k; pose
+        (B, S, 1) float32 positions."""
+        enc = self.encoding
+        if enc is None or pose is None:
+            return q, k
+        p4 = pose[:, None]
+        rd = self.rot_dim
+        if rd == self.head_dim:
+            return enc.transform_q(q, p4), enc.transform_k(k, p4)
+        return (torch.cat([enc.transform_q(q[..., :rd], p4), q[..., rd:]], -1),
+                torch.cat([enc.transform_k(k[..., :rd], p4), k[..., rd:]], -1))
+
+    def _scale(self) -> float:
+        if self.query_scale is not None:
+            return self.query_scale ** -0.5
+        return 1.0 / float(self.head_dim) ** 0.5
+
+    def forward(self, x: torch.Tensor, pose: Optional[torch.Tensor] = None,
+                *, cache=None, layer: int = 0,
+                step: Optional[CacheStep] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """x (B, S, d_model); pose (B, S, 1) positions. Without a cache: the
+        full causal forward. With ``cache`` (a group's stacked dict) and
+        ``step``: write the S new rows at layer ``layer`` and attend the
+        cache."""
+        impl = impl or self.impl
+        q = _split_heads(self.q(x), self.num_q_heads, self.head_dim)
+        k = _split_heads(self.k(x), self.num_kv_heads, self.head_dim)
+        v = _split_heads(self.v(x), self.num_kv_heads, self.head_dim)
+        q, k = self._encode(q, k, pose)
+        if cache is None:
+            out = ops.attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), impl=impl,
+                causal=True, scale=self._scale())
+        else:
+            out = self._decode(q, k, v, cache, layer, step, impl)
+        return self.o(_merge_heads(out))
+
+    def _decode(self, q, k, v, cache, layer, step, impl):
+        if "k_scale" in cache:
+            for key, new in (("k", k), ("v", v)):
+                vals, scales = quantize_kv(new)
+                _cache_update(cache[key], layer, vals, step)
+                _cache_update(cache[f"{key}_scale"], layer, scales, step)
+        else:
+            _cache_update(cache["k"], layer, k, step)
+            _cache_update(cache["v"], layer, v, step)
+        if impl in ("chunked", "ref"):
+            ck, cv = cache["k"][layer], cache["v"][layer]
+            if "k_scale" in cache:
+                ck = dequantize_kv(ck, cache["k_scale"][layer], dtype=q.dtype)
+                cv = dequantize_kv(cv, cache["v_scale"][layer], dtype=q.dtype)
+            return ops.attention(q, ck, cv, impl=impl, causal=True,
+                                 scale=self._scale(), q_offset=step.index)
+        return ops.decode_attention(
+            q.contiguous(), cache["k"], cache["v"], kv_length=step.kv_length,
+            layer=layer, impl="plain" if impl == "plain" else "auto",
+            scale=self._scale(), q_times=step.q_times, k_times=step.k_times,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   layers: int = 1):
+        """The stacked cache of ``layers`` such layers: ``dtype`` a torch
+        dtype or "float32" / "bfloat16" / "int8" (int8 adds float32 per-row
+        scales)."""
+        dtype = canonical_cache_dtype(dtype, default=torch.bfloat16)
+        if self.encoding is not None and self.encoding.transforms_values:
+            raise NotImplementedError(
+                "KV cache with value-transforming encodings")
+        device = self.q.kernel.device
+        shape = (layers, batch, self.num_kv_heads, max_len, self.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if dtype == torch.int8:
+            cache["k_scale"] = torch.zeros(shape[:-1], device=device)
+            cache["v_scale"] = torch.zeros(shape[:-1], device=device)
+        return cache

@@ -3,9 +3,12 @@
 A layer declares each weight with a :class:`ParamSpec` (shape and init
 kind); :func:`init_params` fills every parameter of a module from one
 ``torch.Generator``. The init kinds are the reference's that the ported
-layers use (fan_in, ones, zeros); the random numbers differ, since the
-port does not reproduce ``jax.random`` (weights cross over through
-``repro_torch.params.from_reference`` where a test needs equality).
+layers use (fan_in, normal with its ``scale``, ones, zeros); the random
+numbers differ, since the port does not reproduce ``jax.random`` (weights
+cross over through ``repro_torch.params.from_reference`` where a test
+needs equality). A module built on the ``meta`` device has shapes and no
+storage: :func:`count_params` counts a 20 B-parameter config that way
+without allocating it.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "fan_in"          # fan_in | ones | zeros
+    init: str = "fan_in"          # fan_in | normal | ones | zeros
     fan_in: int = 0               # fan_in init: input size (0 -> shape[0])
+    scale: float = 0.02           # normal init: standard deviation
 
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
@@ -36,13 +40,16 @@ def new_parameter(spec: ParamSpec, device) -> nn.Parameter:
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape)
+        return torch.zeros(spec.shape, device=dev)
     if spec.init == "ones":
-        return torch.ones(spec.shape)
+        return torch.ones(spec.shape, device=dev)
+    if spec.init == "normal":
+        return torch.randn(spec.shape, generator=gen, device=dev) * spec.scale
     if spec.init == "fan_in":
         fan_in = spec.fan_in or (spec.shape[0] if spec.shape else 1)
-        return torch.randn(spec.shape, generator=gen) / float(
+        return torch.randn(spec.shape, generator=gen, device=dev) / float(
             np.sqrt(max(fan_in, 1)))
     raise ValueError(f"unknown init {spec.init!r}")
 
@@ -51,9 +58,19 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
 def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """Fill every spec'd parameter of ``module`` in sorted-name order.
 
-    Numbers are drawn on the CPU from ``gen`` and copied to each
-    parameter's device, so a seed gives the same weights on every device.
+    Numbers are drawn on the generator's device and copied to each
+    parameter's device, so a CPU generator gives the same weights on every
+    device (a CUDA generator draws a full-width LM in a fraction of the
+    time, other numbers for the same seed). A module on the ``meta``
+    device is left as it is.
     """
     for _, p in sorted(module.named_parameters()):
-        p.copy_(_init_leaf(p.spec, gen))
+        if p.device.type != "meta":
+            p.copy_(_init_leaf(p.spec, gen))
     return module
+
+
+def count_params(module: nn.Module) -> int:
+    """Parameters of ``module``: the reference's ``count_params(specs)``.
+    Works on a module built on the ``meta`` device."""
+    return sum(p.numel() for p in module.parameters())

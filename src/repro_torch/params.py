@@ -1,11 +1,19 @@
 """Weights across the two packages.
 
 The reference keeps an agent-sim model's weights as a nested dict with the
-layers stacked on a leading axis under ``"blocks"``; the port keeps one
-module per layer. Both store a Dense kernel as ``in_shape + out_shape``,
-so crossing over is a renaming plus the (un)stacking of ``blocks``:
+layers stacked on a leading axis under ``"blocks"``, and an LM's each layer
+group under ``"group{g}"`` (stacked where the group has more than one
+layer); the port keeps one module per layer. Both store a Dense kernel as
+``in_shape + out_shape``, so crossing over is a renaming plus the
+(un)stacking:
 
   tree["blocks"]["attn"]["q"]["kernel"][i]  <->  "blocks.{i}.attn.q.kernel"
+  tree["group{g}"]["attn"]["q"]["kernel"][i] <-> "groups.{g}.{i}.attn.q.kernel"
+  tree["group{g}"]["attn"]["q"]["kernel"]    <-> "groups.{g}.0.attn.q.kernel"
+                                                 (a group of one layer)
+
+Every other leaf (``embedding``, ``pos_embedding``, ``final_norm``,
+``lm_head``, ...) crosses as it is.
 
 The same mapping carries any dict of tensors named like the model's
 parameters, such as AdamW's ``mu`` and ``nu`` (checkpoints store them in
@@ -13,6 +21,7 @@ the reference's layout). The conversion is exact both ways.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Union
 
 import numpy as np
@@ -20,6 +29,17 @@ import torch
 from torch import nn
 
 _STACKED = "blocks"
+_GROUP = re.compile(r"^group(\d+)$")
+
+
+def _group_is_stacked(sub) -> bool:
+    """Whether a reference ``group{g}`` subtree is stacked over layers: every
+    block has a norm whose ``scale`` is (d_model,) unstacked and
+    (layers, d_model) stacked."""
+    for key in sorted(sub):
+        if key.startswith("norm"):
+            return np.ndim(sub[key]["scale"]) == 2
+    raise ValueError(f"a layer group without a norm: {sorted(sub)}")
 
 
 def _flatten(tree, prefix=""):
@@ -45,12 +65,20 @@ def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
     tensor dict such as AdamW's ``mu``. Tensors land on ``device`` (default
     the CPU)."""
     device = torch.device("cpu") if device is None else device
+    stacked = {key: _group_is_stacked(sub) for key, sub in tree.items()
+               if _GROUP.match(key) and isinstance(sub, dict)}
     out = {}
     for name, arr in _flatten(tree):
-        if name.startswith(_STACKED + "."):
-            rest = name[len(_STACKED) + 1:]
+        head, _, rest = name.partition(".")
+        group = _GROUP.match(head)
+        if head == _STACKED:
             for i in range(arr.shape[0]):
                 out[f"{_STACKED}.{i}.{rest}"] = _tensor(arr[i], device)
+        elif group and stacked.get(head):
+            for i in range(arr.shape[0]):
+                out[f"groups.{group[1]}.{i}.{rest}"] = _tensor(arr[i], device)
+        elif group:
+            out[f"groups.{group[1]}.0.{rest}"] = _tensor(arr, device)
         else:
             out[name] = _tensor(arr, device)
     return out
@@ -58,19 +86,25 @@ def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
 
 def reference_leaf(name: str) -> str:
     """The reference's leaf of a port parameter name: ``blocks.{i}.rest``
-    belongs to the stacked ``blocks.rest``; any other name is its own."""
+    belongs to the stacked ``blocks.rest``, ``groups.{g}.{i}.rest`` to
+    ``group{g}.rest``; any other name is its own."""
     parts = name.split(".")
     if parts[0] == _STACKED and len(parts) > 2 and parts[1].isdigit():
         return ".".join([_STACKED] + parts[2:])
+    if parts[0] == "groups" and len(parts) > 3 and parts[1].isdigit() \
+            and parts[2].isdigit():
+        return ".".join([f"group{parts[1]}"] + parts[3:])
     return name
 
 
 def reference_tensors(named: Mapping[str, torch.Tensor]):
     """The reference's tree of tensors from a flat name -> tensor dict, on
-    the tensors' device: the ``blocks`` layers stacked by ``torch.stack``
-    (new tensors), every other leaf the caller's own tensor."""
+    the tensors' device: the ``blocks`` layers, and the layers of each LM
+    group of more than one, stacked by ``torch.stack`` (new tensors); every
+    other leaf the caller's own tensor."""
     stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     tree: Dict = {}
+    groups: Dict[str, Dict[str, Dict[int, torch.Tensor]]] = {}
 
     def put(path, t):
         node = tree
@@ -82,11 +116,21 @@ def reference_tensors(named: Mapping[str, torch.Tensor]):
         parts = name.split(".")
         if parts[0] == _STACKED:
             stacked.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+        elif parts[0] == "groups":
+            groups.setdefault(f"group{parts[1]}", {}).setdefault(
+                ".".join(parts[3:]), {})[int(parts[2])] = t
         else:
             put(parts, t.detach())
     for rest, layers in stacked.items():
         put([_STACKED] + rest.split("."),
             torch.stack([layers[i].detach() for i in range(len(layers))]))
+    for group, leaves in groups.items():
+        for rest, layers in leaves.items():
+            if len(layers) == 1:
+                put([group] + rest.split("."), layers[0].detach())
+            else:
+                put([group] + rest.split("."), torch.stack(
+                    [layers[i].detach() for i in range(len(layers))]))
     return tree
 
 

@@ -821,3 +821,120 @@ def test_server_quarantine_on_the_card(dev):
                               scene_id=0))
         s.run_until_drained()
     assert_bit_identical(srv.done[99].future, solo.done[99].future, "tenant")
+
+
+# The LM serving path: the decode at phi4-mini-3.8b's tick (24 / 8 heads of
+# 128, cursors spread over 1-2,048), a chunk of 40 tokens causal through
+# their positions (q_times / k_times), stablelm-3b's 80-wide MHA and
+# granite-20b's MQA (a group of 48). name: (b, hq, hkv, d, sq, s, cursors)
+LM_DECODE_CASES = {
+    "phi4_tick": (8, 24, 8, 128, 1, 2048,
+                  [1, 2, 255, 256, 257, 1000, 2047, 2048]),
+    "phi4_chunk": (2, 24, 8, 128, 40, 512, [40, 300]),
+    "stablelm_mha": (4, 32, 32, 80, 1, 512, [1, 64, 300, 512]),
+    "granite_mqa": (4, 48, 1, 128, 1, 512, [1, 77, 256, 512]),
+}
+# the flash forward at the prefill: causal, (b, hq, hkv, s, d)
+LM_FLASH_CASES = {"phi4_prefill": (2, 24, 8, 1024, 128),
+                  "stablelm_mha": (1, 32, 32, 256, 80),
+                  "granite_mqa": (1, 48, 1, 256, 128)}
+
+
+def _lm_decode_case(dev, case, cache_dtype, q_dtype):
+    """A two-layer stacked cache (rows past each cursor NaN; int8: NaN
+    scales) and query rows at the last sq positions before each cursor."""
+    b, hq, hkv, d, sq, s, cursors = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    k = torch.randn((2, b, hkv, s, d), generator=g, device=dev)
+    v = torch.randn((2, b, hkv, s, d), generator=g, device=dev)
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(
+        getattr(torch, q_dtype))
+    kvl = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+    nan = torch.tensor(float("nan"), device=dev)
+    opts = {}
+    if cache_dtype == "int8":
+        (k, ks), (v, vs) = fd.quantize_kv(k), fd.quantize_kv(v)
+        opts = {n: torch.where(past[None, :, None], nan, x).contiguous()
+                for n, x in (("k_scale", ks), ("v_scale", vs))}
+    else:
+        dt = getattr(torch, cache_dtype)
+        k = torch.where(past[None, :, None, :, None], nan, k).to(dt)
+        v = torch.where(past[None, :, None, :, None], nan, v).to(dt)
+    if sq > 1:
+        opts["q_times"] = (kvl[:, None] - sq + torch.arange(
+            sq, device=dev)).int().contiguous()
+        opts["k_times"] = torch.arange(s, dtype=torch.int32, device=dev)[
+            None].expand(b, s).contiguous()
+    return q, k.contiguous(), v.contiguous(), kvl, opts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", sorted(LM_DECODE_CASES))
+def test_lm_decode_shapes_match_plain(dev, name, cache_dtype, q_dtype):
+    q, k, v, kvl, opts = _lm_decode_case(dev, LM_DECODE_CASES[name],
+                                         cache_dtype, q_dtype)
+    got = fd.flash_decode(q, k, v, kvl, layer=1, **opts)
+    again = fd.flash_decode(q, k, v, kvl, layer=1, **opts)
+    want = fd.decode_plain(q, k, v, kvl, layer=1, **opts)
+    assert got.dtype == q.dtype
+    tol = DECODE_TOL["bfloat16" if q_dtype == "bfloat16" else cache_dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(LM_FLASH_CASES))
+def test_lm_flash_forward_shapes_match_plain(dev, name, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, s, d = LM_FLASH_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(6)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, hq, s, d), generator=g, device=dev).to(dt)
+    k = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dt)
+    v = torch.randn((b, hkv, s, d), generator=g, device=dev).to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    want, want_lse = fa.flash_fwd_plain(q, k, v, causal=True)
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_lm_served_on_the_card_matches_the_cpu(dev, cache_dtype):
+    """The reduced phi4-mini-3.8b on the card against the same weights on
+    the CPU: the prefill step's logits, and a 3-slot server's greedy tokens
+    for 5 requests, with the decode kernel launched once a layer a tick and
+    no full-forward kernel on the serving path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.runtime.server import Request, Server
+    from repro_torch.runtime.steps import make_prefill_step
+    cfg = get_config("phi4-mini-3.8b").reduced(dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)))
+    want = make_prefill_step(cpu)({"tokens": toks})
+    got = make_prefill_step(card)({"tokens": toks.to(dev)})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-3)
+    prompts = [rng.integers(1, cfg.vocab_size, rng.integers(3, 20))
+               for _ in range(5)]
+    served = []
+    for model in (cpu, card):
+        srv = Server(model, num_slots=3, max_len=64, cache_dtype=cache_dtype)
+        for uid, p in enumerate(prompts):
+            srv.submit(Request(uid=uid, prompt=p, max_new_tokens=8))
+        cuda.reset_launches()
+        done = srv.run_until_drained()
+        served.append({uid: r.generated for uid, r in done.items()})
+    assert dict(cuda.LAUNCHES) == {"flash_decode": cfg.num_layers * srv.ticks}
+    assert served[0] == served[1]

@@ -202,4 +202,4 @@ def test_unknown_impls_raise():
         tops.decode_attention(q, k, k, kv_length=torch.ones(1, dtype=torch.int32),
                               impl="xla")
     with pytest.raises(ValueError, match="impl"):
-        tops.attention(q, k, k, impl="chunked")
+        tops.attention(q, k, k, impl="xla")

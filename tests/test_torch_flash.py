@@ -227,4 +227,4 @@ def test_auto_impl_runs_plain_versions_on_the_cpu():
     want = tops.attention(tq, tk, tv, impl="plain", causal=True)
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="unknown attention impl"):
-        tops.attention(tq, tk, tv, impl="chunked")
+        tops.attention(tq, tk, tv, impl="xla")

@@ -47,7 +47,9 @@ def test_port_import_loads_no_jax_module():
             " repro_torch.kernels.categorical, repro_torch.launch.mesh,"
             " repro_torch.distributed, repro_torch.distributed.sharding,"
             " repro_torch.distributed.dp_compress,"
-            " repro_torch.optim.compression;"
+            " repro_torch.optim.compression, repro_torch.nn.transformer,"
+            " repro_torch.runtime.server, repro_torch.runtime.steps,"
+            " repro_torch.launch.serve;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
