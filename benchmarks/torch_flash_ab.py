@@ -17,7 +17,8 @@ wrappers: fwd and bwd at the train step's attention shape
 (``chip_smoke.py``'s scene layout: 32 scenes x 8 heads x 336 tokens,
 c = 200, float32); decode at the rollout's tick (64 slots x 8 heads x 12
 query rows, cursor 312) and prefill (144 query rows, cursor 144,
-block-causal), each with a float32 and an int8 cache, as
+block-causal), and at phi4-mini-3.8b's tick (8 slots x 24 / 8 heads x 128,
+one row, cursors 1-2,048), each with a float32 and an int8 cache, as
 ``chip_smoke.py`` phase 6 times the tick; se2 in modes "q" and "k" at the
 tick (64 slots x 8 heads x 12 tokens) and at the train step (32 scenes x 8
 heads x 336 tokens), float32. ``--splits`` gives each decode
@@ -26,7 +27,8 @@ source's ``flash_decode_num_splits``, which the CUDA-core decode before
 the tensor-core redesign does not have), ``old`` (the choice of that
 decode's wrapper, which split a row's keys over ceil(4 x SMs / (B x Hq x
 ceil(Sq / 16))) CTAs) or a number. A decode source from before the bf16
-query, whose C entry has no query-type argument, is called with its own
+query, whose C entry has no query-type argument, or from before the
+window and softcap, whose entry has neither, is called with its own
 signature. Every round
 times the sources in order and then in
 reverse (A, B, B, A for two): CUPTI kernel time per call
@@ -106,16 +108,24 @@ def use(kernel, path, source):
     for cached in ("_kernel", "_num_splits"):   # what the wrapper bound
         if hasattr(module, cached):
             getattr(module, cached).cache_clear()
-    if kernel == "decode" and "q_bf16" not in Path(source).read_text():
-        # a decode from before the bf16 query takes no query-type argument
-        # (the 25th): bind its own signature and drop that argument
+    text = Path(source).read_text()
+    if kernel == "decode" and "softcap" not in text:
+        # a decode from before the window and softcap takes neither (the
+        # 27th and 28th arguments), and one from before the bf16 query no
+        # query-type argument (the 25th): bind its own signature and drop
+        # what it lacks
+        with_q = "q_bf16" in text
         fn = lib.flash_decode_launch
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * (11 if with_q else 10)
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
         def call(*args):
-            err = fn(*args[:24], *args[25:])
+            if args[26] != -1 or args[27] != 0.0:
+                raise ValueError("this decode source takes no window or "
+                                 "softcap")
+            err = fn(*args[:25 if with_q else 24], args[25], args[28])
             if err:
                 raise RuntimeError(f"flash_decode_launch: CUDA error {err}: "
                                    f"{err_fn(err).decode()}")
@@ -124,7 +134,9 @@ def use(kernel, path, source):
 
 def decode_kernels(cs, torch, dev, cfg, scen, c, gen, splits):
     """name -> fn(source letter) for the decode at the tick and the prefill,
-    float32 and int8 caches; each returns (out,)."""
+    float32 and int8 caches, and at phi4-mini-3.8b's tick; each returns
+    (out,)."""
+    import numpy as np
     from repro_torch.kernels import flash_decode as fd
     n_slots = cs.N_SLOTS
     s_max = -(-(scen.num_map + scen.num_steps * scen.num_agents) // 128) * 128
@@ -153,6 +165,22 @@ def decode_kernels(cs, torch, dev, cfg, scen, c, gen, splits):
                                         scale=1.0 / math.sqrt(cfg.head_dim),
                                         **case),)
             kernels[f"{shape} {dtype}"] = fn
+    # phi4-mini-3.8b's tick (chip_smoke.py phase 13a's shape)
+    rng = np.random.default_rng(13)
+    cursors = np.concatenate([[1, cs.LM_MAX_CURSOR], rng.integers(
+        1, cs.LM_MAX_CURSOR + 1, cs.LM_SLOTS - 2)])
+    for dtype in ("float32", "int8"):
+        q, k, v, kvl, opts = cs.lm_decode_case(
+            gen, dev, b=cs.LM_SLOTS, hq=24, hkv=8, d=128,
+            s=cs.LM_MAX_CURSOR, cursors=cursors, cache_dtype=dtype,
+            q_dtype=torch.float32)
+
+        def fn(which, q=q, k=k, v=v, kvl=kvl, opts=opts):
+            n = splits[which]
+            n = None if n in ("auto", "old") else int(n)
+            return (fd.flash_decode(q, k, v, kvl, layer=1, num_splits=n,
+                                    **opts),)
+        kernels[f"lm_tick {dtype}"] = fn
     return kernels
 
 
@@ -210,7 +238,8 @@ def main() -> int:
         kernels = decode_kernels(cs, torch, dev, cfg, arch.scenario_config(),
                                  model.blocks[0].attn.enc.expanded_dim, gen,
                                  splits)
-        shape = "64 slots x 8 heads, c = 200: tick and prefill"
+        shape = ("64 slots x 8 heads, c = 200: tick and prefill; "
+                 "phi4-mini-3.8b's tick")
     elif args.kernel == "se2":
         kernels = None     # once the builds show which modes every one has
         shape = "8 heads x 24 <-> 200: tick 64 x 12 tokens, train 32 x 336"

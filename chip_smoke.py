@@ -104,7 +104,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    rendered, and one skipped step leaving the parameters and the AdamW
    state bitwise unchanged; (d) the newest checkpoint truncated: the
    restore falls back one step and counts it; (e) run_comparison over
-   the four encodings, 20 steps x 32 mixed scenes each: every row done,
+   the four encodings, 10 steps x 32 mixed scenes each: every row done,
    NLL and minADE finite, the loss falling, the table printed;
 10. the continuous-batching SimServer at full width (phase 4's seed-0
    sim-se2-fourier, 64 slots, max_len 384): first the decode at the
@@ -188,7 +188,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    equal to float32's at 85% of the positions at least, and in the
    prefill step's rows except at near-ties (float32's top two within
    1e-3), the disagreements counted; (c) the LM
-   Server at full width (8 layers), 16 requests (prompts 16-256 tokens, 32 new each,
+   Server at full width (4 layers), 16 requests (prompts 16-256 tokens, 32 new each,
    greedy) through 8 slots with float32 and int8 caches: every request
    done with 32 tokens, the shortest, the longest and two admitted mid-run
    equal to their runs in a 1-slot server, decode launches exactly layers
@@ -200,7 +200,38 @@ Run from the root of a checkout. Phases, each of which fails the run:
    internvl2-26b at full width and 2 layers (internvl with its 256-token
    prefix, decoded as one chunk): token-by-token decode against the full
    forward as in (b), launches exact. (c) runs phi4-mini at full width and
-   8 of its 32 layers (its ticks are host-bound); (b) and (d) run all 32.
+   4 of its 32 layers (its ticks are host-bound); (b) and (d) run all 32;
+14. LM training and gemma2-27b's attention: (a) the flash forward, dq and
+   dk/dv at phi4-mini's train attention (2 x 24 / 8 heads x 512 x 128,
+   causal, float32 and bf16) and at gemma2's local layer (1 x 32 / 16 x
+   8,192 x 128, window 4,096, softcap 50, scale 144^-0.5), and the decode
+   at gemma2's tick (2 slots x 32 / 16 x 128, cursors 4,700 and 5,200 past
+   the window, and 100 and 3,000 within it; float32, bf16 and int8 caches
+   x float32 and bf16 queries) against their plain versions, timed beside
+   SDPA where there is no softcap; (b) one batch's gradients through the
+   kernels against the plain versions, float32: phi4-mini at full width
+   and 4 layers (2 x 512 tokens) and gemma2 at full width and one pair (1
+   x 5,120 tokens, so the window bites), every tensor within 1e-3 of its
+   largest |g|, launches exact, no plain attention call; (c) phi4-mini at
+   full width and depth, bf16 compute over float32 master weights,
+   ``make_train_step(remat=True)`` with launch/train's AdamW chain for 10
+   steps of 2 x 512 synthetic_lm tokens: the loss finite and falling,
+   exactly 64 forward, 32 dq and 32 dk/dv launches a step, steps/s,
+   tokens/s, peak memory above the weights and one step's profile; then 3
+   steps of clip + adafactor(1e-4), its peak memory beside AdamW's; (d) the
+   Trainer on stablelm-3b's LM step at full width and 2 layers: 8 steps
+   with a save at 4, a second Trainer from that checkpoint to 8 within the
+   reference's restart tolerance, a NaN-reported step leaving the
+   parameters and AdamW state bitwise, the seconds of a save and a
+   restore; (e) ``python -m repro_torch.launch.train --arch phi4-mini-3.8b
+   --reduced --steps 20 --ckpt-every 10`` exits 0 with its logged loss
+   falling, and resumes from step 20 when run again; (f) gemma2-27b at
+   full width and 4 layers (two pairs, float32): prompts of 4,700 and
+   5,100 tokens prefilled into two slots, 64 positions each decoded with
+   per-slot cursors and held to the full forward over the whole sequence
+   (2e-3 / 2e-2 with a float32 cache, 8e-2 with int8), decode launches
+   exactly layers x (prefills + ticks), half of them with the window and
+   the softcap, no plain attention call; the tick's time.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -304,7 +335,9 @@ TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_EVAL_EVERY = 30, 10, 15
 TRAINER_EVAL_SCENES, TRAINER_EVAL_SAMPLES, TRAINER_HOLDOUT = 2, 2, 2
 RESTART_STEPS = 20
 NAN_AT, MAX_NANS = 3, 5
-COMPARE_STEPS = 20
+# (10, not 20, keeps the whole run near 1,000 s of its 1,200 s: 75 of the
+# 20-step comparison's 79 s were training, PERF.md §6)
+COMPARE_STEPS = 10
 # the restart against the straight run: the reference's own tolerances
 # (tests/test_trainer_server.py:145-149)
 RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
@@ -375,12 +408,41 @@ LM_SERVE_REQUESTS, LM_SERVE_SLOTS, LM_SERVE_NEW = 16, 8, 32
 LM_SERVE_PROMPT, LM_SERVE_MAX_LEN = (16, 256), 320
 # the server's depth: a tick is host-bound (about 60 launches a layer,
 # 57 ms at 32 layers on an H100, PERF.md §5), and 16 requests with
-# four solo runs a cache dtype took 209 s at full depth; a quarter of it
-# keeps phase 13 near its 150 s (13b and 13d run the full 32 layers)
-LM_SERVE_LAYERS = 8
+# four solo runs a cache dtype took 209 s at full depth; an eighth of it
+# (4 layers; 8 took 60 s) keeps the whole run near 1,000 s
+# (13b and 13d run the full 32 layers)
+LM_SERVE_LAYERS = 4
 LM_PROFILE_TICKS = 40
 LM_SHALLOW_ARCHS = ("stablelm-3b", "granite-20b", "internvl2-26b")
 LM_SHALLOW_LAYERS, LM_SHALLOW_TOKENS = 2, 64
+# phase 14: LM training and gemma2. (a) the flash kernels at phi4-mini's
+# train attention (prompts x tokens) and at gemma2's local layer (window,
+# softcap, query_pre_attn_scalar 144); the decode at gemma2's tick (its
+# cache's rows, cursors past the window, and a case where the window
+# exceeds every cursor); (b) gradients through the kernels against the
+# plain versions, per tensor relative to its largest |g| (phase 5's rule):
+# (arch, layers, batch, tokens); (c) phi4-mini at full depth: AdamW steps
+# (launch/train's chain) and adafactor steps of LM_TRAIN_B x LM_TRAIN_S
+# synthetic tokens; (d) the Trainer on stablelm-3b at 2 layers: steps, the
+# checkpoint step; (e) launch.train's steps and cadence; (f) gemma2 at 4
+# layers: prompt lengths, decode steps
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_ADAFACTOR_STEPS = 2, 512, 10, 3
+# launch/train's chain at this peak rate (its --lr): at its default 3e-3 the
+# first steps' losses rise (12.87 -> 15.54 at the fourth) as they do through
+# the plain attention in float32, and past the fifth step the two runs part
+# by more than the 0.35 their 5-step means fall; at 3e-4 these fall by 1.4
+# (benchmarks/torch_lm_lr.py on an H100, PERF.md §6)
+LM_TRAIN_LR = 3e-4
+GEMMA_ARCH = "gemma2-27b"
+GEMMA_LOCAL_S = 8192
+GEMMA_TICK_CURSORS, GEMMA_SHORT_CURSORS, GEMMA_CACHE_ROWS = \
+    (4700, 5200), (100, 3000), 5248
+LM_GRAD_CASES = (("phi4-mini-3.8b", 4, 2, 512), (GEMMA_ARCH, 2, 1, 5120))
+TRAINER_ARCH, TRAINER_LAYERS, TRAINER_STEPS_LM, TRAINER_CKPT_AT = \
+    "stablelm-3b", 2, 8, 4
+LAUNCH_TRAIN_STEPS, LAUNCH_TRAIN_CKPT = 20, 10
+GEMMA_LAYERS, GEMMA_PROMPTS, GEMMA_NEW = 4, (4700, 5100), 64
+
 # bound_ms denominators of phase 6's new rows: bf16 products on the tensor
 # cores (H100 SXM data sheet), and 32-bit integer operations for the
 # sampler's hash: 64 a clock an SM on compute capability 9.0 (the CUDA C++
@@ -454,6 +516,28 @@ def close_or_raise(what, got, want, atol, rtol):
         raise AssertionError(f"{what}: {int(bad.sum())} elements out of "
                              f"tolerance (max abs err {float(err.max()):.3e})")
     return float(err.max())
+
+
+def grads_close_or_raise(what, got, want, rel_tol):
+    """Phase 5's rule for parameter gradients, kernels (``got``) against
+    plain versions (``want``), dicts of tensors by name: each tensor finite
+    on both sides and within ``rel_tol`` of its plain max |g| (plus 1e-12).
+    Returns (the largest max abs err / tensor max, its tensor's name)."""
+    import torch
+    worst, worst_name = 0.0, ""
+    for name, g_plain in want.items():
+        g = got[name]
+        if not (torch.isfinite(g).all() and torch.isfinite(g_plain).all()):
+            raise AssertionError(f"{what} grad {name}: non-finite values")
+        scale = float(g_plain.abs().max())
+        err = float((g.float() - g_plain.float()).abs().max())
+        if not err <= rel_tol * scale + 1e-12:
+            raise AssertionError(
+                f"{what} grad {name}: kernels vs plain max abs err "
+                f"{err:.3e}, tensor max {scale:.3e}")
+        if err / max(scale, 1e-30) >= worst:
+            worst, worst_name = err / max(scale, 1e-30), name
+    return worst, worst_name
 
 
 def time_ms(fn, batches=20, per_batch=10, warmup=5):
@@ -1113,15 +1197,8 @@ def train(model, scen, per_step, launches, what, mixed_grads,
             loss = action_nll(m_(gb), gb["actions"], gb["agent_valid"])
             names, leaves = zip(*m_.named_parameters())
             grads.append(dict(zip(names, torch.autograd.grad(loss, leaves))))
-        worst = 0.0
-        for name, g_plain in grads[1].items():
-            scale_ = float(g_plain.abs().max())
-            err = float((grads[0][name] - g_plain).abs().max())
-            if not err <= grad_rel_tol * scale_ + 1e-12:
-                raise AssertionError(
-                    f"{what}train grad {name} ({bname}): kernels vs plain max "
-                    f"abs err {err:.3e}, tensor max {scale_:.3e}")
-            worst = max(worst, err / max(scale_, 1e-30))
+        worst, _ = grads_close_or_raise(f"{what}train ({bname})", grads[0],
+                                        grads[1], grad_rel_tol)
         log(f"{what}train step gradients, kernels vs plain versions, {bname} "
             f"batch ({int(gb['agent_valid'][:, 0].sum())} of "
             f"{TRAIN_BATCH * scen.num_agents} agents valid): worst max abs "
@@ -3056,7 +3133,6 @@ def lm_kernels(gen, dev, max_err, records):
         plain_ms = time_ms(tm["plain"], batches=5, per_batch=4)
         library_ms = time_ms(tm["library"])
         device = {"ms": kernel_ms(tm["fn"]),
-                  "plain_ms": kernel_ms(tm["plain"], reps=5),
                   "library_ms": kernel_ms(tm["library"])}
         byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
         flop_ms = tm["flops"] / tm["rate"] * 1e3
@@ -3360,6 +3436,671 @@ def lm_phase(launches, max_err, records):
         del model, full, dec
         torch.cuda.empty_cache()
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: LM training; gemma2's windowed, softcapped attention
+# ---------------------------------------------------------------------------
+
+def window_pairs(s, window):
+    """(q, k) pairs a causal row of length s admits under a window."""
+    if window is None:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def lm_train_kernels(gen, dev, max_err, records):
+    """Phase 14a: the flash forward, dq and dk/dv at phi4-mini's train
+    attention (float32 and bf16) and gemma2's local layer, and the decode
+    at gemma2's tick with its window and softcap, against their plain
+    versions (phase 3's tolerances; float32 gradients against the plain
+    backward of float64 inputs) and timed as phase 6 times; the rows nest
+    in the kernels' records ("lm_train_*", "gemma2_*")."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    gcfg = configs.get_config(GEMMA_ARCH)
+    gopts = dict(causal=True, window=gcfg.window, softcap=gcfg.attn_softcap,
+                 scale=gcfg.query_scale ** -0.5)
+    cases = {
+        "lm_train": (LM_TRAIN_B, 24, 8, LM_TRAIN_S, 128, dict(causal=True),
+                     f32),
+        "lm_train_bf16": (LM_TRAIN_B, 24, 8, LM_TRAIN_S, 128,
+                          dict(causal=True), bf16),
+        "gemma2_local": (1, 32, 16, GEMMA_LOCAL_S, 128, gopts, f32)}
+    timings = {}
+    for name, (b, hq, hkv, s, d, opts, dt) in cases.items():
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                     (b, hkv, s, d), (b, hq, s, d)))
+        key = "float32" if dt == f32 else "bfloat16"
+        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        again, _ = fa.flash_attention_fwd(q, k, v, **opts)
+        want, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        err = close_or_raise(f"14a flash forward {name}", out, want,
+                             **FLASH_TOL[key])
+        close_or_raise(f"14a flash forward {name} lse", lse, want_lse,
+                       atol=1e-4, rtol=1e-5)
+        got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+        got2 = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+        wide = torch.float64 if dt == f32 else dt
+        wantg = fab.flash_bwd_plain(q.to(wide), k.to(wide), v.to(wide),
+                                    out.to(wide), lse, do.to(wide), **opts)
+        if not (torch.equal(out, again) and all(
+                torch.equal(a, b_) for a, b_ in zip(got, got2))):
+            raise AssertionError(f"14a {name}: not bitwise repeatable")
+        gerr = {}
+        for which, a, w in zip(("dq", "dk", "dv"), got, wantg):
+            gerr[which] = close_or_raise(f"14a flash {which} {name}", a,
+                                         w.to(dt), **FLASH_GRAD_TOL[key])
+        if dt == f32:
+            max_err["flash_attention_fwd"] = max(
+                max_err["flash_attention_fwd"], err)
+            max_err["flash_attention_dq"] = max(
+                max_err["flash_attention_dq"], gerr["dq"])
+            max_err["flash_attention_dkv"] = max(
+                max_err["flash_attention_dkv"], gerr["dk"], gerr["dv"])
+        log(f"14a flash {name}: {b} x {hq}/{hkv} heads x {s} x {d}, {key}, "
+            f"{opts}: max abs err out {err:.3e}, dq {gerr['dq']:.3e}, dk "
+            f"{gerr['dk']:.3e}, dv {gerr['dv']:.3e}; bitwise repeatable")
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        es = q.element_size()
+        pairs = b * hq * window_pairs(s, opts.get("window"))
+        qb, kb, row = b * hq * s * d * es, b * hkv * s * d * es, b * hq * s * 4
+        rate = SPLIT_TF32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S
+        library = lib_bwd = None
+        if not opts.get("softcap"):
+            lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                          for t_ in (q, k, v))
+            lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                  enable_gqa=True)
+            library = lambda q=q, k=k, v=v: \
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True)
+            lib_bwd = lambda lout=lout, lq=lq, lk=lk, lv=lv, do=do: \
+                torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+        plain_bwd = lambda q=q, k=k, v=v, out=out, lse=lse, do=do, opts=opts: \
+            fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+        shape = f"{b} x {hq}/{hkv} heads x {s} x {d}, {key}"
+        timings[("flash_attention_fwd", name)] = dict(
+            fn=lambda q=q, k=k, v=v, opts=opts: fa.flash_attention_fwd(
+                q, k, v, **opts),
+            plain=lambda q=q, k=k, v=v, opts=opts: fa.flash_fwd_plain(
+                q, k, v, **opts),
+            library=library, bytes=2 * qb + 2 * kb + row,
+            flops=2 * pairs * 2 * d, rate=rate, shape=shape)
+        timings[("flash_attention_dq", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta, opts=opts:
+            fab.flash_attention_dq(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd, bytes=3 * qb + 2 * kb + 2 * row,
+            flops=2 * pairs * 3 * d, rate=rate, shape=shape)
+        timings[("flash_attention_dkv", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta, opts=opts:
+            fab.flash_attention_dkv(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd, bytes=2 * qb + 4 * kb + 2 * row,
+            flops=2 * pairs * 4 * d, rate=rate, shape=shape)
+    # the decode at gemma2's tick: 2 slots x 32/16 heads x 128, one row at
+    # each cursor, the window and the softcap; rows past the cursors NaN
+    window, softcap = gcfg.window, gcfg.attn_softcap
+    scale = gcfg.query_scale ** -0.5
+    for cursors, tag in ((GEMMA_TICK_CURSORS, ""),
+                         (GEMMA_SHORT_CURSORS, " (window past the cursors)")):
+        for cd in ("float32", "bfloat16", "int8"):
+            for qd in (f32, bf16):
+                q, k, v, kvl, opts = lm_decode_case(
+                    gen, dev, b=2, hq=32, hkv=16, d=128, s=GEMMA_CACHE_ROWS,
+                    cursors=list(cursors), cache_dtype=cd, q_dtype=qd)
+                q = (q.float() * 20).to(qd)      # scores the softcap bends
+                opts["q_times"] = (kvl[:, None] - 1).contiguous()
+                opts["k_times"] = torch.arange(
+                    GEMMA_CACHE_ROWS, dtype=torch.int32, device=dev)[
+                        None].expand(2, GEMMA_CACHE_ROWS).contiguous()
+                opts.update(window=window, softcap=softcap, scale=scale)
+                run = lambda q=q, k=k, v=v, kvl=kvl, opts=opts: \
+                    ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                         impl="flash_decode", **opts)
+                got, again = run(), run()
+                want = ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                            impl="plain", **opts)
+                what = f"{cd} cache, {str(qd)[6:]} query{tag}"
+                err = close_or_raise(
+                    f"14a flash_decode gemma2 {what}", got, want,
+                    **DECODE_TOL["bfloat16" if qd == bf16 else cd])
+                if not torch.equal(got, again):
+                    raise AssertionError(f"14a flash_decode gemma2 {what}: "
+                                         f"not bitwise repeatable")
+                max_err["flash_decode"] = max(max_err["flash_decode"], err)
+                log(f"14a flash_decode gemma2 tick {what}: cursors "
+                    f"{list(cursors)}, window {window}, softcap {softcap}: "
+                    f"max abs err {err:.3e}, bitwise repeatable")
+                nest = {("float32", f32): "gemma2_tick",
+                        ("bfloat16", bf16): "gemma2_tick_bf16",
+                        ("int8", bf16): "gemma2_tick_int8_bf16q"}.get(
+                            (cd, qd))
+                if tag or nest is None:
+                    continue
+                # the keys the window admits are all the work needs
+                live = sum(min(int(c), window) for c in cursors)
+                es = k.element_size()
+                timings[("flash_decode", nest)] = dict(
+                    fn=run, plain=lambda q=q, k=k, v=v, kvl=kvl, opts=opts:
+                    ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                         impl="plain", **opts),
+                    library=None,
+                    bytes=live * 16 * 2 * 128 * es
+                    + (live * 16 * 2 * 4 if cd == "int8" else 0)
+                    + 2 * 2 * 32 * 128 * q.element_size() + 2 * 4,
+                    flops=2 * live * 32 * 2 * 128,
+                    rate=SPLIT_TF32_FLOP_PER_S if cd == "float32"
+                    else BF16_FLOP_PER_S,
+                    shape=f"gemma2 tick {what}: 2 slots x 32/16 x 128, "
+                          f"{live} rows in the window")
+    for (kernel, name), tm in timings.items():
+        big = name == "gemma2_local"
+        ms = time_ms(tm["fn"], batches=5 if big else 20,
+                     per_batch=2 if big else 10)
+        plain_ms = time_ms(tm["plain"], batches=2 if big else 5,
+                           per_batch=1 if big else 4, warmup=1)
+        library_ms = (time_ms(tm["library"], batches=5 if big else 20)
+                      if tm["library"] else None)
+        # CUPTI for the kernel and the library call (the plain versions by
+        # events only: a profiler session costs about a second)
+        device = {"ms": kernel_ms(tm["fn"], reps=3 if big else 20)}
+        if tm["library"]:
+            device["library_ms"] = kernel_ms(tm["library"])
+        byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        flop_ms = tm["flops"] / tm["rate"] * 1e3
+        nested = {"ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(byte_ms, flop_ms),
+                  "bound_by": "bytes" if byte_ms >= flop_ms
+                  else "operations", "library_ms": library_ms,
+                  "bound_f32_ms": max(byte_ms,
+                                      tm["flops"] / F32_FLOP_PER_S * 1e3)}
+        owner = next(r for r in records if r["name"] == kernel)
+        owner[name] = nested
+        log(json.dumps({"kernel": kernel, "row": name, "shape": tm["shape"],
+                        **nested, "device_time_ms": device}))
+
+
+def lm_model(arch, dev, seed=0, **overrides):
+    """A registered LM config (``overrides`` replaced) at full width on the
+    card, weights from a CUDA generator seeded ``seed``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.nn.transformer import build_model
+    cfg = dataclasses.replace(configs.get_config(arch), **overrides)
+    return build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+
+
+def lm_batch(cfg, b, s, index, dev):
+    """``b`` synthetic_lm sequences of ``s`` tokens (seed 0, from
+    ``index``) on the card, with a zero prefix where the config takes one."""
+    import torch
+    from repro_torch.launch.train import make_batch_fn
+    batch = make_batch_fn(cfg, s)(0, index, b)
+    return {k_: torch.as_tensor(v_, device=dev) for k_, v_ in batch.items()}
+
+
+def lm_grad_check(arch, layers, b, s, dev, launches):
+    """Phase 14b: one batch's gradients through the kernels against the
+    plain versions, float32, every parameter tensor within
+    TRAIN_GRAD_REL_TOL of its largest |g| and finite (phase 5's rule:
+    :func:`grads_close_or_raise`); launches exact (the forward
+    twice a layer under remat), no plain attention call on the kernel
+    side."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.module import count_params
+    from repro_torch.optim import sgd
+    from repro_torch.runtime.steps import make_train_step
+    model = lm_model(arch, dev, num_layers=layers, dtype="float32")
+    batch = lm_batch(model.cfg, b, s, 0, dev)
+    step = make_train_step(model, sgd(0.0))
+    cuda.reset_launches()
+    with PlainCalls() as plain:
+        kg, km = step.grads(batch)
+        torch.cuda.synchronize()
+    want = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": layers,
+            "flash_attention_dkv": layers}
+    if dict(cuda.LAUNCHES) != want or plain.calls:
+        raise AssertionError(f"14b {arch}: launches {dict(cuda.LAUNCHES)} "
+                             f"!= {want}; plain calls {plain.calls}")
+    for name, n in want.items():
+        launches[name] += n
+    model.impl = "plain"
+    pg, pm = step.grads(batch)
+    if sorted(kg) != sorted(pg):
+        raise AssertionError(f"14b {arch}: the two sides' tensors differ")
+    worst, worst_name = grads_close_or_raise(f"14b {arch}", kg, pg,
+                                             TRAIN_GRAD_REL_TOL)
+    log(f"14b {arch} at full width and {layers} layers "
+        f"({count_params(model):,} parameters), {b} x {s} tokens, float32: "
+        f"loss {float(km['loss']):.5f} (plain {float(pm['loss']):.5f}); "
+        f"{len(kg)} gradient tensors, the largest difference "
+        f"{worst:.2e} of its tensor's max |g| ({worst_name}); launches "
+        f"{want}, no plain attention call")
+    del model, kg, pg
+    torch.cuda.empty_cache()
+
+
+def lm_train_full(dev, launches):
+    """Phase 14c: phi4-mini-3.8b at full width and depth, bf16 compute,
+    float32 master weights: launch/train's AdamW chain, then adafactor."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.module import count_params
+    from repro_torch.optim import (adafactor, adamw, chain,
+                                   clip_by_global_norm, warmup_cosine)
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.training.steps import loss_summary
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = lm_model(LM_ARCH, dev)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    n_params = count_params(model)
+    batches = [lm_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, i * LM_TRAIN_B, dev)
+               for i in range(LM_TRAIN_STEPS + 1)]
+    per_step = {"flash_attention_fwd": 2 * cfg.num_layers,
+                "flash_attention_dq": cfg.num_layers,
+                "flash_attention_dkv": cfg.num_layers}
+
+    def run(opt, n, what):
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+        step = make_train_step(model, opt, remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        cuda.reset_launches()
+        with PlainCalls() as plain:
+            for i in range(n):
+                t0 = time.perf_counter()
+                grads, metrics = step.grads(batches[i])
+                loss = float(metrics["loss"])
+                state = step.update(state, grads)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss)
+        want = {k_: v_ * n for k_, v_ in per_step.items()}
+        if dict(cuda.LAUNCHES) != want or plain.calls:
+            raise AssertionError(f"14c {what}: launches {dict(cuda.LAUNCHES)}"
+                                 f" != {want}; plain calls {plain.calls}")
+        for k_, v_ in want.items():
+            launches[k_] += v_
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"14c {what}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated() - base - weights
+        return losses, secs, peak, step, state
+
+    opt = chain(clip_by_global_norm(1.0),
+                adamw(warmup_cosine(LM_TRAIN_LR, 20, LM_TRAIN_STEPS)))
+    losses, secs, peak, step, state = run(opt, LM_TRAIN_STEPS, "AdamW")
+    ends = loss_summary(losses)
+    if not ends["loss_last"] < ends["loss_first"]:
+        raise AssertionError(f"14c AdamW: the loss did not fall: {losses}")
+    med = statistics.median(secs[1:])
+    log(f"14c {LM_ARCH} at full width and depth ({cfg.num_layers} layers, "
+        f"{n_params:,} parameters, {weights / 2**30:.2f} GiB of float32 "
+        f"weights), compute {cfg.dtype}, remat, {LM_TRAIN_STEPS} AdamW steps "
+        f"of {LM_TRAIN_B} x {LM_TRAIN_S} synthetic_lm tokens (vocab "
+        f"{cfg.vocab_size}), peak lr {LM_TRAIN_LR}: loss "
+        f"{ends['loss_first']:.4f} -> {ends['loss_last']:.4f} (5-step means; "
+        f"{', '.join(f'{x:.3f}' for x in losses)}); {1 / med:.3f} steps/s, "
+        f"{LM_TRAIN_B * LM_TRAIN_S / med:.0f} tokens/s (median step "
+        f"{med:.3f} s, the first {secs[0]:.3f} s); peak memory "
+        f"{peak / 2**30:.2f} GiB above the weights (AdamW moments "
+        f"{2 * weights / 2**30:.2f} GiB of it); launches a step {per_step}, "
+        f"no plain attention call")
+    # one step profiled
+    batch = batches[LM_TRAIN_STEPS]
+
+    def one():
+        g, _ = step.grads(batch)
+        return step.update(state, g)
+
+    def counted(what, fn):
+        """``fn()`` with the launches gated at one step's, as in run()."""
+        cuda.reset_launches()
+        with PlainCalls() as plain:
+            out = fn()
+            torch.cuda.synchronize()
+        if dict(cuda.LAUNCHES) != per_step or plain.calls:
+            raise AssertionError(f"14c {what}: launches {dict(cuda.LAUNCHES)}"
+                                 f" != {per_step}; plain calls {plain.calls}")
+        for k_, v_ in per_step.items():
+            launches[k_] += v_
+        return out
+
+    t0 = time.perf_counter()
+    state = counted("the unprofiled step", one)
+    wall = time.perf_counter() - t0
+    busy = counted("the profiled step", lambda: device_profile(
+        one, wall, ("step", lambda: 1), f"14c {LM_ARCH} AdamW train step"))
+    del state, step
+    torch.cuda.empty_cache()
+    a_losses, a_secs, a_peak, _, _ = run(
+        chain(clip_by_global_norm(1.0), adafactor(1e-4)),
+        LM_ADAFACTOR_STEPS, "adafactor")
+    log(f"14c adafactor (clip 1.0, lr 1e-4; the dry-run's pairing): "
+        f"{LM_ADAFACTOR_STEPS} steps, loss "
+        f"{', '.join(f'{x:.4f}' for x in a_losses)}"
+        f", median step {statistics.median(a_secs):.3f} s; peak memory "
+        f"{a_peak / 2**30:.2f} GiB above the weights against AdamW's "
+        f"{peak / 2**30:.2f}; busy share of the AdamW step "
+        + ("not measured" if busy is None else f"{busy:.1%}"))
+    del model, batches
+    torch.cuda.empty_cache()
+
+
+def lm_trainer_check(dev, launches):
+    """Phase 14d: the Trainer on stablelm-3b's LM step at full width and
+    2 layers: TRAINER_STEPS_LM steps with a save at TRAINER_CKPT_AT, then a
+    step whose loss is reported NaN (skipped: the parameters and AdamW state
+    bitwise as they were); a second Trainer from the TRAINER_CKPT_AT
+    checkpoint to TRAINER_STEPS_LM (the reference's restart tolerance); the
+    seconds of the saves' host part and of a restore."""
+    import shutil
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.data import ShardedIterator
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.nn.module import count_params
+    from repro_torch.optim import adamw, chain, clip_by_global_norm
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    work = ROOT / "build" / "phase14d"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def trainer(total, ckpt_every, seed, registry=None):
+        model = lm_model(TRAINER_ARCH, dev, seed=seed,
+                         num_layers=TRAINER_LAYERS, dtype="float32")
+        opt = chain(clip_by_global_norm(1.0), adamw(3e-3))
+        data = ShardedIterator(make_batch_fn(model.cfg, 128), batch_size=4,
+                               seed=0)
+        return Trainer(make_train_step(model, opt), model,
+                       opt.init(dict(model.named_parameters())), data,
+                       str(work), TrainerConfig(total_steps=total,
+                                                ckpt_every=ckpt_every,
+                                                log_every=100),
+                       registry=registry)
+
+    def state(tr):
+        return [t_.detach().clone() for t_ in
+                list(tr.model.state_dict().values())
+                + _tensor_leaves(tr.opt_state)]
+
+    cuda.reset_launches()
+    reg = obs.Registry()
+    full = trainer(TRAINER_STEPS_LM + 1, TRAINER_CKPT_AT, 0, reg)
+    n_params = count_params(full.model)
+    inner, seen = full.step_fn, {}
+
+    def nan_last(batch):
+        g, m = inner.grads(batch)
+        if full.step == TRAINER_STEPS_LM:    # the step after the last
+            seen["before"] = state(full)
+            m = dict(m, loss=torch.tensor(float("nan"), device=dev))
+        return g, m
+
+    full.step_fn = dataclasses.replace(inner, grads=nan_last)
+    t0 = time.perf_counter()
+    full.run()
+    run_s = time.perf_counter() - t0
+    full.data.close()
+    if full.nan_guard.total_skipped != 1 or not all(
+            torch.equal(a, b_) for a, b_ in zip(seen["before"],
+                                                state(full))):
+        raise AssertionError("14d: the NaN-reported step changed the state")
+    del seen
+    saves = [ev["dur"] / 1e6 for ev in reg.events()
+             if ev.get("ph") == "X" and ev["name"] == "trainer.checkpoint"]
+    # keep the step-4 checkpoint only: the restart must start there
+    size = 0
+    for d_ in work.iterdir():
+        if d_.name.startswith("step_") and \
+                int(d_.name.split("_")[1].split(".")[0]) > TRAINER_CKPT_AT:
+            size = max(size, sum(f.stat().st_size for f in d_.rglob("*")
+                                 if f.is_file()))
+            shutil.rmtree(d_)
+    again = trainer(TRAINER_STEPS_LM, 10 ** 6, 1)
+    t0 = time.perf_counter()
+    if not again.restore_if_available():
+        raise AssertionError("14d: no checkpoint to restore")
+    restore_s = time.perf_counter() - t0
+    if again.step != TRAINER_CKPT_AT or again.data.cursor != TRAINER_CKPT_AT:
+        raise AssertionError(f"14d: restored step {again.step}, cursor "
+                             f"{again.data.cursor}")
+    again.run()
+    again.data.close()
+    hist_a = full.history[TRAINER_CKPT_AT:]
+    if len(hist_a) != len(again.history) or any(
+            abs(x - y) > RESTART_LOSS_RTOL * abs(y)
+            for x, y in zip(hist_a, again.history)):
+        raise AssertionError(f"14d restart: losses {again.history} != "
+                             f"{hist_a}")
+    a_sd, b_sd = full.model.state_dict(), again.model.state_dict()
+    worst = 0.0
+    for name, t_ in a_sd.items():
+        close_or_raise(f"14d restart {name}", b_sd[name], t_,
+                       atol=RESTART_PARAM_ATOL, rtol=RESTART_LOSS_RTOL)
+        worst = max(worst, float((b_sd[name] - t_).abs().max()))
+    counts = dict(cuda.LAUNCHES)
+    steps_run = 2 * TRAINER_STEPS_LM - TRAINER_CKPT_AT + 1
+    want = {"flash_attention_fwd": 2 * TRAINER_LAYERS * steps_run,
+            "flash_attention_dq": TRAINER_LAYERS * steps_run,
+            "flash_attention_dkv": TRAINER_LAYERS * steps_run}
+    if counts != want:
+        raise AssertionError(f"14d launches {counts} != {want}")
+    for k_, v_ in want.items():
+        launches[k_] += v_
+    log(f"14d Trainer on {TRAINER_ARCH} at full width and {TRAINER_LAYERS} "
+        f"layers ({n_params:,} parameters): {TRAINER_STEPS_LM} steps and a "
+        f"NaN-reported one (skipped, the parameters and AdamW state bitwise "
+        f"unchanged), saves at {TRAINER_CKPT_AT}, {TRAINER_STEPS_LM} and "
+        f"{TRAINER_STEPS_LM + 1}, in {run_s:.1f} s; trainer.checkpoint spans "
+        f"(the host copy and CRC on the training thread) "
+        + ", ".join(f"{x:.2f} s" for x in saves)
+        + f", {size / 2**30:.2f} GiB a checkpoint; a second Trainer restored "
+        f"step {TRAINER_CKPT_AT} in {restore_s:.2f} s and ran to "
+        f"{TRAINER_STEPS_LM}: losses within rtol {RESTART_LOSS_RTOL}, "
+        f"parameters within atol {RESTART_PARAM_ATOL} (max {worst:.2e}); "
+        f"launches {counts}")
+    shutil.rmtree(work, ignore_errors=True)
+    del full, again
+    torch.cuda.empty_cache()
+
+
+def _tensor_leaves(node):
+    """The tensors of an optimizer state (tuples, dicts, ints), in order."""
+    import torch
+    if isinstance(node, torch.Tensor):
+        return [node]
+    if isinstance(node, dict):
+        return [t_ for k_ in sorted(node) for t_ in _tensor_leaves(node[k_])]
+    if isinstance(node, (tuple, list)):
+        return [t_ for x in node for t_ in _tensor_leaves(x)]
+    return []
+
+
+def lm_launch_train():
+    """Phase 14e: python -m repro_torch.launch.train on the card, reduced,
+    then run again to resume from its checkpoint."""
+    import os
+    import shutil
+    work = ROOT / "build" / "phase14e"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    logs = []
+    for steps in (LAUNCH_TRAIN_STEPS, LAUNCH_TRAIN_STEPS + LAUNCH_TRAIN_CKPT):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LM_ARCH, "--reduced", "--steps", str(steps), "--ckpt-every",
+             str(LAUNCH_TRAIN_CKPT), "--ckpt-dir", str(work / "ckpt")],
+            cwd=work, capture_output=True, text=True, timeout=300, env=env)
+        if run.returncode != 0:
+            raise AssertionError(f"launch.train exited {run.returncode}:\n"
+                                 f"{run.stderr[-3000:]}")
+        losses = [float(x) for x in re.findall(r"step \d+ loss ([\d.]+)",
+                                               run.stderr)]
+        logs.append((time.perf_counter() - t0, losses, run.stderr))
+    (s1, l1, _), (s2, l2, err2) = logs
+    if len(l1) != LAUNCH_TRAIN_STEPS // 10 or not l1[-1] < l1[0]:
+        raise AssertionError(f"launch.train: logged losses {l1}")
+    if f"restored from step {LAUNCH_TRAIN_STEPS}" not in err2 or len(l2) != 1:
+        raise AssertionError(f"launch.train did not resume:\n{err2[-2000:]}")
+    log(f"14e launch.train --arch {LM_ARCH} --reduced --steps "
+        f"{LAUNCH_TRAIN_STEPS} --ckpt-every {LAUNCH_TRAIN_CKPT}: exit 0 in "
+        f"{s1:.1f} s, logged losses {l1}; run again to "
+        f"{LAUNCH_TRAIN_STEPS + LAUNCH_TRAIN_CKPT} steps: resumed from step "
+        f"{LAUNCH_TRAIN_STEPS}, exit 0 in {s2:.1f} s, loss {l2}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def gemma2_serving(dev, launches):
+    """Phase 14f: gemma2-27b at full width and GEMMA_LAYERS layers (float32
+    weights): two prompts prefilled into their slots, GEMMA_NEW decode steps
+    with per-slot cursors, every decoded position held to the full forward
+    over the whole sequence; float32 and int8 caches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.nn.module import count_params
+    model = lm_model(GEMMA_ARCH, dev, num_layers=GEMMA_LAYERS,
+                     dtype="float32")
+    cfg = model.cfg
+    rng = np.random.default_rng(14)
+    seqs = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, n + GEMMA_NEW))).to(dev)
+        for n in GEMMA_PROMPTS]
+    max_len = max(GEMMA_PROMPTS) + GEMMA_NEW
+    # the full forward over each whole sequence: the prefill's last
+    # position and every decoded one
+    wants = []
+    with torch.no_grad():
+        for n, seq in zip(GEMMA_PROMPTS, seqs):
+            full, _, _ = model(seq)
+            wants.append(full[0, n - 1:n + GEMMA_NEW - 1].float().clone())
+            del full
+    torch.cuda.empty_cache()
+    want = torch.stack(wants)                        # (2, GEMMA_NEW, vocab)
+    calls = []
+    real = fd.flash_decode
+
+    def seen(*a, **kw):
+        calls.append((kw.get("window"), kw.get("softcap")))
+        return real(*a, **kw)
+
+    for cache_dtype in ("float32", "int8"):
+        calls.clear()
+        cuda.reset_launches()
+        fd.flash_decode = seen
+        try:
+            with torch.no_grad(), PlainCalls() as plain:
+                t0 = time.perf_counter()
+                caches, firsts = [], []
+                for n, seq in zip(GEMMA_PROMPTS, seqs):
+                    cache = model.init_cache(1, max_len, cache_dtype)
+                    lg, _, cache = model(seq[:, :n], cache=cache,
+                                         cache_index=0)
+                    firsts.append(lg[0, -1].float())
+                    caches.append(cache)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                cache = {g: {h: {k_: torch.cat([c[g][h][k_] for c in caches],
+                                               1).contiguous()
+                                 for k_ in caches[0][g][h]}
+                             for h in caches[0][g]} for g in caches[0]}
+                del caches
+                outs, ticks = [torch.stack(firsts)[:, None]], []
+                for i in range(GEMMA_NEW - 1):
+                    idx = torch.tensor([n + i for n in GEMMA_PROMPTS],
+                                       device=dev)
+                    tok = torch.stack([seq[0, n + i] for n, seq in
+                                       zip(GEMMA_PROMPTS, seqs)])[:, None]
+                    t0 = time.perf_counter()
+                    lg, _, cache = model(tok, cache=cache, cache_index=idx)
+                    outs.append(lg.float())
+                    torch.cuda.synchronize()
+                    ticks.append(time.perf_counter() - t0)
+                got = torch.cat(outs, 1)
+        finally:
+            fd.flash_decode = real
+        ticks_n = GEMMA_NEW - 1
+        want_launch = {"flash_decode": GEMMA_LAYERS * (len(GEMMA_PROMPTS)
+                                                       + ticks_n)}
+        local = sum(1 for w, c in calls if w == cfg.window
+                    and c == cfg.attn_softcap)
+        glob = sum(1 for w, c in calls if w is None
+                   and c == cfg.attn_softcap)
+        if dict(cuda.LAUNCHES) != want_launch or plain.calls or \
+                local != glob or local + glob != len(calls):
+            raise AssertionError(f"14f {cache_dtype}: launches "
+                                 f"{dict(cuda.LAUNCHES)} != {want_launch}; "
+                                 f"plain calls {plain.calls}; windowed "
+                                 f"{local}, global {glob} of {len(calls)}")
+        launches["flash_decode"] += want_launch["flash_decode"]
+        tol = LM_GATE_TOL if cache_dtype == "float32" else MODEL_TOL["int8"]
+        err = close_or_raise(f"14f gemma2 {cache_dtype} cache: decode "
+                             f"against the full forward", got, want, **tol)
+        tick_ms = np.asarray(ticks) * 1e3
+        log(f"14f {GEMMA_ARCH} at full width and {GEMMA_LAYERS} layers "
+            f"({count_params(model):,} parameters, float32), {cache_dtype} "
+            f"cache: prompts of {GEMMA_PROMPTS} tokens prefilled in "
+            f"{prefill_s:.2f} s, {GEMMA_NEW} positions a prompt against the "
+            f"full forward: max abs err {err:.3e} (gate {tol}); tick p50 "
+            f"{np.percentile(tick_ms, 50):.2f} ms, p99 "
+            f"{np.percentile(tick_ms, 99):.2f} ms at cursors "
+            f"{GEMMA_PROMPTS[0]}-{GEMMA_PROMPTS[1] + GEMMA_NEW}; decode "
+            f"launches {want_launch['flash_decode']}, {local} with the "
+            f"window {cfg.window} and softcap {cfg.attn_softcap}, {glob} "
+            f"with the softcap alone; no plain attention call")
+        del cache, got
+    del model, want
+    torch.cuda.empty_cache()
+
+
+def lm_train_phase(launches, max_err, records):
+    """Phase 14: LM training and gemma2 (see the module docstring)."""
+    import torch
+    import gc
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 starts with {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated by earlier phases")
+    phase("14a. LM training and gemma2: the flash kernels at the train "
+          "shapes, the decode with a window and a softcap")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lm_train_kernels(gen, dev, max_err, records)
+    log(f"14a: {time.perf_counter() - t_phase:.1f} s")
+    phase("14b. gradients through the kernels against the plain versions")
+    for arch, layers, b, s in LM_GRAD_CASES:
+        lm_grad_check(arch, layers, b, s, dev, launches)
+    phase(f"14c. {LM_ARCH} trains at full width and depth")
+    lm_train_full(dev, launches)
+    phase(f"14d. the Trainer on an LM step ({TRAINER_ARCH}, "
+          f"{TRAINER_LAYERS} layers)")
+    lm_trainer_check(dev, launches)
+    phase("14e. python -m repro_torch.launch.train")
+    lm_launch_train()
+    phase(f"14f. {GEMMA_ARCH} at full width and {GEMMA_LAYERS} layers: "
+          f"windowed, softcapped decode")
+    gemma2_serving(dev, launches)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3854,8 +4595,10 @@ def main() -> int:
         ms = time_ms(tm["fn"])
         plain_ms = once(time_ms, tm["plain"])
         library_ms = once(time_ms, tm["library"]) if tm["library"] else None
-        device = {"ms": kernel_ms(tm["fn"]),
-                  "plain_ms": once(kernel_ms, tm["plain"])}
+        # CUPTI for the kernel and the library call; the plain versions by
+        # events only: a profiler session costs about a second, and the
+        # plain versions alone took about 40 of them)
+        device = {"ms": kernel_ms(tm["fn"])}
         if tm["library"]:
             device["library_ms"] = once(kernel_ms, tm["library"])
         byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -3903,6 +4646,11 @@ def main() -> int:
         log(f"{name}: its {own} x {walk} tiles compute {computed} (q, k) "
             f"pairs a head, of which the mask admits {admitted // th_} "
             f"({admitted / th_ / computed:.1%})")
+
+    # the timing cases' tensors (and SDPA's retained graphs) are not needed
+    # past phase 6: phase 14's full-depth train step needs the card's memory
+    del timings, measured, flash_200
+    torch.cuda.empty_cache()
 
     # 7. evaluation ---------------------------------------------------------
     phase("7. evaluation")
@@ -4023,6 +4771,9 @@ def main() -> int:
 
     # 13. the dense LM serving stack ----------------------------------------
     lm_phase(launches, max_err, records)
+
+    # 14. LM training; gemma2's windowed, softcapped attention --------------
+    lm_train_phase(launches, max_err, records)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

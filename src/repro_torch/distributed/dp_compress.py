@@ -26,7 +26,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import batch_sharding
 from repro_torch.launch.mesh import mesh_shape
-from repro_torch.optim.transforms import apply_updates
+from repro_torch.optim.transforms import step_in_place
 from repro_torch.params import reference_leaf
 
 
@@ -159,9 +159,7 @@ def make_compressed_dp_step(loss_fn: Callable, optimizer, mesh,
         grads, loss = mean_over_data(grads, loss, mesh, pod_axis, data_axis)
         grads, residual = reduce_over_pods(grads, residual, mesh, pod_axis,
                                            compress)
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            apply_updates(params, updates)
+        opt_state = step_in_place(optimizer, grads, opt_state, params)
         return params, opt_state, residual, loss
 
     return step

@@ -9,6 +9,18 @@
 // (never an index-causal term), segment q_seg == k_seg && k_seg >= 0, GQA
 // h // group. A query row with no live key gives exactly 0.
 //
+// A sliding window and a score softcap (gemma2's local and every layer;
+// the Pallas kernel has neither, the reference decodes gemma2 in XLA):
+// a key is kept where k_time > q_time - window, as the flash kernels and
+// the reference's chunked path keep it, and the scaled score becomes
+// softcap * tanh(s / softcap) before the running max. They are the
+// template flag kWinCap: the instances without it are the ones this kernel
+// had before, so a launch with neither compiles and computes as it did.
+// With it, the CTA of several blocks also tests the window before it loads
+// a tile (a tile wholly below every row's window is skipped); the one-block
+// CTA walks every tile to the cursor and masks. Taken at widths up to 200
+// (the NT = 25 instances, generic width).
+//
 // Bound on Hopper: bytes. A rollout tick (64 slots x 8 heads x 12 query
 // rows against 312 live rows, c = 200, float32 cache) moves 255.6 MB of K
 // and V for 3 GFLOP: 0.076 ms at 3.35 TB/s. The prefill (144 query rows
@@ -273,7 +285,7 @@ __device__ __forceinline__ int warp_of(int blk, int slice) {
 // m16 blocks of R are dealt evenly over the ceil(blocks / MB) row tiles
 // (the prefill's 9 blocks as 3 + 3 + 3, not 4 + 4 + 1).
 template <typename T, typename TQ, int MB, int NS, int NT, int kStages, int kWidth,
-          int kWin>
+          int kWin, bool kWinCap>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ k_scale,
@@ -283,7 +295,8 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               TQ* __restrict__ out, float* __restrict__ o_part,
               float* __restrict__ m_part, float* __restrict__ l_part, int B,
               int Hq, int Hkv, int Sq, int S, int D_arg, int Dv_arg, int layer,
-              int num_splits, int tiles_per_split, float scale, Win win) {
+              int num_splits, int tiles_per_split, float scale, Win win,
+              int window, float softcap) {
   using C = Cfg<MB, NS>;
   constexpr int W = C::W, kRows = C::kRows, kWPB = C::kWPB, kWords = (W + 31) / 32;
   constexpr bool kExact = !std::is_same<T, float>::value;
@@ -401,6 +414,8 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       for (int o = threadIdx.x / W; o < kRows; o += kThreads / W) {
         bool ok = s_own[o] >= 0;
         if (kt_b) ok = ok && jt <= s_own[kRows + o];
+        if constexpr (kWinCap)
+          if (window > 0) ok = ok && jt > s_own[kRows + o] - window;
         if (ks_b) ok = ok && js == s_own[2 * kRows + o] && js >= 0;
         any = any || ok;
       }
@@ -476,6 +491,8 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < 2; ++r) {
           bool o_k = in && row_ok[r];
           if (kt_b) o_k = o_k && jt <= row_t[r];
+          if constexpr (kWinCap)
+            if (window > 0) o_k = o_k && jt > row_t[r] - window;
           if (ks_b) o_k = o_k && js == row_s[r] && js >= 0;
           ok[n][2 * r + h] = o_k;
           live = live || o_k;
@@ -547,6 +564,8 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
           x = s[n][e] + lo[n][e];
           if constexpr (kQuant) x *= kscl[n][e % 2];
           x *= scale;
+          if constexpr (kWinCap)
+            if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         }
         s[n][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -801,17 +820,18 @@ int num_splits_for(int B, int Hq, int Hkv, int Sq, int S, int D, int Dv,
 // window_passes(D, Dv) for wider rows: kWin != kWinNone), then the split
 // combine over the whole rows.
 template <typename T, typename TQ, int MB, int NS, int NT, int kWidth,
-          int kWin = kWinNone>
+          int kWin = kWinNone, bool kWinCap = false>
 cudaError_t launch_cfg(const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale,
                        const int* kv_length, const int* q_times, const int* k_times,
                        const int* q_seg, const int* k_seg, float* o_part,
                        float* m_part, float* l_part, void* out, int B, int Hq,
                        int Hkv, int Sq, int S, int D, int Dv, int layer,
-                       int num_splits, float scale, int q_bf16, cudaStream_t stream) {
+                       int num_splits, float scale, int q_bf16, int window,
+                       float softcap, cudaStream_t stream) {
   constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
   using C = Cfg<MB, NS>;
-  auto kernel = decode_kernel<T, TQ, MB, NS, NT, kStages, kWidth, kWin>;
+  auto kernel = decode_kernel<T, TQ, MB, NS, NT, kStages, kWidth, kWin, kWinCap>;
   const int row_tiles = (Hq / Hkv * Sq + C::kRows - 1) / C::kRows;
   const int tiles = (S + C::W - 1) / C::W;
   const int tiles_per_split = (tiles + num_splits - 1) / num_splits;
@@ -827,7 +847,7 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v,
     kernel<<<grid, kThreads, smem, stream>>>(
         (const TQ*)q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times,
         k_times, q_seg, k_seg, (TQ*)out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D,
-        Dv, layer, num_splits, tiles_per_split, scale, win);
+        Dv, layer, num_splits, tiles_per_split, scale, win, window, softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -844,8 +864,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
                    const int* k_times, const int* q_seg, const int* k_seg,
                    float* o_part, float* m_part, float* l_part, void* out, int B,
                    int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
-                   int num_splits, float scale, int q_bf16, cudaStream_t stream) {
+                   int num_splits, float scale, int q_bf16, int window, float softcap,
+                   cudaStream_t stream) {
   num_splits = num_splits_for(B, Hq, Hkv, Sq, S, D, Dv, num_splits < 1 ? 1 : num_splits, 0);
+  if (window > 0 || softcap > 0.f) {         // the kWinCap instances
+    if (D > 200 || Dv > 200) return cudaErrorInvalidValue;
+    auto go = [&](auto tq, auto mb, auto ns) {
+      return launch_cfg<T, decltype(tq), decltype(mb)::value, decltype(ns)::value, 25, 0,
+                        kWinNone, true>(
+          q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
+          window, softcap, stream);
+    };
+    const bool one = Hq / Hkv * Sq <= 16;    // with_cta_shape's choice
+    if (q_bf16)
+      return one ? go(__nv_bfloat16{}, Int<1>{}, Int<1>{})
+                 : go(__nv_bfloat16{}, Int<4>{}, Int<2>{});
+    return one ? go(float{}, Int<1>{}, Int<1>{}) : go(float{}, Int<4>{}, Int<2>{});
+  }
   if (D > kMaxWindow || Dv > kMaxWindow) {   // with_cta_shape's (4, 1, 32) shape
     // whole Q and K rows staged where they fit beside the widest V window
     constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
@@ -856,7 +892,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
       return launch_cfg<T, decltype(tq), 4, 1, 32, 0, decltype(mode)::value>(
           q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
           m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
-          stream);
+          -1, 0.f, stream);
     };
     if (q_bf16)
       return staged ? go(__nv_bfloat16{}, Int<kWinStaged>{})
@@ -869,7 +905,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
                         decltype(nt)::value, decltype(width)::value>(
           q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
           m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
-          stream);
+          -1, 0.f, stream);
     };
     return q_bf16 ? go(__nv_bfloat16{}) : go(float{});
   });
@@ -887,7 +923,10 @@ extern "C" {
 // o_part (B, Hq, splits, Sq, Dv), m_part, l_part (B, Hq, splits, Sq) f32 for
 // at least that many splits (unread with one split); out (B, Hq, Sq, Dv) of
 // q's type. Any widths; past 256 columns the launch runs balanced column
-// windows of at most 256. Returns cudaGetLastError() after the launches.
+// windows of at most 256. window > 0 keeps keys with k_time > q_time - window
+// (times required); softcap > 0 caps the scaled scores; either takes widths
+// up to 200 (cudaErrorInvalidValue past them). Returns cudaGetLastError()
+// after the launches.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* k_scale, const void* v_scale,
                         const void* kv_length, const void* q_times,
@@ -895,13 +934,13 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         void* o_part, void* m_part, void* l_part, void* out, int B,
                         int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
                         int num_splits, int cache_dtype, int q_bf16, float scale,
-                        void* stream) {
+                        int window, float softcap, void* stream) {
   if (B == 0 || Sq == 0) return 0;
 #define ARGS q, k, v, (const float*)k_scale, (const float*)v_scale, \
     (const int*)kv_length, (const int*)q_times, (const int*)k_times,             \
     (const int*)q_seg, (const int*)k_seg, (float*)o_part, (float*)m_part,        \
     (float*)l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale,     \
-    q_bf16, (cudaStream_t)stream
+    q_bf16, window, softcap, (cudaStream_t)stream
   switch (cache_dtype) {
     case 0: return (int)launch<float>(ARGS);
     case 1: return (int)launch<__nv_bfloat16>(ARGS);

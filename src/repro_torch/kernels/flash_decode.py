@@ -13,11 +13,20 @@ scales; all arithmetic is float32.
   softmax over the live key blocks only, reading the stacked cache in place
   through views (only one block is ever converted to float32).
 
-Masking: block-causal over explicit times (``k_time <= q_time``), segment
-ids (``q_seg == k_seg`` and ``k_seg >= 0``), GQA (``h // group``), and the
-cursor. A value row that no query can reach is zeroed before ``p @ v``
+Masking: the cursor (no row at or past ``kv_length[b]`` is read), then,
+where given, block-causal over explicit times (``k_time <= q_time``), a
+sliding window over the same times (``k_time > q_time - window``, as the
+flash kernels' and the reference's chunked path; a window needs times),
+segment ids (``q_seg == k_seg`` and ``k_seg >= 0``), and GQA (``h //
+group``). ``softcap`` maps the scaled scores through ``softcap *
+tanh(s / softcap)`` before the softmax, as ``ref.py`` and the flash
+kernels do. A value row that no query can reach is zeroed before ``p @ v``
 (0 * NaN is NaN, and rows past a cursor may hold any bit pattern); a query
 row with no live key gives 0.
+
+The JAX package's Pallas decode has neither a window nor a softcap: the
+reference decodes gemma2 through its chunked path. The port's kernel takes
+both (the kernel's instances without them are the ones it had before).
 """
 from __future__ import annotations
 
@@ -66,9 +75,19 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 # The plain version.
 # ---------------------------------------------------------------------------
 
+def _check_window(window, softcap, q_times):
+    if window is not None and (window < 1 or q_times is None):
+        raise ValueError(f"a decode window ({window}) must be positive and "
+                         f"needs q_times / k_times (the positions)")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
+
+
 def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
                  q_segment_ids=None, k_segment_ids=None,
                  q_times=None, k_times=None,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None,
                  scale: Optional[float] = None, block_k: int = 128,
                  layer: Optional[int] = None) -> torch.Tensor:
     """Cursor-bounded online-softmax decode in plain PyTorch.
@@ -80,6 +99,7 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     rows an earlier block already folded. Computes in float32, or in
     float64 for float64 queries (an exact yardstick for the kernel).
     """
+    _check_window(window, softcap, q_times)
     b, hq, sq, d = q.shape
     if layer is not None:
         k, v = k[layer], v[layer]
@@ -112,12 +132,16 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
             kc = torch.repeat_interleave(kc, group, dim=1)
             vc = torch.repeat_interleave(vc, group, dim=1)
         s = torch.einsum("bhnd,bhmd->bhnm", qf, kc) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
         cols = torch.arange(start, start + block_k, device=q.device)
         mask = ((cols[None, :] < kvl[:, None]) & (cols >= start_u)[None, :])
         mask = mask[:, None, None, :]
         if q_times is not None:
-            mask = mask & (k_times[:, None, None, sl]
-                           <= q_times[:, None, :, None])
+            kt, qt = k_times[:, None, None, sl], q_times[:, None, :, None]
+            mask = mask & (kt <= qt)
+            if window is not None:
+                mask = mask & (kt > qt - window)
         if q_segment_ids is not None:
             ks = k_segment_ids[:, None, None, sl]
             mask = mask & (q_segment_ids[:, None, :, None] == ks) & (ks >= 0)
@@ -145,7 +169,10 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
                  q_segment_ids=None, k_segment_ids=None,
-                 q_times=None, k_times=None, scale: Optional[float] = None,
+                 q_times=None, k_times=None,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None,
+                 scale: Optional[float] = None,
                  num_splits: Optional[int] = None,
                  layer: Optional[int] = None) -> torch.Tensor:
     """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
@@ -155,14 +182,19 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     windows of at most 256, each recomputing the scores). ``num_splits`` (CUDA
     only) splits each row's key range over that many CTAs, whose partials
     a second kernel joins; the kernel holds it to its count of key tiles,
-    and None picks enough to give every SM a CTA."""
+    and None picks enough to give every SM a CTA. ``window`` (which needs
+    the times) and ``softcap`` take rows of at most 200 columns on the
+    card (every registered config's head is 64 or 128 wide)."""
     if q.device.type == "cpu":
         return decode_plain(q, k, v, kv_length, k_scale=k_scale,
                             v_scale=v_scale, q_segment_ids=q_segment_ids,
                             k_segment_ids=k_segment_ids, q_times=q_times,
-                            k_times=k_times, scale=scale, layer=layer)
+                            k_times=k_times, window=window, softcap=softcap,
+                            scale=scale, layer=layer)
+    _check_window(window, softcap, q_times)
     return _launch(q, k, v, kv_length, k_scale, v_scale, q_segment_ids,
-                   k_segment_ids, q_times, k_times, scale, num_splits, layer)
+                   k_segment_ids, q_times, k_times, window, softcap, scale,
+                   num_splits, layer)
 
 
 def _check_int(name, t, shape, device):
@@ -174,7 +206,7 @@ def _check_int(name, t, shape, device):
 
 
 def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
-            k_times, scale, num_splits, layer):
+            k_times, window, softcap, scale, num_splits, layer):
     dev = q.device
     if q.dtype not in _Q_CODES or q.ndim != 4 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous float32 or bfloat16 "
@@ -203,6 +235,9 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
             raise ValueError(f"{name} must be contiguous on {dev}")
     if d < 1 or dv < 1:
         raise ValueError(f"row widths D={d}, Dv={dv} must be positive")
+    if (window is not None or softcap is not None) and max(d, dv) > 200:
+        raise ValueError(f"a window or a softcap takes rows of at most 200 "
+                         f"columns on the card, got D={d}, Dv={dv}")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or quant != (v_scale is not None):
         raise ValueError("int8 caches need k_scale and v_scale; other "
@@ -239,7 +274,8 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
               ptr(q_seg), ptr(k_seg), o_part.data_ptr(), m_part.data_ptr(),
               l_part.data_ptr(), out.data_ptr(), b, hq, hkv, sq, sk, d, dv,
               layer, num_splits, _CACHE_CODES[k.dtype], _Q_CODES[q.dtype],
-              float(scale),
+              float(scale), -1 if window is None else int(window),
+              0.0 if softcap is None else float(softcap),
               torch.cuda.current_stream(dev).cuda_stream)
     cuda.count_launch("flash_decode")
     return out
@@ -263,4 +299,4 @@ def _num_splits():
 def _kernel():
     return cuda.launcher(
         "flash_decode", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])

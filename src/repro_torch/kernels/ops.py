@@ -23,6 +23,8 @@ def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
                      scale: Optional[float] = None,
                      q_segment_ids=None, k_segment_ids=None,
                      q_times=None, k_times=None,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
                      k_scale=None, v_scale=None,
                      num_splits: Optional[int] = None,
                      layer: Optional[int] = None):
@@ -36,10 +38,13 @@ def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
       * ``"ref"``: the O(S^2) oracle over the dequantized layer slice.
 
     ``layer`` marks k/v (and scales) as the stacked (L, B, Hkv, S, .) cache.
+    ``window`` (over the times, which it needs) and ``softcap`` as the
+    flash kernels'.
     """
     common = dict(k_scale=k_scale, v_scale=v_scale,
                   q_segment_ids=q_segment_ids, k_segment_ids=k_segment_ids,
-                  q_times=q_times, k_times=k_times, scale=scale, layer=layer)
+                  q_times=q_times, k_times=k_times, window=window,
+                  softcap=softcap, scale=scale, layer=layer)
     if impl in ("auto", "flash_decode"):
         return fd.flash_decode(q, k, v, kv_length, num_splits=num_splits,
                                **common)
@@ -55,6 +60,7 @@ def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
         if v_scale is not None:
             v = fd.dequantize_kv(v, v_scale, dtype=q.dtype)
         return attention(q, k, v, impl="ref", causal=q_times is not None,
+                         window=window, softcap=softcap,
                          scale=scale, q_segment_ids=q_segment_ids,
                          k_segment_ids=k_segment_ids, q_times=q_times,
                          k_times=k_times, kv_length=kv_length)

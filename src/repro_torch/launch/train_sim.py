@@ -53,13 +53,13 @@ from repro_torch.nn.agent_sim import AgentSimModel
 from repro_torch.params import to_reference
 from repro_torch.runtime.evaluation import EvalConfig, evaluate_scenes
 from repro_torch.runtime.rollout import RolloutEngine
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.runtime.trainer import Trainer, TrainerConfig, TrainStep
 from repro_torch.scenarios import registry
 from repro_torch.training.comparison import (COMPARISON_ENCODINGS,
                                              format_table, run_comparison)
 from repro_torch.training.data import holdout_batches, make_batch_fn
-from repro_torch.training.steps import (SimTrainStep, bc_optimizer,
-                                        loss_summary, make_sim_eval_step,
+from repro_torch.training.steps import (bc_optimizer, loss_summary,
+                                        make_sim_eval_step,
                                         make_sim_train_step,
                                         open_loop_metrics)
 
@@ -125,7 +125,7 @@ def make_eval_cb(model, scen, *, holdout, n_scenes_per_family: int,
     return eval_cb, state
 
 
-def _with_nan_injection(step_fn: SimTrainStep, at_step: int) -> SimTrainStep:
+def _with_nan_injection(step_fn: TrainStep, at_step: int) -> TrainStep:
     """Failure drill (``--inject-nan-at``): poison the *reported* loss from
     host call ``at_step`` onward so the NaN guard trips and the
     flight-recorder dump path runs for real. The gradients are untouched;

@@ -3,7 +3,9 @@
 ``_cache_update`` and ``Attention``).
 
 GQA, MQA and MHA; rotary positions (``Rope1D``) on all or a fraction of
-each head's columns (stablelm rotates 20 of 80); ``query_scale``; biases.
+each head's columns (stablelm rotates 20 of 80); ``query_scale``; biases;
+a sliding window (a key is kept where ``k_pos > q_pos - window``) and a
+tanh softcap on the scaled scores (gemma2's local layers and every layer).
 
 The cache is one layer-stacked buffer per layer group: ``k`` / ``v``
 (L, B, Hkv, max_len, D) in float32, bfloat16 or int8, int8 with float32
@@ -18,7 +20,9 @@ port's ``impl="auto"`` runs the decode kernel (``ops.decode_attention``)
 bounded by each slot's cursor (``kv_length = index + S``): the kernel
 reads no row past it. For a chunk of S > 1 new tokens, causality inside
 the chunk comes from ``q_times`` / ``k_times`` set to the positions.
-``impl="chunked"`` (and ``"ref"``) run the reference's way.
+A windowed layer passes the positions as times at every step (the window
+compares them); the decode kernel applies the window and the softcap
+itself. ``impl="chunked"`` (and ``"ref"``) run the reference's way.
 """
 from __future__ import annotations
 
@@ -62,7 +66,8 @@ class CacheStep:
     (tensor index) are each slot's row and whether it lies in the cache (a
     row past the cache is dropped, as the reference's scatter drops it).
     ``kv_length`` (B,) int32 = min(index + n, max_len); ``q_times`` /
-    ``k_times`` are the positions (n > 1 only).
+    ``k_times`` are the positions (n > 1 only; :meth:`times` gives them at
+    any n, for a windowed layer).
     """
     index: Union[int, torch.Tensor]
     n: int
@@ -72,6 +77,23 @@ class CacheStep:
     kv_length: torch.Tensor
     q_times: Optional[torch.Tensor]
     k_times: Optional[torch.Tensor]
+    max_len: int = 0
+
+    def times(self):
+        """(q_times (B, n), k_times (B, max_len)) int32: the new rows'
+        positions and the cache rows' (built once a step, then kept)."""
+        if self.q_times is None:
+            b, dev = self.kv_length.shape[0], self.kv_length.device
+            if isinstance(self.index, torch.Tensor):
+                q = self.index.to(dev, torch.int32)[:, None]
+            else:
+                q = torch.full((b, 1), self.index, dtype=torch.int32,
+                               device=dev)
+            self.q_times = q.contiguous()
+            self.k_times = torch.arange(
+                self.max_len, dtype=torch.int32, device=dev)[None].expand(
+                    b, self.max_len).contiguous()
+        return self.q_times, self.k_times
 
 
 def cache_step(index, n: int, batch: int, max_len: int,
@@ -86,7 +108,7 @@ def cache_step(index, n: int, batch: int, max_len: int,
             index=index.to(device), n=1, start=None,
             rows=torch.clamp(idx, 0, max_len - 1), valid=valid,
             kv_length=torch.clamp(idx + 1, max=max_len).to(torch.int32),
-            q_times=None, k_times=None)
+            q_times=None, k_times=None, max_len=max_len)
     index = int(index)
     q_times = k_times = None
     if n > 1:
@@ -99,7 +121,7 @@ def cache_step(index, n: int, batch: int, max_len: int,
         valid=None,
         kv_length=torch.full((batch,), min(index + n, max_len),
                              dtype=torch.int32, device=device),
-        q_times=q_times, k_times=k_times)
+        q_times=q_times, k_times=k_times, max_len=max_len)
 
 
 def _cache_update(buf: torch.Tensor, layer: int, new: torch.Tensor,
@@ -119,8 +141,7 @@ def _cache_update(buf: torch.Tensor, layer: int, new: torch.Tensor,
 
 class Attention(nn.Module):
     """Causal multi-head attention with ``num_kv_heads`` dividing
-    ``num_q_heads`` (no sliding window and no softcap: those come with
-    gemma2 and hymba, ROADMAP A10.2).
+    ``num_q_heads``, an optional sliding ``window`` and score ``softcap``.
 
     ``impl``: "auto" (the flash forward and the decode kernel on the card,
     their plain versions on the CPU), "plain", "chunked" or "ref" (the
@@ -131,6 +152,8 @@ class Attention(nn.Module):
                  head_dim: int, *, encoding: Optional[GroupEncoding] = None,
                  rope_fraction: float = 1.0,
                  query_scale: Optional[float] = None,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None,
                  use_bias: bool = False, impl: str = "auto", device=None):
         super().__init__()
         if num_q_heads % num_kv_heads:
@@ -141,6 +164,7 @@ class Attention(nn.Module):
         self.encoding = encoding
         self.rope_fraction = rope_fraction
         self.query_scale = query_scale
+        self.window, self.softcap = window, softcap
         self.impl = impl
         h, hk, hd, d = num_q_heads, num_kv_heads, head_dim, d_model
         self.q = Dense((d,), (h, hd), device, use_bias=use_bias)
@@ -190,7 +214,8 @@ class Attention(nn.Module):
         if cache is None:
             out = ops.attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), impl=impl,
-                causal=True, scale=self._scale())
+                causal=True, window=self.window, softcap=self.softcap,
+                scale=self._scale())
         else:
             out = self._decode(q, k, v, cache, layer, step, impl)
         return self.o(_merge_heads(out))
@@ -210,11 +235,15 @@ class Attention(nn.Module):
                 ck = dequantize_kv(ck, cache["k_scale"][layer], dtype=q.dtype)
                 cv = dequantize_kv(cv, cache["v_scale"][layer], dtype=q.dtype)
             return ops.attention(q, ck, cv, impl=impl, causal=True,
+                                 window=self.window, softcap=self.softcap,
                                  scale=self._scale(), q_offset=step.index)
+        q_times, k_times = (step.times() if self.window is not None
+                            else (step.q_times, step.k_times))
         return ops.decode_attention(
             q.contiguous(), cache["k"], cache["v"], kv_length=step.kv_length,
             layer=layer, impl="plain" if impl == "plain" else "auto",
-            scale=self._scale(), q_times=step.q_times, k_times=step.k_times,
+            scale=self._scale(), q_times=q_times, k_times=k_times,
+            window=self.window, softcap=self.softcap,
             k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,

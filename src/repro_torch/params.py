@@ -11,6 +11,10 @@ layer); the port keeps one module per layer. Both store a Dense kernel as
   tree["group{g}"]["attn"]["q"]["kernel"][i] <-> "groups.{g}.{i}.attn.q.kernel"
   tree["group{g}"]["attn"]["q"]["kernel"]    <-> "groups.{g}.0.attn.q.kernel"
                                                  (a group of one layer)
+  tree["group{g}"]["a"]["attn"]["q"]["kernel"][i]
+                                            <-> "groups.{g}.{i}.a.attn.q.kernel"
+                                                 (gemma2's (local, global)
+                                                 pairs, "a" and "b")
 
 Every other leaf (``embedding``, ``pos_embedding``, ``final_norm``,
 ``lm_head``, ...) crosses as it is.
@@ -36,6 +40,8 @@ def _group_is_stacked(sub) -> bool:
     """Whether a reference ``group{g}`` subtree is stacked over layers: every
     block has a norm whose ``scale`` is (d_model,) unstacked and
     (layers, d_model) stacked."""
+    if "a" in sub and "b" in sub:              # a group of layer pairs
+        return _group_is_stacked(sub["a"])
     for key in sorted(sub):
         if key.startswith("norm"):
             return np.ndim(sub[key]["scale"]) == 2
@@ -95,6 +101,34 @@ def reference_leaf(name: str) -> str:
             and parts[2].isdigit():
         return ".".join([f"group{parts[1]}"] + parts[3:])
     return name
+
+
+def layer_index(name: str) -> int:
+    """The layer (or pair) a port parameter belongs to within its group,
+    0 for a name outside any."""
+    parts = name.split(".")
+    if parts[0] == _STACKED and len(parts) > 2 and parts[1].isdigit():
+        return int(parts[1])
+    if parts[0] == "groups" and len(parts) > 3 and parts[2].isdigit():
+        return int(parts[2])
+    return 0
+
+
+def reference_groups(names) -> Dict[str, list]:
+    """Port parameter names grouped by their reference leaf
+    (:func:`reference_leaf`), each group in layer order: the tensors the
+    reference keeps as one (stacked) array."""
+    groups: Dict[str, list] = {}
+    for n in names:
+        groups.setdefault(reference_leaf(n), []).append(n)
+    return {leaf: sorted(ns, key=layer_index) for leaf, ns in groups.items()}
+
+
+def is_stacked(leaf: str, names) -> bool:
+    """Whether the reference stacks the port tensors ``names`` of its leaf
+    ``leaf``: a layer group of more than one layer, or the agent-sim
+    ``blocks`` (stacked at any depth), as :func:`reference_tensors` does."""
+    return len(names) > 1 or leaf.startswith(_STACKED + ".")
 
 
 def reference_tensors(named: Mapping[str, torch.Tensor]):

@@ -1,15 +1,22 @@
 """LM step functions (port of ``repro/runtime/steps.py:27-117``): the
-token cross entropy, the prefill step and the serve (decode) step.
+token cross entropy, the train step, the prefill step and the serve
+(decode) step.
 
 The reference's step functions build a model from a config and take its
 parameter tree at every call; the port's take the model, whose weights it
-holds. ``make_train_step`` for an LM is not ported yet (ROADMAP A10.1).
+holds. The train step updates them in place, so it comes in two halves
+(:class:`~repro_torch.runtime.trainer.TrainStep`), as the sim's does: the
+gradients and metrics, then the update, which the ``Trainer`` skips on a
+non-finite loss.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from repro_torch.optim import Optimizer, global_norm, step_in_place
+from repro_torch.runtime.trainer import TrainStep
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -23,6 +30,49 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
         return torch.mean(nll)
     w = mask.to(torch.float32)
     return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def make_train_step(model, optimizer: Optimizer, *,
+                    remat: bool = True) -> TrainStep:
+    """The LM train step (the reference's ``make_train_step``): the full
+    forward over ``batch["tokens"]`` (after ``batch["prefix"]`` for a
+    vision-prefix config, whose positions are then dropped from the
+    logits), ``lm_loss`` on ``batch["labels"]`` plus the model's aux loss,
+    their gradients and the optimizer step.
+
+    The forward runs in ``cfg.compute_dtype``: each layer casts its float32
+    weights as it uses them (the port's ``Dense``), so the master weights,
+    the gradients and the optimizer's state stay float32. ``remat``
+    recomputes each layer in the backward (``TransformerLM.forward``).
+    Switches on gradients for the model's parameters; start from
+    ``optimizer.init(dict(model.named_parameters()))``. Metrics are 0-d
+    tensors on the model's device: ``loss``, ``aux`` and ``grad_norm`` (the
+    float32 norm of the gradients before any clipping)."""
+    cfg = model.cfg
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+
+    def grads_half(batch):
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
+        logits, aux, _ = model(
+            batch["tokens"], remat=remat,
+            prefix_embeds=batch["prefix"] if cfg.vision_prefix else None)
+        if cfg.vision_prefix:
+            logits = logits[:, cfg.vision_prefix:]
+        loss = lm_loss(logits, batch["labels"])
+        del logits
+        grads = dict(zip(params, torch.autograd.grad(
+            loss + aux, list(params.values()))))
+        with torch.no_grad():
+            metrics = {"loss": loss.detach(), "aux": aux.detach(),
+                       "grad_norm": global_norm(grads)}
+        return grads, metrics
+
+    def update_half(opt_state, grads):
+        return step_in_place(optimizer, grads, opt_state, params)
+
+    return TrainStep(grads_half, update_half)
 
 
 def make_prefill_step(model) -> Callable:

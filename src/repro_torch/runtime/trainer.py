@@ -3,11 +3,12 @@
   restore-or-init -> [data.next -> step -> monitors -> periodic ckpt] -> final ckpt
 
 The model holds the parameters and the step updates them in place, so the
-loop runs the step in its two halves (:class:`repro_torch.training.steps.
-SimTrainStep`): the gradients and metrics, then, only when the loss is
-finite, the update. A skipped step leaves the parameters and the optimizer
-state bitwise as they were, as the reference's discarded arrays do, and
-costs no host synchronisation beyond the loss read the loop pays anyway.
+loop runs the step in its two halves (:class:`TrainStep`, which the sim's
+and the LM's step builders return): the gradients and metrics, then, only
+when the loss is finite, the update.
+A skipped step leaves the parameters and the optimizer state bitwise as
+they were, as the reference's discarded arrays do, and costs no host
+synchronisation beyond the loss read the loop pays anyway.
 
 Fault-tolerance contract, as in the reference:
   * **checkpoint/restart**: every ``ckpt_every`` steps the trainer saves
@@ -42,17 +43,39 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import ShardedIterator
-from repro_torch.params import from_reference, reference_tensors
+from repro_torch.params import (from_reference, is_stacked,
+                                reference_groups, reference_tensors)
 from repro_torch.runtime.monitor import NaNGuard, StepTimer
 
 log = logging.getLogger("repro_torch.trainer")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStep:
+    """One update in two halves, so that a caller can read the loss between
+    them and drop the update (the trainer's non-finite gate).
+
+    ``grads(batch) -> (grads, metrics)`` computes the gradients and the
+    metrics and changes nothing; ``update(opt_state, grads) -> opt_state``
+    steps the optimizer and writes the parameters in place
+    (:func:`repro_torch.optim.step_in_place`: it consumes ``grads`` and
+    ``opt_state``). Calling the object runs both: ``step(opt_state, batch)
+    -> (opt_state, metrics)``."""
+    grads: Callable[[Dict[str, Any]], Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]]
+    update: Callable[[Any, Dict[str, torch.Tensor]], Any]
+
+    def __call__(self, opt_state, batch):
+        grads, metrics = self.grads(batch)
+        return self.update(opt_state, grads), metrics
 
 
 @dataclasses.dataclass
@@ -71,17 +94,37 @@ def _named_tensors(node) -> bool:
         isinstance(v, (dict, tuple, int)) for v in node.values())
 
 
+#: the per-parameter statistics of adafactor's ``v``
+_SLOTS = frozenset({"v", "vr", "vc"})
+
+
+def _named_slots(node) -> bool:
+    """A dict of per-parameter slot dicts, named like the model's
+    parameters (adafactor's ``v``: ``{name: {"vr", "vc"} or {"v"}}``)."""
+    return isinstance(node, dict) and bool(node) and all(
+        isinstance(v, dict) and v and set(v) <= _SLOTS and _named_tensors(v)
+        for v in node.values())
+
+
+def _flat_slots(node):
+    return {f"{n}.{k}": t for n, slots in node.items()
+            for k, t in slots.items()}
+
+
 def opt_state_to_reference(state):
     """The port's optimizer state in the reference's layout: tuples stay
     tuples, an int step becomes a 0-d int32 array, and a dict of tensors
-    named like the model's parameters (``mu``, ``nu``) becomes the
-    reference's tree of tensors."""
+    named like the model's parameters (AdamW's ``mu``, ``nu``), or of
+    per-parameter slot dicts (adafactor's ``v``), becomes the reference's
+    tree (a slot dict is the leaf of its parameter's path)."""
     if isinstance(state, tuple):
         return tuple(opt_state_to_reference(s) for s in state)
     if isinstance(state, int):
         return np.asarray(state, np.int32)
     if _named_tensors(state):
         return reference_tensors(state)
+    if _named_slots(state):
+        return reference_tensors(_flat_slots(state))
     if isinstance(state, dict):
         return {k: opt_state_to_reference(v) for k, v in state.items()}
     return state
@@ -103,16 +146,55 @@ def opt_state_from_reference(tree, like, device):
             raise IOError(f"optimizer state mismatch on restore: "
                           f"{sorted(set(flat) ^ set(like))[:5]}")
         return {k: flat[k].to(like[k].dtype) for k in like}
+    if _named_slots(like):
+        return _slots_from_reference(tree, like, device)
     if isinstance(like, dict):
         return {k: opt_state_from_reference(tree[k], v, device)
                 for k, v in like.items()}
     return tree
 
 
+def _slots_from_reference(tree, like, device):
+    """Adafactor's per-parameter slots from the reference's tree: each
+    parameter's slots read at its reference leaf's path, a stacked leaf's
+    at the parameter's layer (:func:`repro_torch.params.reference_groups`
+    says which leaves are stacked)."""
+    def at(path):
+        node = tree
+        for key in path.split("."):
+            node = node[key]
+        return node
+
+    out = {}
+    try:
+        for leaf, names in reference_groups(like).items():
+            stacked = is_stacked(leaf, names)
+            for i, n in enumerate(names):
+                out[n] = {}
+                for k, t in like[n].items():
+                    arr = at(f"{leaf}.{k}")
+                    arr = arr[i] if stacked else arr
+                    out[n][k] = (
+                        arr.detach().to(device, t.dtype, copy=True)
+                        if isinstance(arr, torch.Tensor) else torch.tensor(
+                            np.asarray(arr), dtype=t.dtype, device=device))
+                    if out[n][k].shape != t.shape:
+                        raise IOError(f"optimizer state {n}.{k}: shape "
+                                      f"{tuple(out[n][k].shape)} != "
+                                      f"{tuple(t.shape)}")
+    except (KeyError, TypeError) as e:
+        raise IOError(f"optimizer state mismatch on restore: {e}") from e
+    return out
+
+
 class Trainer:
-    """``step_fn`` is a :class:`~repro_torch.training.steps.SimTrainStep`
-    (``grads`` and ``update`` halves) over ``model``, whose parameters it
-    updates in place; ``opt_state`` is the optimizer's state for them."""
+    """``step_fn`` is a :class:`TrainStep` over ``model``, whose
+    parameters it updates in place: a sim model's or an LM's (the
+    ``make_*train_step`` builders). ``opt_state`` is the
+    optimizer's state for them (AdamW's, adafactor's, in chains). The
+    checkpoint holds the parameters in the reference's tree (an LM's
+    ``group{g}`` trees, gemma2's pairs included), so it restores in either
+    package."""
 
     def __init__(self, step_fn, model, opt_state,
                  data: ShardedIterator, ckpt_dir: str,

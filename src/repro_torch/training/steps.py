@@ -9,8 +9,9 @@ warmup-cosine schedule.
 
 The port's steps work on the model's own parameters: the train step writes
 each update into them in place, where the reference returns new arrays.
-So the step comes in two halves (:class:`SimTrainStep`): the gradients and
-metrics, which change nothing, and the update, which the trainer skips
+So the step comes in two halves (:class:`~repro_torch.runtime.trainer.
+TrainStep`): the gradients and metrics, which change nothing, and the
+update (:func:`repro_torch.optim.step_in_place`), which the trainer skips
 when the loss is not finite (the reference discards the new arrays).
 Batches may be numpy dicts (as the data pipeline yields them) or tensors;
 the steps move them to the model's device.
@@ -25,8 +26,7 @@ and reduced in int8 with error feedback over "pod".
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,13 +37,12 @@ from repro_torch import params as pparams
 from repro_torch.distributed import dp_compress
 from repro_torch.distributed.sharding import batch_sharding
 from repro_torch.nn.agent_sim import AgentSimModel, action_nll, nll_terms
-from repro_torch.optim import (Optimizer, adamw, apply_updates, chain,
-                               clip_by_global_norm, global_norm,
-                               warmup_cosine)
+from repro_torch.optim import (Optimizer, adamw, chain, clip_by_global_norm,
+                               global_norm, step_in_place, warmup_cosine)
+from repro_torch.runtime.trainer import TrainStep
 from repro_torch.training.data import TRAIN_KEYS
 
-__all__ = ["bc_optimizer", "loss_summary", "SimTrainStep",
-           "make_sim_train_step", "make_sim_dp_train_step", "sim_dp_state",
+__all__ = ["bc_optimizer", "loss_summary", "make_sim_train_step", "make_sim_dp_train_step", "sim_dp_state",
            "make_sim_eval_step", "open_loop_metrics", "sim_input_specs",
            "sim_batch_shardings"]
 
@@ -91,32 +90,14 @@ def _logits(model: AgentSimModel, batch: Dict[str, torch.Tensor]):
         model, pparams.cast(dict(model.named_parameters()), dt), (batch,))
 
 
-@dataclasses.dataclass(frozen=True)
-class SimTrainStep:
-    """One BC update in two halves, so that a caller can read the loss
-    between them and drop the update (the trainer's non-finite gate).
-
-    ``grads(batch) -> (grads, metrics)`` computes the gradients and the
-    metrics and changes nothing; ``update(opt_state, grads) -> opt_state``
-    clips, steps AdamW and writes the parameters in place. Calling the
-    object runs both: ``step(opt_state, batch) -> (opt_state, metrics)``.
-    """
-    grads: Callable[[Dict[str, Any]], Tuple[Dict[str, torch.Tensor],
-                                            Dict[str, torch.Tensor]]]
-    update: Callable[[Any, Dict[str, torch.Tensor]], Any]
-
-    def __call__(self, opt_state, batch):
-        grads, metrics = self.grads(batch)
-        return self.update(opt_state, grads), metrics
-
-
 def make_sim_train_step(model: AgentSimModel, optimizer: Optimizer, *,
-                        group=None) -> SimTrainStep:
+                        group=None) -> TrainStep:
     """One BC update: teacher-forced masked NLL -> grads -> optimizer.
 
     Switches on gradients for the model's parameters and returns a
-    :class:`SimTrainStep`, ``step(opt_state, batch) -> (opt_state,
-    metrics)``. The step updates the parameters in place; start from
+    :class:`~repro_torch.runtime.trainer.TrainStep`, ``step(opt_state,
+    batch) -> (opt_state, metrics)``. The step updates the parameters in
+    place; start from
     ``optimizer.init(dict(model.named_parameters()))``. ``metrics`` holds
     0-d tensors on the model's device: ``loss``, ``grad_norm`` (of the raw
     gradients, before clipping) and ``accuracy``. At ``dtype="bfloat16"``
@@ -165,14 +146,11 @@ def make_sim_train_step(model: AgentSimModel, optimizer: Optimizer, *,
                            logits, batch["actions"], batch["agent_valid"])}
         return grads, metrics
 
-    @torch.no_grad()
     def update_half(opt_state, grads):
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        apply_updates(params, updates)
-        return opt_state
+        return step_in_place(optimizer, grads, opt_state, params)
 
-    return SimTrainStep(grads_half if group is None else grads_global,
-                        update_half)
+    return TrainStep(grads_half if group is None else grads_global,
+                     update_half)
 
 
 def sim_dp_state(optimizer: Optimizer, params) -> Dict[str, Any]:
@@ -186,7 +164,7 @@ def sim_dp_state(optimizer: Optimizer, params) -> Dict[str, Any]:
 
 
 def make_sim_dp_train_step(model: AgentSimModel, optimizer: Optimizer, mesh,
-                           *, compress: bool = True) -> SimTrainStep:
+                           *, compress: bool = True) -> TrainStep:
     """The fleet-scale BC update over a ("pod", "data") mesh
     (:func:`repro_torch.launch.mesh.make_fleet_mesh`): the masked NLL of
     this rank's rows of the global batch, its gradients meaned in full
@@ -194,9 +172,9 @@ def make_sim_dp_train_step(model: AgentSimModel, optimizer: Optimizer, mesh,
     over it in int8 with error feedback (``compress``; in full precision
     without), as ``repro.distributed.dp_compress.make_compressed_dp_step``.
 
-    A :class:`SimTrainStep` over ``state = sim_dp_state(optimizer,
-    params)``, so the :class:`~repro_torch.runtime.trainer.Trainer` runs
-    it and checkpoints the residual beside the optimizer. Its gradient
+    A :class:`~repro_torch.runtime.trainer.TrainStep` over ``state =
+    sim_dp_state(optimizer, params)``, so the
+    :class:`~repro_torch.runtime.trainer.Trainer` runs it and checkpoints the residual beside the optimizer. Its gradient
     half reduces the gradients over "data" and the loss over the whole
     mesh, so every rank's non-finite guard reads the same loss and all
     ranks skip together; its update half runs the cross-pod reduction
@@ -218,11 +196,10 @@ def make_sim_dp_train_step(model: AgentSimModel, optimizer: Optimizer, mesh,
     def update_half(state, grads):
         grads, residual = dp_compress.reduce_over_pods(
             grads, state["residual"], mesh, compress=compress)
-        updates, opt = optimizer.update(grads, state["opt"], params)
-        apply_updates(params, updates)
+        opt = step_in_place(optimizer, grads, state["opt"], params)
         return {"opt": opt, "residual": residual}
 
-    return SimTrainStep(grads_half, update_half)
+    return TrainStep(grads_half, update_half)
 
 
 def make_sim_eval_step(model: AgentSimModel) -> Callable:

@@ -938,3 +938,165 @@ def test_lm_served_on_the_card_matches_the_cpu(dev, cache_dtype):
         served.append({uid: r.generated for uid, r in done.items()})
     assert dict(cuda.LAUNCHES) == {"flash_decode": cfg.num_layers * srv.ticks}
     assert served[0] == served[1]
+
+
+# -- the decode with a sliding window and a softcap (gemma2) ------------------
+
+# (b, hq, hkv, sq, s, cursors, window): gemma2's GQA at one row a slot, its
+# cursors on either side of the window (one inside it); a chunk of 40 rows
+# a slot (64-row CTAs that test the window before loading a tile); MQA
+WINDOW_CASES = {
+    "tick": (4, 4, 2, 1, 640, [1, 100, 300, 640], 256),
+    "tick_window_past_cursors": (3, 4, 2, 1, 320, [5, 200, 320], 4096),
+    "chunk": (2, 4, 2, 40, 512, [40, 512], 96),
+    "mqa": (3, 8, 1, 1, 384, [7, 129, 384], 64),
+}
+
+
+def _window_case(dev, name, cache_dtype, q_dtype):
+    """An LM cache of two layers read at layer 1, rows past each cursor NaN
+    (int8: NaN scales); query rows at the positions before each cursor,
+    times = positions."""
+    b, hq, hkv, sq, s, cursors, window = WINDOW_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(9)
+    k = torch.randn((2, b, hkv, s, 128), generator=g, device=dev)
+    v = torch.randn((2, b, hkv, s, 128), generator=g, device=dev)
+    q = torch.randn((b, hq, sq, 128), generator=g, device=dev) * 3
+    kvl = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+    nan = torch.tensor(float("nan"), device=dev)
+    opts = {}
+    if cache_dtype == "int8":
+        (k, ks), (v, vs) = fd.quantize_kv(k), fd.quantize_kv(v)
+        opts = {n: torch.where(past[None, :, None], nan, x).contiguous()
+                for n, x in (("k_scale", ks), ("v_scale", vs))}
+    else:
+        dt = getattr(torch, cache_dtype)
+        k = torch.where(past[None, :, None, :, None], nan, k).to(dt)
+        v = torch.where(past[None, :, None, :, None], nan, v).to(dt)
+    opts["q_times"] = (kvl[:, None] - sq + torch.arange(sq, device=dev)
+                       ).clamp(min=0).to(torch.int32).contiguous()
+    opts["k_times"] = torch.arange(s, dtype=torch.int32, device=dev)[
+        None].expand(b, s).contiguous()
+    return (q.to(getattr(torch, q_dtype)), k.contiguous(), v.contiguous(),
+            kvl, opts, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 5])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_window_softcap_matches_plain(dev, cache_dtype, q_dtype,
+                                                   name, softcap, splits):
+    """The window (and the softcap, on the query scaled so that it bites)
+    through the kernel against the plain version, one split to more;
+    bitwise repeatable."""
+    q, k, v, kvl, opts, window = _window_case(dev, name, cache_dtype,
+                                              q_dtype)
+    _check_decode(q, k, v, kvl, dict(opts, window=window, softcap=softcap),
+                  cache_dtype, splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_flash_decode_softcap_alone_matches_plain(dev, cache_dtype):
+    """gemma2's global layers: a softcap and no window (no times)."""
+    q, k, v, kvl, opts, _ = _window_case(dev, "tick", cache_dtype, "float32")
+    opts = {n: t for n, t in opts.items() if "times" not in n}
+    _check_decode(q, k, v, kvl, dict(opts, softcap=50.0), cache_dtype, None)
+
+
+@pytest.mark.gpu
+def test_flash_decode_window_refuses_what_it_does_not_take(dev):
+    q, k, v, kvl, opts, _ = _window_case(dev, "tick", "float32", "float32")
+    with pytest.raises(ValueError, match="needs q_times"):
+        fd.flash_decode(q, k, v, kvl, layer=1, window=16)
+    wide = torch.zeros((1, 2, 2, 8, 256), device=dev)
+    with pytest.raises(ValueError, match="at most 200 columns"):
+        fd.flash_decode(torch.zeros((2, 2, 1, 256), device=dev), wide, wide,
+                        torch.ones(2, dtype=torch.int32, device=dev),
+                        layer=0, softcap=5.0)
+
+
+# (b, hq, hkv, s, d, options): phi4-mini-3.8b's train attention (cut to 256
+# tokens), gemma2's local layer (window, softcap, query_pre_attn_scalar
+# 144) and its global one, and a softcap of 2 that bends the unit-scale
+# scores (50 barely does)
+LM_TRAIN_FLASH = {
+    "phi4_train": (2, 24, 8, 256, 128, dict(causal=True)),
+    "gemma2_local": (1, 32, 16, 384, 128, dict(causal=True, window=128,
+                                                softcap=50.0,
+                                                scale=144 ** -0.5)),
+    "gemma2_global": (1, 32, 16, 384, 128, dict(causal=True, softcap=50.0,
+                                                 scale=144 ** -0.5)),
+    "softcap_bends": (1, 8, 4, 300, 128, dict(causal=True, window=100,
+                                               softcap=2.0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(LM_TRAIN_FLASH))
+def test_lm_train_flash_kernels_match_plain(dev, name, dtype):
+    """The forward, dq and dk/dv at the LM train shapes, as
+    test_flash_kernels_match_plain holds them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    b, hq, hkv, s, d, opts = LM_TRAIN_FLASH[name]
+    g = torch.Generator(device=dev).manual_seed(10)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, hq, s, d)))
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    wide = torch.float64 if dtype == "float32" else q.dtype
+    want = tuple(w.to(q.dtype) for w in fab.flash_bwd_plain(
+        q.to(wide), k.to(wide), v.to(wide), out.to(wide), lse, do.to(wide),
+        **opts))
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    gtol = dict(atol=1e-5, rtol=1e-3) if dtype == "float32" else \
+        dict(atol=1e-2, rtol=4e-2)
+    for which, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w.float(), **gtol, msg=which)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma2-27b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced config's train step (remat) on the card against the
+    same weights on the CPU: the loss, every gradient within 1e-4 of its
+    tensor's largest, and the flash kernels launched exactly (the forward
+    twice a layer under remat, dq and dk/dv once)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_config(arch).reduced(dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = synthetic_lm.generate_batch(0, 0, 2, synthetic_lm.LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=48))
+    want_g, want_m = make_train_step(cpu, adamw(1e-3)).grads(batch)
+    cuda.reset_launches()
+    got_g, got_m = make_train_step(card, adamw(1e-3)).grads(batch)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    assert dict(cuda.LAUNCHES) == {"flash_attention_fwd": 2 * n,
+                                   "flash_attention_dq": n,
+                                   "flash_attention_dkv": n}
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]),
+                               rtol=1e-5)
+    for name, w in want_g.items():
+        err = float((got_g[name].cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)

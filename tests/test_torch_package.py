@@ -22,7 +22,7 @@ from repro_torch.runtime import RolloutEngine, SimServer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                        re.MULTILINE)
 
@@ -49,7 +49,8 @@ def test_port_import_loads_no_jax_module():
             " repro_torch.distributed.dp_compress,"
             " repro_torch.optim.compression, repro_torch.nn.transformer,"
             " repro_torch.runtime.server, repro_torch.runtime.steps,"
-            " repro_torch.launch.serve;"
+            " repro_torch.launch.serve, repro_torch.launch.train,"
+            " repro_torch.data.synthetic_lm;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -619,7 +619,10 @@ def test_serve_sim_launcher_on_cpu(tmp_path):
     defaults exits 0; its postmortem bundle renders and its trace renders
     through obs_report."""
     pm, trace = tmp_path / "pm.json", tmp_path / "serve.trace.jsonl"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: with the other cores busy (parallel test
+    # workers), eight OpenMP threads made this run 9x slower (6.8 s against
+    # 53.9 s with seven busy cores of eight)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_sim", "--device",
          "cpu", "--postmortem-out", str(pm), "--telemetry-out", str(trace)],
