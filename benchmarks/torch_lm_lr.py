@@ -9,10 +9,15 @@ At full width and depth, weights from a CUDA generator seeded 0 (as
 runs ``--steps`` steps of 2 x 512 ``synthetic_lm`` tokens (seed 0, the
 batches of phase 14c) once per peak rate in ``--lrs``, through the attention
 kernels in the registered bf16 compute with remat. At the first rate it
-also runs through the plain attention in float32 compute over the same
-batches, to tell how the model trains at that rate from a fault of the
-kernels or of bf16 (remat and the tensor-at-a-time optimizer step are
-bitwise equal to their alternatives: ``tests/test_torch_lm_train.py``).
+also runs over the same batches through the plain attention in float32
+compute and through the kernels in float32 compute, to tell how the model
+trains at that rate from a fault of the kernels or of bf16 (remat and the
+tensor-at-a-time optimizer step are bitwise equal to their alternatives:
+``tests/test_torch_lm_train.py``). Each run keeps every parameter tensor's
+gradient norm a step; the three runs at the first rate are compared: the
+first step whose losses part by more than ``LOSS_PART`` and, at the
+first step whose gradient norms part by more than ``GRAD_PART`` of the
+larger in some tensor, those tensors.
 
 Each batch is also scored without an update, by the initial model and by
 the model after the last rate's run (its loss under one set of weights:
@@ -37,6 +42,31 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH, B, S = "phi4-mini-3.8b", 2, 512
+# two runs part where their losses differ by more than LOSS_PART, and their
+# gradients where a tensor's norms differ by more than GRAD_PART of the larger
+LOSS_PART, GRAD_PART = 0.1, 0.05
+
+
+def parting(a, b):
+    """Where runs ``a`` and ``b`` part: the first step whose losses differ
+    by more than LOSS_PART, and the first step where some tensor's gradient
+    norms differ by more than GRAD_PART of the larger, with the tensors
+    that do there (the largest differences first)."""
+    loss_step = next((i for i, (x, y) in enumerate(zip(a["losses"],
+                                                         b["losses"]))
+                      if abs(x - y) > LOSS_PART), None)
+    grad_step, tensors = None, []
+    for i, (na, nb) in enumerate(zip(a["tensor_norms"], b["tensor_norms"])):
+        rel = {n: abs(na[n] - nb[n]) / max(na[n], nb[n], 1e-30) for n in na}
+        tensors = sorted((n for n in rel if rel[n] > GRAD_PART),
+                         key=lambda n: -rel[n])
+        if tensors:
+            grad_step = i
+            tensors = [(n, rel[n]) for n in tensors[:8]]
+            break
+    return {"runs": [a["what"], b["what"]], "lr": a["lr"],
+            "loss_parts_at_step": loss_step,
+            "grads_part_at_step": grad_step, "first_tensors": tensors}
 
 
 def main() -> int:
@@ -84,10 +114,13 @@ def main() -> int:
                     adamw(warmup_cosine(lr, 20, args.steps)))
         step = make_train_step(model, opt, remat=True)
         state = opt.init(dict(model.named_parameters()))
-        losses, norms = [], []
+        losses, norms, tensor_norms = [], [], []
         t0 = time.perf_counter()
         for b in batches:
-            state, m = step(state, b)
+            grads, m = step.grads(b)
+            tensor_norms.append({n: float(torch.linalg.vector_norm(g))
+                                 for n, g in grads.items()})
+            state = step.update(state, grads)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         secs = time.perf_counter() - t0
@@ -97,7 +130,7 @@ def main() -> int:
               flush=True)
         del state, step
         return {"what": what, "lr": lr, "losses": losses,
-                "grad_norms": norms}
+                "grad_norms": norms, "tensor_norms": tensor_norms}
 
     runs, first = [], None
     for i, lr in enumerate(args.lrs):
@@ -106,11 +139,13 @@ def main() -> int:
             first = scores(model)
         runs.append(train(model, lr, f"kernels, {cfg.dtype} compute"))
         if i == 0:
-            del model
-            torch.cuda.empty_cache()
-            model = model_for("float32", "plain")
-            runs.append(train(model, lr, "plain attention, float32 "
-                                         "compute"))
+            for dtype, impl, what in (
+                    ("float32", "plain", "plain attention, float32 compute"),
+                    ("float32", None, "kernels, float32 compute")):
+                del model
+                torch.cuda.empty_cache()
+                model = model_for(dtype, impl)
+                runs.append(train(model, lr, what))
         if i == len(args.lrs) - 1:
             last = scores(model)
         del model
@@ -126,8 +161,14 @@ def main() -> int:
                       "distinct": int(np.unique(lab).size),
                       "initial_loss": s0, "trained_loss": s1})
         print(f"batch {len(stats) - 1}: {json.dumps(stats[-1])}", flush=True)
+    partings = [parting(runs[a], runs[b])
+                for a, b in ((2, 1), (2, 0), (1, 0))]
+    for p in partings:
+        print(f"parting: {json.dumps(p)}", flush=True)
+    for r in runs:
+        r.pop("tensor_norms")
     print(json.dumps({"arch": ARCH, "batch": [B, S], "runs": runs,
-                      "batches": stats,
+                      "batches": stats, "partings": partings,
                       "trained_by": f"kernels, lr {args.lrs[-1]}"}))
     return 0
 

@@ -115,8 +115,8 @@ Run from the root of a checkout. Phases, each of which fails the run:
    repeatable; (a) a Poisson drive of 128 mixed scenes x 2 samples at 2.0
    arrivals a tick, float32 and int8: every lane ok and finite, launches
    exactly (ticks + admissions) x the model's per call, lanes/s, tick
-   p50/p99, slab and peak memory; drain_lag 1 against 0 in one process,
-   and under the profiler the launches, copies and host waits (stream,
+   p50/p99, slab and peak memory; drain_lag 1 against 0 in one process
+   over the first 64 scenes, and under the profiler the launches, copies and host waits (stream,
    device and event synchronisations) in each tick, at most one a tick
    with drain_lag 1; no plain SE(2) op; (b) the gauntlet in 8 slots,
    float32 and int8: an eviction mid-prefill, retirements, every stale row
@@ -191,7 +191,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
    Server at full width (4 layers), 16 requests (prompts 16-256 tokens, 32 new each,
    greedy) through 8 slots with float32 and int8 caches: every request
    done with 32 tokens, the shortest, the longest and two admitted mid-run
-   equal to their runs in a 1-slot server, decode launches exactly layers
+   equal to their runs in a 1-slot server or parted from them at a
+   near-tie (both runs' top two the same two tokens within 1e-3, read
+   again at the parting token), decode launches exactly layers
    x ticks, no plain attention call; tokens/s, tick p50/p99, peak memory
    and the device profile of the float32 drive's first 40 ticks (launches
    a tick, busy share);
@@ -219,7 +221,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    exactly 64 forward, 32 dq and 32 dk/dv launches a step, steps/s,
    tokens/s, peak memory above the weights and one step's profile; then 3
    steps of clip + adafactor(1e-4), its peak memory beside AdamW's; (d) the
-   Trainer on stablelm-3b's LM step at full width and 2 layers: 8 steps
+   Trainer on stablelm-3b's LM step at full width and 1 layer: 8 steps
    with a save at 4, a second Trainer from that checkpoint to 8 within the
    reference's restart tolerance, a NaN-reported step leaving the
    parameters and AdamW state bitwise, the seconds of a save and a
@@ -232,6 +234,35 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (2e-3 / 2e-2 with a float32 cache, 8e-2 with int8), decode launches
    exactly layers x (prefills + ticks), half of them with the window and
    the softcap, no plain attention call; the tick's time.
+
+15. MoE with MLA: (a) the decode at deepseek-v2-lite-16b's absorbed MLA
+   tick (8 slots x 16 / 1 heads, D 576, the values the rows' first 512
+   columns read in place at the rows' pitch, cursors up to 544; float32,
+   and bf16 cache and query) and at its absorbed prefill (2 x 512 rows as
+   one chunk, causal through the positions), and the flash forward, dq and
+   dk/dv at its full forward (2 x 16 / 16 heads x 512, D 192, Dv 128,
+   causal, float32 and bf16) against their plain versions, timed beside
+   SDPA and the bound; (b) deepseek-v2-lite-16b at full width and depth
+   (15,706,484,224 parameters, float32, a CUDA generator seeded 0) at
+   capacity factor E / k: 2 prompts of 512 tokens prefilled as one chunk
+   and 32 tokens decoded against the full forward on every position (2e-3
+   / 2e-2), launches exact (27 flash forward; 27 decode a chunk or tick),
+   no plain attention call; tokens/s, tick p50, peak memory, the ticks'
+   profile (launches, busy share); the share of assignments dropped at the
+   config's own 1.25; (c) the LM Server at full width and 4 layers (the
+   dense layer and 3 MoE), 16 requests x 32 new tokens through 8 slots,
+   float32 cache: every request done, 4 equal to their solo runs or
+   parted at a near-tie, as 13c's (a tick's group is its 8 slots' tokens,
+   whose capacity, 8, drops nothing), decode
+   launches exactly layers x ticks, no plain attention call; (d) the
+   gradients of deepseek at full width and 2 layers through the kernels
+   against the plain versions (float32, 2 x 512 tokens, 1e-3 of each
+   tensor's max |g|), then 10 AdamW steps at 4 layers (2,254,983,168
+   parameters, bf16 compute, peak lr 3e-4): the loss's 5-step means fall,
+   aux finite, 8 forward, 4 dq and 4 dk/dv launches a step; (e)
+   kimi-k2-1t-a32b (1,028,298,994,688 parameters on meta) at full width,
+   cut to 2 layers and 32 experts (4,463,004,672 parameters): decode
+   against the full forward as (b).
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -346,7 +377,11 @@ RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
 # 64 / 24 lanes a tick a full slab retires), the scenes' seed and the
 # working ticks the latency histogram skips; (b) the gauntlet's slots (also
 # (d)'s); (d) the lanes of the quarantine run
+# (the drain_lag comparison's four drives run the first 64 scenes, not all
+# 128: the six drives took half of 10a's 100 s on a slow card host, whose
+# whole run passed 1,200 s, PERF.md §6)
 SERVE_SLOTS, SERVE_SCENES, SERVE_SAMPLES, SERVE_T_TOTAL = 64, 128, 2, 24
+SERVE_LAG_SCENES = 64
 SERVE_RATE, SERVE_SEED, SERVE_WARMUP_TICKS = 2.0, 10, 2
 # scenes of the profiled drive
 SERVE_PROFILE_SCENES = 32
@@ -398,6 +433,9 @@ LM_SLOTS, LM_MAX_CURSOR = 8, 2048
 LM_PREFILL_B, LM_PREFILL_S = 2, 1024
 LM_GATE_PROMPTS, LM_GATE_LEN = 2, 512
 LM_GATE_TOL = dict(atol=2e-3, rtol=2e-2)
+# (also the server's solo-run gate: a slot rounds otherwise beside others,
+# and at prompts of 16-128 tokens an int8 request parted from its solo run
+# where its top two lay 2.2e-4 and 1.4e-4 apart, PERF.md §6)
 LM_NEAR_TIE = 1e-3
 # bf16 rounding moves the random-weight model's logits by about 0.1 a
 # position (max abs on an H100, PERF.md §6), past most of float32's top-two
@@ -423,14 +461,15 @@ LM_SHALLOW_LAYERS, LM_SHALLOW_TOKENS = 2, 64
 # plain versions, per tensor relative to its largest |g| (phase 5's rule):
 # (arch, layers, batch, tokens); (c) phi4-mini at full depth: AdamW steps
 # (launch/train's chain) and adafactor steps of LM_TRAIN_B x LM_TRAIN_S
-# synthetic tokens; (d) the Trainer on stablelm-3b at 2 layers: steps, the
+# synthetic tokens; (d) the Trainer on stablelm-3b at 1 layer: steps, the
 # checkpoint step; (e) launch.train's steps and cadence; (f) gemma2 at 4
 # layers: prompt lengths, decode steps
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS, LM_ADAFACTOR_STEPS = 2, 512, 10, 3
 # launch/train's chain at this peak rate (its --lr): at its default 3e-3 the
 # first steps' losses rise (12.87 -> 15.54 at the fourth) as they do through
-# the plain attention in float32, and past the fifth step the two runs part
-# by more than the 0.35 their 5-step means fall; at 3e-4 these fall by 1.4
+# the plain attention in float32, and past the fifth step bf16 parts from
+# float32 (the kernels in float32 follow the plain run) by more than the
+# 0.35 their 5-step means fall; at 3e-4 these fall by 1.4
 # (benchmarks/torch_lm_lr.py on an H100, PERF.md §6)
 LM_TRAIN_LR = 3e-4
 GEMMA_ARCH = "gemma2-27b"
@@ -438,10 +477,33 @@ GEMMA_LOCAL_S = 8192
 GEMMA_TICK_CURSORS, GEMMA_SHORT_CURSORS, GEMMA_CACHE_ROWS = \
     (4700, 5200), (100, 3000), 5248
 LM_GRAD_CASES = (("phi4-mini-3.8b", 4, 2, 512), (GEMMA_ARCH, 2, 1, 5120))
+# (d) runs one layer: its 4.65 GiB checkpoints at 2 layers took 83 s of a
+# run on a slow card host, whose whole run passed 1,200 s (PERF.md §6)
 TRAINER_ARCH, TRAINER_LAYERS, TRAINER_STEPS_LM, TRAINER_CKPT_AT = \
-    "stablelm-3b", 2, 8, 4
+    "stablelm-3b", 1, 8, 4
 LAUNCH_TRAIN_STEPS, LAUNCH_TRAIN_CKPT = 20, 10
 GEMMA_LAYERS, GEMMA_PROMPTS, GEMMA_NEW = 4, (4700, 5100), 64
+# phase 15: MoE with MLA. (a) the decode at deepseek-v2-lite's absorbed tick
+# (slots, cursors up to this many rows) and at its absorbed prefill (the
+# gate's prompts as one chunk), the flash kernels at its full forward (the
+# gate's prompts x tokens); (b) deepseek at full width and depth: prompts x
+# tokens prefilled, then new tokens decoded a tick at a time, against the
+# full forward, with the capacity factor E / k (nothing dropped); the ticks
+# profiled; (c) the Server over the dense layer and 3 MoE layers: requests,
+# slots, new tokens, prompt lengths, cache rows; (d) training cut in depth
+# (the gradient check at fewer layers); (e) kimi-k2 at full width, cut in
+# depth and experts (one full MoE layer holds 16.9 B expert parameters,
+# 67.6 GB in float32); the reference's counts of the two configs' specs
+MOE_ARCH, KIMI_ARCH = "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"
+MLA_SLOTS, MLA_TICK_CURSOR = 8, 544
+MOE_GATE_PROMPTS, MOE_GATE_LEN, MOE_GATE_NEW = 2, 512, 32
+MOE_PROFILE_TICKS = 4
+MOE_SERVE_LAYERS, MOE_SERVE_REQUESTS, MOE_SERVE_SLOTS, MOE_SERVE_NEW = \
+    4, 16, 8, 32
+MOE_SERVE_PROMPT, MOE_SERVE_MAX_LEN = (16, 128), 192
+MOE_TRAIN_LAYERS, MOE_GRAD_LAYERS, MOE_TRAIN_STEPS = 4, 2, 10
+KIMI_LAYERS, KIMI_EXPERTS, KIMI_PREFILL, KIMI_NEW = 2, 32, 48, 16
+MOE_COUNTS = {MOE_ARCH: 15_706_484_224, KIMI_ARCH: 1_028_298_994_688}
 
 # bound_ms denominators of phase 6's new rows: bf16 products on the tensor
 # cores (H100 SXM data sheet), and 32-bit integer operations for the
@@ -2115,21 +2177,23 @@ def server_phase(model, scen, s_max, launches, max_err):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({resident / 2**30:.2f} GiB resident before); launches exact "
             f"{counts}")
-    # drain_lag 1 against 0 in one process, over the same lanes, in turns
-    # (1, 0, 0, 1): the host's pace drifts within a run
+    # drain_lag 1 against 0 in one process, over the same lanes (the first
+    # SERVE_LAG_SCENES scenes), in turns (1, 0, 0, 1): the host's pace
+    # drifts within a run
     done_by_lag = {}
+    lag_lanes = SERVE_LAG_SCENES * SERVE_SAMPLES
     for lag in (1, 0, 0, 1):
         srv = server(drain_lag=lag)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = drive(srv, server_requests(scenes))
+        out = drive(srv, server_requests(scenes[:SERVE_LAG_SCENES]))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         hist = out["latency"]
         done_by_lag[lag] = srv.done
-        log(f"server float32 drain_lag={lag}: {wall:.3f} s, "
-            f"{lanes / wall:.1f} lanes/s wall, sustained "
-            f"{lanes / hist.sum:.1f} lanes/s, tick p50 "
+        log(f"server float32 drain_lag={lag}, {lag_lanes} lanes: "
+            f"{wall:.3f} s, {lag_lanes / wall:.1f} lanes/s wall, sustained "
+            f"{lag_lanes / hist.sum:.1f} lanes/s, tick p50 "
             f"{hist.percentile(50) * 1e3:.2f} ms, p99 "
             f"{hist.percentile(99) * 1e3:.2f} ms")
     for uid, res in done_by_lag[0].items():
@@ -3202,6 +3266,80 @@ def lm_served(model, requests, cache_dtype, slots, max_len,
     return srv, wall, ticks, counts, admitted, plain.calls, peak
 
 
+def served_top2(model, requests, uid, cache_dtype, slots, max_len):
+    """Drive a Server over ``requests`` to the end; for each token request
+    ``uid`` generates, its float32 logits' top two (ids, values)."""
+    import numpy as np
+    from repro_torch.runtime.server import Request, Server
+    srv = Server(model, num_slots=slots, max_len=max_len,
+                 cache_dtype=cache_dtype)
+    for u, prompt, new in requests:
+        srv.submit(Request(uid=u, prompt=prompt, max_new_tokens=new))
+    seen, sample = [], srv._sample
+
+    def watch(logits, req):
+        if req.uid == uid:
+            ids = np.argpartition(logits, -2)[-2:]
+            ids = ids[np.argsort(-logits[ids], kind="stable")]
+            seen.append((ids.tolist(), logits[ids].tolist()))
+        return sample(logits, req)
+    srv._sample = watch
+    srv.run_until_drained()
+    return seen
+
+
+def solo_gate(model, requests, done, checked, cache_dtype, slots, max_len,
+              tag):
+    """Each request of ``checked`` {uid: why} against its solo run (one
+    slot): its tokens must equal those it gave beside the others
+    (``done``), or part at a near-tie. A slot's logits round otherwise
+    beside others (the products' shapes follow the slot count), so a
+    greedy pick may flip where the top two lie within LM_NEAR_TIE: there
+    both runs are driven again to read their top two at the parting token,
+    which must be the same two tokens within LM_NEAR_TIE in each. Returns
+    (the solo runs' decode launches, {uid: why} of those equal, of those
+    parted at a near-tie)."""
+    n, equal, tied = 0, {}, {}
+    for uid, why in checked.items():
+        solo, _, _, counts, *_ = lm_served(model, [requests[uid]],
+                                           cache_dtype, 1, max_len)
+        n += counts["flash_decode"]
+        got, alone = done[uid].generated, solo.done[uid].generated
+        if got == alone:
+            equal[uid] = why
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, alone)) if a != b)
+        both = served_top2(model, requests, uid, cache_dtype, slots,
+                           max_len)[j]
+        one = served_top2(model, [requests[uid]], uid, cache_dtype, 1,
+                          max_len)[j]
+        gaps = (both[1][0] - both[1][1], one[1][0] - one[1][1])
+        what = (f"{tag}: request {uid} ({why}) parts from its solo run at "
+                f"its token {j}: {got[j]} beside others (top two "
+                f"{both[0]}, gap {gaps[0]:.3e}) and {alone[j]} alone (top "
+                f"two {one[0]}, gap {gaps[1]:.3e})")
+        pair = {got[j], alone[j]}
+        if set(both[0]) != pair or set(one[0]) != pair \
+                or max(gaps) >= LM_NEAR_TIE:
+            raise AssertionError(f"{what}, not at a near-tie (top two "
+                                 f"within {LM_NEAR_TIE}); tokens {got} "
+                                 f"beside others and {alone} alone")
+        log(f"{what}: a near-tie")
+        tied[uid] = why
+    return n, equal, tied
+
+
+def solo_summary(equal, tied):
+    """The solo-run gate's outcome as a clause of a log line."""
+    out = ("requests " + ", ".join(f"{u} ({w})" for u, w in equal.items())
+           + " equal to their solo runs") if equal else \
+        "no request equal to its solo run"
+    if tied:
+        out += "; " + ", ".join(f"{u} ({w})" for u, w in tied.items()) \
+            + " parted from theirs at a near-tie"
+    return out
+
+
 def lm_phase(launches, max_err, records):
     """Phase 13: the dense LM serving stack (see the module docstring)."""
     import os
@@ -3345,14 +3483,9 @@ def lm_phase(launches, max_err, records):
             checked[u] = f"admitted at tick {t}"
         if len(checked) != 4:
             raise AssertionError(f"13c: {checked} are not 4 requests")
-        for uid, why in checked.items():
-            solo, *_ = lm_served(model, [requests[uid]], cache_dtype, 1,
-                                 LM_SERVE_MAX_LEN)
-            if solo.done[uid].generated != done[uid].generated:
-                raise AssertionError(
-                    f"13c {cache_dtype}: request {uid} ({why}) gave "
-                    f"{done[uid].generated} beside others and "
-                    f"{solo.done[uid].generated} alone")
+        _, equal, tied = solo_gate(model, requests, done, checked,
+                                   cache_dtype, LM_SERVE_SLOTS,
+                                   LM_SERVE_MAX_LEN, f"13c {cache_dtype}")
         n_tok = sum(len(r.generated) for r in done.values())
         tick_ms = np.asarray(ticks) * 1e3
         log(f"13c {cache_dtype} cache: {LM_SERVE_REQUESTS} requests (prompts "
@@ -3363,9 +3496,8 @@ def lm_phase(launches, max_err, records):
             f"prompts; tick p50 {np.percentile(tick_ms, 50):.2f} ms, p99 "
             f"{np.percentile(tick_ms, 99):.2f} ms; {cfg.num_layers} decode "
             f"launches a tick, no plain attention call; peak memory "
-            f"{peak / 2**30:.2f} GiB above the model's; requests "
-            + ", ".join(f"{u} ({w})" for u, w in checked.items())
-            + " equal to their solo runs")
+            f"{peak / 2**30:.2f} GiB above the model's; "
+            + solo_summary(equal, tied))
         if cache_dtype == "float32":     # the first ticks, profiled
             part = lambda: lm_served(  # noqa: E731
                 model, requests, cache_dtype, LM_SERVE_SLOTS,
@@ -3647,7 +3779,7 @@ def lm_batch(cfg, b, s, index, dev):
     return {k_: torch.as_tensor(v_, device=dev) for k_, v_ in batch.items()}
 
 
-def lm_grad_check(arch, layers, b, s, dev, launches):
+def lm_grad_check(arch, layers, b, s, dev, launches, tag="14b"):
     """Phase 14b: one batch's gradients through the kernels against the
     plain versions, float32, every parameter tensor within
     TRAIN_GRAD_REL_TOL of its largest |g| and finite (phase 5's rule:
@@ -3669,17 +3801,17 @@ def lm_grad_check(arch, layers, b, s, dev, launches):
     want = {"flash_attention_fwd": 2 * layers, "flash_attention_dq": layers,
             "flash_attention_dkv": layers}
     if dict(cuda.LAUNCHES) != want or plain.calls:
-        raise AssertionError(f"14b {arch}: launches {dict(cuda.LAUNCHES)} "
+        raise AssertionError(f"{tag} {arch}: launches {dict(cuda.LAUNCHES)} "
                              f"!= {want}; plain calls {plain.calls}")
     for name, n in want.items():
         launches[name] += n
     model.impl = "plain"
     pg, pm = step.grads(batch)
     if sorted(kg) != sorted(pg):
-        raise AssertionError(f"14b {arch}: the two sides' tensors differ")
-    worst, worst_name = grads_close_or_raise(f"14b {arch}", kg, pg,
+        raise AssertionError(f"{tag} {arch}: the two sides' tensors differ")
+    worst, worst_name = grads_close_or_raise(f"{tag} {arch}", kg, pg,
                                              TRAIN_GRAD_REL_TOL)
-    log(f"14b {arch} at full width and {layers} layers "
+    log(f"{tag} {arch} at full width and {layers} layers "
         f"({count_params(model):,} parameters), {b} x {s} tokens, float32: "
         f"loss {float(km['loss']):.5f} (plain {float(pm['loss']):.5f}); "
         f"{len(kg)} gradient tensors, the largest difference "
@@ -3802,7 +3934,7 @@ def lm_train_full(dev, launches):
 
 def lm_trainer_check(dev, launches):
     """Phase 14d: the Trainer on stablelm-3b's LM step at full width and
-    2 layers: TRAINER_STEPS_LM steps with a save at TRAINER_CKPT_AT, then a
+    TRAINER_LAYERS layers: TRAINER_STEPS_LM steps with a save at TRAINER_CKPT_AT, then a
     step whose loss is reported NaN (skipped: the parameters and AdamW state
     bitwise as they were); a second Trainer from the TRAINER_CKPT_AT
     checkpoint to TRAINER_STEPS_LM (the reference's restart tolerance); the
@@ -4101,6 +4233,587 @@ def lm_train_phase(launches, max_err, records):
           f"windowed, softcapped decode")
     gemma2_serving(dev, launches)
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: MoE with MLA (deepseek-v2-lite-16b, kimi-k2-1t-a32b)
+# ---------------------------------------------------------------------------
+
+def mla_kernels(gen, dev, max_err, records):
+    """Phase 15a: the decode at MLA's absorbed shapes (16 query heads
+    against one latent kv head, D = r + dr = 576, the values the rows'
+    first r = 512 columns, read in place at the rows' pitch) and the flash
+    forward, dq and dk/dv at MLA's full forward (16 / 16 heads, D 192, Dv
+    128, causal) against their plain versions (phase 3's tolerances), timed
+    as phase 6 times beside SDPA; the rows nest in the kernels' records
+    ("mla_*")."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = configs.get_config(MOE_ARCH)
+    m, hq = cfg.mla, cfg.num_q_heads
+    r, dr = m.kv_lora_rank, m.qk_rope_dim
+    scale = (m.qk_nope_dim + dr) ** -0.5
+    rng = np.random.default_rng(15)
+    tick = [MLA_TICK_CURSOR, 1] + [int(c) for c in rng.integers(
+        MLA_TICK_CURSOR - 64, MLA_TICK_CURSOR + 1, MLA_SLOTS - 2)]
+    gate = MOE_GATE_LEN + MOE_GATE_NEW
+    # (slots, query rows a slot, cache rows, cursors, cache dtype, q dtype)
+    decode_checks = {
+        "mla_tick": (MLA_SLOTS, 1, gate, tick, "float32", f32),
+        "mla_tick_bf16": (MLA_SLOTS, 1, gate, tick, "bfloat16", bf16),
+        "mla_prefill": (MOE_GATE_PROMPTS, MOE_GATE_LEN, gate,
+                        [MOE_GATE_LEN] * MOE_GATE_PROMPTS, "float32", f32)}
+    timings = {}
+    for name, (b, sq, s, cursors, cd, qd) in decode_checks.items():
+        rows = torch.randn((2, b, 1, s, r + dr), generator=gen, device=dev)
+        kvl = torch.as_tensor(cursors, dtype=torch.int32, device=dev)
+        past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+        rows = torch.where(past[None, :, None, :, None], float("nan"),
+                           rows).to(getattr(torch, cd)).contiguous()
+        q = torch.randn((b, hq, sq, r + dr), generator=gen, device=dev).to(qd)
+        opts = dict(scale=scale)
+        cols = torch.arange(s, device=dev)
+        mask = (cols[None, :] < kvl[:, None].long())[:, None, None, :]
+        if sq > 1:
+            opts["q_times"] = (kvl[:, None] - sq + torch.arange(
+                sq, device=dev)).int().contiguous()
+            opts["k_times"] = cols.int()[None].expand(b, s).contiguous()
+            mask = mask & (cols[None, None, None, :]
+                           <= opts["q_times"][:, None, :, None])
+        v = rows[..., :r]                      # the latent: a column view
+        run = lambda q=q, rows=rows, v=v, kvl=kvl, opts=opts: \
+            ops.decode_attention(q, rows, v, kv_length=kvl, layer=1,
+                                 impl="flash_decode", **opts)
+        got, again = run(), run()
+        copy = ops.decode_attention(q, rows, v.contiguous(), kv_length=kvl,
+                                    layer=1, impl="flash_decode", **opts)
+        want = ops.decode_attention(q, rows, v, kv_length=kvl, layer=1,
+                                    impl="plain", **opts)
+        torch.cuda.synchronize()
+        what = f"{name}: {cd} cache, {str(qd)[6:]} query"
+        err = close_or_raise(f"15a flash_decode {what}", got, want,
+                             **DECODE_TOL["bfloat16" if qd == bf16 else cd])
+        if not (torch.equal(got, again) and torch.equal(got, copy)):
+            raise AssertionError(f"15a flash_decode {what}: not bitwise "
+                                 f"repeatable, or the pitch read differs "
+                                 f"from a contiguous V")
+        max_err["flash_decode"] = max(max_err["flash_decode"], err)
+        log(f"15a flash_decode {what}: {b} slots x {hq}/1 heads x "
+            f"{r + dr} (V the first {r} columns at pitch {r + dr}), {sq} "
+            f"query rows, cursors {min(cursors)}-{max(cursors)}: max abs err "
+            f"{err:.3e}, bitwise repeatable and equal to a contiguous V")
+        live = int(kvl.sum())
+        pairs = hq * (live if sq == 1 else b * sq * (sq + 1) // 2)
+        kl = torch.nan_to_num(rows[1].to(qd))
+        timings[("flash_decode", name)] = dict(
+            fn=run, plain=lambda q=q, rows=rows, v=v, kvl=kvl, opts=opts:
+            ops.decode_attention(q, rows, v, kv_length=kvl, layer=1,
+                                 impl="plain", **opts),
+            library=lambda q=q, kl=kl, mask=mask:
+            F.scaled_dot_product_attention(q, kl, kl[..., :r], attn_mask=mask,
+                                           scale=scale, enable_gqa=True),
+            # the live rows once (V is their first r columns), q, the output
+            bytes=live * (r + dr) * rows.element_size()
+            + b * hq * sq * (2 * r + dr) * q.element_size() + b * 4,
+            flops=2 * pairs * (2 * r + dr),
+            rate=SPLIT_TF32_FLOP_PER_S if cd == "float32" else BF16_FLOP_PER_S,
+            shape=f"{what}, {b} x {hq}/1 x {r + dr} / {r}, {live} live rows")
+    # the full forward: (b, heads, tokens, D, Dv), causal
+    b, s, d, dv = MOE_GATE_PROMPTS, MOE_GATE_LEN, m.qk_nope_dim + dr, \
+        m.v_head_dim
+    for name, dt in (("mla_train", f32), ("mla_train_bf16", bf16)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, hq, s, d), (b, hq, s, d),
+                                     (b, hq, s, dv), (b, hq, s, dv)))
+        key = "float32" if dt == f32 else "bfloat16"
+        opts = dict(causal=True, scale=scale)
+        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        again, _ = fa.flash_attention_fwd(q, k, v, **opts)
+        want, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        err = close_or_raise(f"15a flash forward {name}", out, want,
+                             **FLASH_TOL[key])
+        close_or_raise(f"15a flash forward {name} lse", lse, want_lse,
+                       atol=1e-4, rtol=1e-5)
+        got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+        got2 = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+        wide = torch.float64 if dt == f32 else dt
+        wantg = fab.flash_bwd_plain(q.to(wide), k.to(wide), v.to(wide),
+                                    out.to(wide), lse, do.to(wide), **opts)
+        if not (torch.equal(out, again) and all(
+                torch.equal(a, b_) for a, b_ in zip(got, got2))):
+            raise AssertionError(f"15a {name}: not bitwise repeatable")
+        gerr = {which: close_or_raise(f"15a flash {which} {name}", a,
+                                      w.to(dt), **FLASH_GRAD_TOL[key])
+                for which, a, w in zip(("dq", "dk", "dv"), got, wantg)}
+        if dt == f32:
+            max_err["flash_attention_fwd"] = max(
+                max_err["flash_attention_fwd"], err)
+            max_err["flash_attention_dq"] = max(
+                max_err["flash_attention_dq"], gerr["dq"])
+            max_err["flash_attention_dkv"] = max(
+                max_err["flash_attention_dkv"], gerr["dk"], gerr["dv"])
+        log(f"15a flash {name}: {b} x {hq}/{hq} heads x {s}, D {d}, Dv {dv}, "
+            f"causal, {key}: max abs err out {err:.3e}, dq {gerr['dq']:.3e}, "
+            f"dk {gerr['dk']:.3e}, dv {gerr['dv']:.3e}; bitwise repeatable")
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        es = q.element_size()
+        pairs = b * hq * s * (s + 1) // 2
+        qb, vb, row = b * hq * s * d * es, b * hq * s * dv * es, b * hq * s * 4
+        rate = SPLIT_TF32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S
+        lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                      for t_ in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              scale=scale)
+        library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale)
+        lib_bwd = lambda lout=lout, lq=lq, lk=lk, lv=lv, do=do: \
+            torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+        plain_bwd = lambda q=q, k=k, v=v, out=out, lse=lse, do=do: \
+            fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+        shape = f"{b} x {hq}/{hq} heads x {s}, D {d} / Dv {dv}, {key}"
+        timings[("flash_attention_fwd", name)] = dict(
+            fn=lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v, **opts),
+            plain=lambda q=q, k=k, v=v: fa.flash_fwd_plain(q, k, v, **opts),
+            library=library, bytes=2 * qb + 2 * vb + row,
+            flops=2 * pairs * (d + dv), rate=rate, shape=shape)
+        timings[("flash_attention_dq", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta:
+            fab.flash_attention_dq(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd,
+            bytes=3 * qb + 2 * vb + 2 * row,
+            flops=2 * pairs * (2 * d + dv), rate=rate, shape=shape)
+        timings[("flash_attention_dkv", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta:
+            fab.flash_attention_dkv(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd,
+            bytes=3 * qb + 3 * vb + 2 * row,
+            flops=2 * pairs * (2 * d + 2 * dv), rate=rate, shape=shape)
+    for (kernel, name), tm in timings.items():
+        ms = time_ms(tm["fn"])
+        plain_ms = time_ms(tm["plain"], batches=3, per_batch=2, warmup=1)
+        library_ms = time_ms(tm["library"])
+        device = {"ms": kernel_ms(tm["fn"]),
+                  "library_ms": kernel_ms(tm["library"])}
+        byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        flop_ms = tm["flops"] / tm["rate"] * 1e3
+        nested = {"ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(byte_ms, flop_ms),
+                  "bound_by": "bytes" if byte_ms >= flop_ms
+                  else "operations", "library_ms": library_ms,
+                  "bound_f32_ms": max(byte_ms,
+                                      tm["flops"] / F32_FLOP_PER_S * 1e3)}
+        owner = next(r_ for r_ in records if r_["name"] == kernel)
+        owner[name] = nested
+        log(json.dumps({"kernel": kernel, "row": name, "shape": tm["shape"],
+                        **nested, "device_time_ms": device}))
+
+
+def moe_decode_gate(model, toks, n_prefill, launches, what):
+    """Every position's logits two ways: the full forward (a flash forward
+    a layer), and the cache: the first ``n_prefill`` tokens as one chunk
+    (the decode kernel a layer, causal through the positions), then a
+    serve step a token. Launches exact, no plain attention call. Returns
+    (full, cached, aux, the chunk's seconds, each tick's seconds)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime.steps import make_serve_step
+    n_layers = model.cfg.num_layers
+    b, s = toks.shape
+    serve = make_serve_step(model)
+    with PlainCalls() as plain:
+        cuda.reset_launches()
+        with torch.no_grad():
+            full, aux, _ = model(toks)
+        torch.cuda.synchronize()
+        if dict(cuda.LAUNCHES) != {"flash_attention_fwd": n_layers}:
+            raise AssertionError(f"{what} full forward: launches "
+                                 f"{dict(cuda.LAUNCHES)}")
+        launches["flash_attention_fwd"] += n_layers
+        cache = model.init_cache(b, s, torch.float32)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            first, _, cache = model(toks[:, :n_prefill], cache=cache,
+                                    cache_index=0)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        outs, ticks = [first], []
+        for i in range(n_prefill, s):
+            t0 = time.perf_counter()
+            lg, cache = serve(cache, toks[:, i:i + 1], i)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t0)
+            outs.append(lg[:, None])
+        want = {"flash_decode": n_layers * (1 + s - n_prefill)}
+        if dict(cuda.LAUNCHES) != want or plain.calls:
+            raise AssertionError(f"{what} cached decode: launches "
+                                 f"{dict(cuda.LAUNCHES)} != {want}; plain "
+                                 f"calls {plain.calls}")
+    launches["flash_decode"] += want["flash_decode"]
+    return full, torch.cat(outs, 1), aux, chunk_s, ticks
+
+
+def no_drop(cfg, **overrides):
+    """``cfg`` with a capacity factor of E / k: every group's capacity is at
+    least its token count, so no assignment is dropped (prefill and decode
+    then differ by rounding alone, whatever their group sizes)."""
+    moe = dataclasses.replace(cfg.moe, **overrides)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
+def dropped_share(moe, x):
+    """The share of x's (B, S, d) token-expert assignments that ``moe``'s
+    capacity drops: those past the first C routed to their expert."""
+    import torch
+    t = x.shape[0] * x.shape[1]
+    ids, _, _ = moe.route(x.reshape(t, -1))
+    per_expert = torch.bincount(ids.flatten(), minlength=moe.num_experts)
+    return float((per_expert - moe.capacity(t)).clamp(min=0).sum()) \
+        / ids.numel()
+
+
+def moe_serving_full(dev, launches):
+    """Phase 15b: deepseek-v2-lite-16b at full width and depth, float32."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.moe import MoE
+    from repro_torch.nn.module import count_params
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.runtime.steps import make_serve_step
+    reg = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(no_drop(reg), dtype="float32")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    n_params = count_params(model)
+    if n_params != MOE_COUNTS[MOE_ARCH]:
+        raise AssertionError(f"15b {MOE_ARCH}: {n_params:,} parameters")
+    log(f"{MOE_ARCH}: {cfg.num_layers} layers (1 dense, d_ff "
+        f"{cfg.moe.dense_ff}; then {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.num_shared} shared, expert_ff "
+        f"{cfg.moe.expert_ff}), d_model {cfg.d_model}, MLA {cfg.num_q_heads} "
+        f"heads (kv_lora {cfg.mla.kv_lora_rank}, rope {cfg.mla.qk_rope_dim}, "
+        f"nope {cfg.mla.qk_nope_dim}, v {cfg.mla.v_head_dim}), vocab "
+        f"{cfg.padded_vocab}: {n_params:,} parameters, "
+        f"{weights / 2**30:.2f} GiB of float32 weights, drawn by a CUDA "
+        f"generator seeded 0 in {time.perf_counter() - t0:.2f} s; capacity "
+        f"factor {cfg.moe.capacity_factor:.4g} (E / k: nothing dropped)")
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_GATE_PROMPTS, MOE_GATE_LEN + MOE_GATE_NEW))
+    ).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    full, dec, aux, chunk_s, ticks = moe_decode_gate(
+        model, toks, MOE_GATE_LEN, launches, "15b")
+    peak = torch.cuda.max_memory_allocated() - base - weights
+    err_chunk = close_or_raise("15b the prefill chunk's logits against the "
+                               "full forward", dec[:, :MOE_GATE_LEN],
+                               full[:, :MOE_GATE_LEN], **LM_GATE_TOL)
+    err_dec = close_or_raise("15b the decoded positions' logits against the "
+                             "full forward", dec[:, MOE_GATE_LEN:],
+                             full[:, MOE_GATE_LEN:], **LM_GATE_TOL)
+    if not math.isfinite(float(aux)):
+        raise AssertionError(f"15b aux {float(aux)}")
+    tick_ms = np.asarray(ticks) * 1e3
+    n_tok = MOE_GATE_PROMPTS * MOE_GATE_NEW
+    log(f"15b {MOE_GATE_PROMPTS} prompts x {MOE_GATE_LEN} tokens prefilled "
+        f"as one chunk in {chunk_s:.3f} s ({cfg.num_layers} decode launches "
+        f"at Sq {MOE_GATE_LEN}), then {MOE_GATE_NEW} ticks: "
+        f"{n_tok / sum(ticks):.1f} tokens/s, tick p50 "
+        f"{np.percentile(tick_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(tick_ms, 99):.2f} ms; {cfg.num_layers} decode "
+        f"launches a tick, no plain attention call; max abs err against the "
+        f"full forward {err_chunk:.3e} (prefill), {err_dec:.3e} (decoded) "
+        f"(gate {LM_GATE_TOL}); aux {float(aux):.5f}; peak memory "
+        f"{peak / 2**30:.2f} GiB above the weights")
+    del full, dec
+    # the device profile of a few ticks (rewriting rows of the gate's cache
+    # with the same values)
+    serve = make_serve_step(model)
+    cache = model.init_cache(MOE_GATE_PROMPTS, MOE_GATE_LEN + MOE_GATE_NEW,
+                             torch.float32)
+
+    def ticks_run():
+        c = cache
+        for i in range(MOE_PROFILE_TICKS):
+            _, c = serve(c, toks[:, i:i + 1], i)
+        torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    ticks_run()
+    wall = time.perf_counter() - t0
+    busy = device_profile(ticks_run, wall, ("tick", lambda: MOE_PROFILE_TICKS),
+                          f"15b {MOE_ARCH} ticks at 2 slots")
+    want = {"flash_decode": 2 * cfg.num_layers * MOE_PROFILE_TICKS}
+    if dict(cuda.LAUNCHES) != want:
+        raise AssertionError(f"15b profiled ticks: launches "
+                             f"{dict(cuda.LAUNCHES)} != {want}")
+    launches["flash_decode"] += want["flash_decode"]
+    log("15b busy share of a tick: "
+        + ("not measured" if busy is None else f"{busy:.1%}"))
+    # the config's own capacity factor: the share of assignments dropped
+    shares = []
+    moes = [mod for mod in model.modules() if isinstance(mod, MoE)]
+    for mod in moes:
+        mod.capacity_factor = reg.moe.capacity_factor
+    hooks = [mod.register_forward_pre_hook(
+        lambda mod, inp: shares.append(dropped_share(mod, inp[0])))
+        for mod in moes]
+    cuda.reset_launches()
+    with torch.no_grad():
+        model(toks)
+    for h in hooks:
+        h.remove()
+    if dict(cuda.LAUNCHES) != {"flash_attention_fwd": cfg.num_layers}:
+        raise AssertionError(f"15b capacity 1.25: launches "
+                             f"{dict(cuda.LAUNCHES)}")
+    launches["flash_attention_fwd"] += cfg.num_layers
+    t = MOE_GATE_PROMPTS * (MOE_GATE_LEN + MOE_GATE_NEW)
+    log(f"15b at the config's capacity factor {reg.moe.capacity_factor} "
+        f"({moes[0].capacity(t)} rows an expert for {t} tokens x "
+        f"{reg.moe.top_k}): {float(np.mean(shares)):.2%} of the assignments "
+        f"dropped over the {len(moes)} MoE layers (per layer "
+        f"{min(shares):.2%}-{max(shares):.2%})")
+    del model, cache, toks
+    torch.cuda.empty_cache()
+
+
+def moe_server(dev, launches):
+    """Phase 15c: the LM Server over deepseek-v2-lite's dense layer and
+    MOE_SERVE_LAYERS - 1 MoE layers at the config's own capacity factor."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.nn.moe import MoE
+    from repro_torch.nn.transformer import build_model
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS, dtype="float32")
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    # the server feeds every slot one token a tick (prompts too, token by
+    # token), so a tick's MoE group is num_slots tokens, and a solo run's
+    # one: a capacity of at least that many rows an expert drops nothing
+    moe = next(mod for mod in model.modules() if isinstance(mod, MoE))
+    for n in (MOE_SERVE_SLOTS, 1):
+        if moe.capacity(n) < n:
+            raise AssertionError(f"15c: capacity {moe.capacity(n)} under "
+                                 f"{n} tokens a tick")
+    rng = np.random.default_rng(151)
+    lens = rng.integers(MOE_SERVE_PROMPT[0], MOE_SERVE_PROMPT[1] + 1,
+                        MOE_SERVE_REQUESTS)
+    requests = [(uid, rng.integers(1, cfg.vocab_size, n), MOE_SERVE_NEW)
+                for uid, n in enumerate(lens)]
+    srv, wall, ticks, counts, admitted, plain_calls, peak = lm_served(
+        model, requests, "float32", MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN)
+    done = srv.done
+    if sorted(done) != list(range(MOE_SERVE_REQUESTS)) or any(
+            len(r_.generated) != MOE_SERVE_NEW for r_ in done.values()):
+        raise AssertionError(f"15c: requests {sorted(done)} or lengths "
+                             f"wrong")
+    want = {"flash_decode": cfg.num_layers * srv.ticks}
+    if counts != want or plain_calls:
+        raise AssertionError(f"15c: launches {counts} != {want}; plain "
+                             f"calls {plain_calls}")
+    launches["flash_decode"] += want["flash_decode"]
+    checked = {int(np.argmin(lens)): "shortest", int(np.argmax(lens)):
+               "longest"}
+    mid = sorted((t, u) for u, t in admitted.items()
+                 if t > 0 and u not in checked)
+    for t, u in (mid[0], mid[-1]):
+        checked[u] = f"admitted at tick {t}"
+    if len(checked) != 4:
+        raise AssertionError(f"15c: {checked} are not 4 requests")
+    n_solo, equal, tied = solo_gate(model, requests, done, checked,
+                                    "float32", MOE_SERVE_SLOTS,
+                                    MOE_SERVE_MAX_LEN, "15c")
+    launches["flash_decode"] += n_solo
+    n_tok = sum(len(r_.generated) for r_ in done.values())
+    tick_ms = np.asarray(ticks) * 1e3
+    log(f"15c {MOE_SERVE_REQUESTS} requests (prompts {lens.min()}-"
+        f"{lens.max()} tokens, {MOE_SERVE_NEW} new each, greedy) through "
+        f"{MOE_SERVE_SLOTS} slots at {cfg.num_layers} layers, capacity "
+        f"factor {cfg.moe.capacity_factor} ({moe.capacity(MOE_SERVE_SLOTS)} "
+        f"rows an expert for a tick's {MOE_SERVE_SLOTS} tokens: nothing "
+        f"dropped), float32 cache: {srv.ticks} ticks, {wall:.2f} s, "
+        f"{n_tok / wall:.1f} generated tokens/s, "
+        f"{(n_tok + int(lens.sum())) / wall:.1f} with the prompts; tick p50 "
+        f"{np.percentile(tick_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(tick_ms, 99):.2f} ms; {cfg.num_layers} decode "
+        f"launches a tick, no plain attention call; peak memory "
+        f"{peak / 2**30:.2f} GiB above the model's; "
+        + solo_summary(equal, tied))
+    part = lambda: lm_served(  # noqa: E731
+        model, requests, "float32", MOE_SERVE_SLOTS, MOE_SERVE_MAX_LEN,
+        max_ticks=MOE_PROFILE_TICKS * 8)
+    runs = [part()]
+    device_profile(lambda: runs.append(part()), runs[0][1],
+                   ("tick", lambda: MOE_PROFILE_TICKS * 8),
+                   f"15c MoE server, its first {MOE_PROFILE_TICKS * 8} ticks")
+    for run in runs:
+        if run[3] != {"flash_decode": cfg.num_layers * run[0].ticks} \
+                or run[5]:
+            raise AssertionError(f"15c profiled drive: launches {run[3]}; "
+                                 f"plain calls {run[5]}")
+        launches["flash_decode"] += run[3]["flash_decode"]
+    del model, srv
+    torch.cuda.empty_cache()
+
+
+def moe_train(dev, launches):
+    """Phase 15d: deepseek-v2-lite at full width, cut in depth: the
+    gradients through the kernels against the plain versions, then AdamW
+    steps in bf16 compute over float32 weights."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.module import count_params
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, \
+        warmup_cosine
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.training.steps import loss_summary
+    lm_grad_check(MOE_ARCH, MOE_GRAD_LAYERS, LM_TRAIN_B, LM_TRAIN_S, dev,
+                  launches, tag="15d")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = lm_model(MOE_ARCH, dev, num_layers=MOE_TRAIN_LAYERS)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    n_params = count_params(model)
+    batches = [lm_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, i * LM_TRAIN_B, dev)
+               for i in range(MOE_TRAIN_STEPS)]
+    n = cfg.num_layers
+    per_step = {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+                "flash_attention_dkv": n}
+    opt = chain(clip_by_global_norm(1.0),
+                adamw(warmup_cosine(LM_TRAIN_LR, 20, MOE_TRAIN_STEPS)))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, auxes, secs = [], [], []
+    cuda.reset_launches()
+    with PlainCalls() as plain:
+        for batch in batches:
+            t0 = time.perf_counter()
+            grads, metrics = step.grads(batch)
+            losses.append(float(metrics["loss"]))
+            auxes.append(float(metrics["aux"]))
+            state = step.update(state, grads)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    want = {k_: v_ * MOE_TRAIN_STEPS for k_, v_ in per_step.items()}
+    if dict(cuda.LAUNCHES) != want or plain.calls:
+        raise AssertionError(f"15d: launches {dict(cuda.LAUNCHES)} != "
+                             f"{want}; plain calls {plain.calls}")
+    for k_, v_ in want.items():
+        launches[k_] += v_
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"15d: losses {losses}, aux {auxes}")
+    ends = loss_summary(losses)
+    if not ends["loss_last"] < ends["loss_first"]:
+        raise AssertionError(f"15d: the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() - base - weights
+    med = statistics.median(secs[1:])
+    log(f"15d {MOE_ARCH} at full width and {n} layers ({n_params:,} "
+        f"parameters, {weights / 2**30:.2f} GiB of float32 weights), "
+        f"compute {cfg.dtype}, remat, {MOE_TRAIN_STEPS} AdamW steps of "
+        f"{LM_TRAIN_B} x {LM_TRAIN_S} synthetic_lm tokens, peak lr "
+        f"{LM_TRAIN_LR}, capacity factor {cfg.moe.capacity_factor}: loss "
+        f"{ends['loss_first']:.4f} -> {ends['loss_last']:.4f} (5-step means; "
+        f"{', '.join(f'{x:.3f}' for x in losses)}); aux "
+        f"{', '.join(f'{x:.4f}' for x in auxes)}; {1 / med:.3f} steps/s, "
+        f"{LM_TRAIN_B * LM_TRAIN_S / med:.0f} tokens/s (median step "
+        f"{med:.3f} s, the first {secs[0]:.3f} s); peak memory "
+        f"{peak / 2**30:.2f} GiB above the weights (AdamW moments "
+        f"{2 * weights / 2**30:.2f} GiB of it); launches a step {per_step}, "
+        f"no plain attention call")
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+
+def kimi_check(dev, launches):
+    """Phase 15e: kimi-k2-1t-a32b at full width, cut to KIMI_LAYERS layers
+    and KIMI_EXPERTS experts: decode against the full forward as 15b."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.nn.module import count_params
+    from repro_torch.nn.transformer import build_model
+    reg = configs.get_config(KIMI_ARCH)
+    n_full = count_params(build_model(reg, device="meta"))
+    if n_full != MOE_COUNTS[KIMI_ARCH]:
+        raise AssertionError(f"15e {KIMI_ARCH} on meta: {n_full:,}")
+    cfg = dataclasses.replace(no_drop(reg, num_experts=KIMI_EXPERTS),
+                              num_layers=KIMI_LAYERS, dtype="float32")
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    n_params = count_params(model)
+    rng = np.random.default_rng(152)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, KIMI_PREFILL + KIMI_NEW))).to(dev)
+    full, dec, aux, chunk_s, ticks = moe_decode_gate(
+        model, toks, KIMI_PREFILL, launches, "15e")
+    err = close_or_raise("15e decode against the full forward", dec, full,
+                         **LM_GATE_TOL)
+    log(f"15e {KIMI_ARCH}: {n_full:,} parameters at its full "
+        f"{reg.num_layers} layers and {reg.moe.num_experts} experts (on "
+        f"meta); at full width (d_model {cfg.d_model}, {cfg.num_q_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, expert_ff "
+        f"{cfg.moe.expert_ff}, top-{cfg.moe.top_k} + {cfg.moe.num_shared} "
+        f"shared) cut to {KIMI_LAYERS} layers and {KIMI_EXPERTS} experts: "
+        f"{n_params:,} parameters ({n_params * 4 / 2**30:.2f} GiB); 2 "
+        f"prompts of {KIMI_PREFILL} tokens as a chunk, then {KIMI_NEW} "
+        f"ticks (p50 {statistics.median(ticks) * 1e3:.2f} ms): every "
+        f"position within {err:.3e} of the full forward (gate "
+        f"{LM_GATE_TOL}), capacity factor {cfg.moe.capacity_factor:.4g}, "
+        f"aux {float(aux):.5f}")
+    del model, full, dec
+    torch.cuda.empty_cache()
+
+
+def moe_phase(launches, max_err, records):
+    """Phase 15: MoE with MLA (see the module docstring)."""
+    import gc
+
+    import torch
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 starts with {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated by earlier phases")
+    phase("15a. MoE with MLA: the decode at MLA's absorbed shapes, the "
+          "flash kernels at its full forward")
+    mla_kernels(torch.Generator(device=dev).manual_seed(15), dev, max_err,
+                records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"15b. {MOE_ARCH} at full width and depth: prefill and decode "
+          f"against the full forward")
+    moe_serving_full(dev, launches)
+    phase(f"15c. the LM Server over {MOE_ARCH} at {MOE_SERVE_LAYERS} layers")
+    moe_server(dev, launches)
+    phase(f"15d. {MOE_ARCH} trains at full width and {MOE_TRAIN_LAYERS} "
+          f"layers")
+    moe_train(dev, launches)
+    phase(f"15e. {KIMI_ARCH} at full width, {KIMI_LAYERS} layers and "
+          f"{KIMI_EXPERTS} experts")
+    kimi_check(dev, launches)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -4774,6 +5487,9 @@ def main() -> int:
 
     # 14. LM training; gemma2's windowed, softcapped attention --------------
     lm_train_phase(launches, max_err, records)
+
+    # 15. MoE with MLA -------------------------------------------------------
+    moe_phase(launches, max_err, records)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

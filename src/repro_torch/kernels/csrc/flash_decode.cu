@@ -184,11 +184,12 @@ __device__ __forceinline__ void cp_async_n(char* dst, const char* src) {
 
 template <int N>
 __device__ __forceinline__ void copy_chunks(const char* s, char* d, int nrows,
-                                            int row_bytes, int stride_bytes) {
+                                            int row_bytes, int ld_bytes,
+                                            int stride_bytes) {
   const int per = row_bytes / N, n = nrows * per;
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
     const int r = c / per, x = (c - r * per) * N;
-    cp_async_n<N>(d + r * stride_bytes + x, s + (size_t)r * row_bytes + x);
+    cp_async_n<N>(d + r * stride_bytes + x, s + (size_t)r * ld_bytes + x);
   }
 }
 
@@ -197,52 +198,54 @@ __device__ __forceinline__ void copy_chunks(const char* s, char* d, int nrows,
 // registers stay the accumulators').
 template <typename U>
 __device__ __forceinline__ void copy_units_sync(const char* s, char* d, int nrows,
-                                                int row_bytes, int stride_bytes) {
+                                                int row_bytes, int ld_bytes,
+                                                int stride_bytes) {
   const int per = row_bytes / (int)sizeof(U), n = nrows * per;
-  const U* src = reinterpret_cast<const U*>(s);
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
     const int r = c / per;
-    reinterpret_cast<U*>(d + r * stride_bytes)[c - r * per] = src[c];
+    reinterpret_cast<U*>(d + r * stride_bytes)[c - r * per] =
+        reinterpret_cast<const U*>(s + (size_t)r * ld_bytes)[c - r * per];
   }
 }
 
-// Start copying rows [0, nrows) of a contiguous (rows, width) tile of T
-// into shared memory at row stride `stride` by cp.async, in the widest
-// chunks both sides allow; the caller commits and waits. Rows that lie in
-// shared memory as in device memory are one flat run (widths that are
-// multiples of 8). A bf16 or int8 row whose bytes are not a multiple of 4
-// (c = 150 int8, or an odd width) is copied synchronously, 2 or 1 bytes a
-// unit; the ring's barrier before the tile is computed covers those
-// stores as it covers the cp.async ones.
+// Start copying columns [0, width) of rows [0, nrows) of T, `ld` elements
+// apart in device memory, into shared memory at row stride `stride` by
+// cp.async, in the widest chunks both sides allow; the caller commits and
+// waits. Rows that lie in shared memory as in device memory are one flat
+// run (widths that are multiples of 8, ld == width). A bf16 or int8 row
+// whose bytes are not a multiple of 4 (c = 150 int8, or an odd width) is
+// copied synchronously, 2 or 1 bytes a unit; the ring's barrier before the
+// tile is computed covers those stores as it covers the cp.async ones.
 template <typename T>
 __device__ __forceinline__ void copy_rows(const T* src, int nrows, int width,
-                                          T* dst, int stride) {
+                                          int ld, T* dst, int stride) {
   const char* s = reinterpret_cast<const char*>(src);
   char* d = reinterpret_cast<char*>(dst);
-  const int rb = width * (int)sizeof(T), sb = stride * (int)sizeof(T);
+  const int rb = width * (int)sizeof(T), sb = stride * (int)sizeof(T),
+            lb = ld * (int)sizeof(T);
   const uintptr_t base = reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d);
-  if (stride == width) {
+  if (stride == width && ld == width) {
     const int n = nrows * rb;
     int done = 0;
     if ((base & 15) == 0) {
-      copy_chunks<16>(s, d, 1, n / 16 * 16, 0);
+      copy_chunks<16>(s, d, 1, n / 16 * 16, 0, 0);
       done = n / 16 * 16;
     }
-    copy_chunks<4>(s + done, d + done, 1, n - done, 0);
+    copy_chunks<4>(s + done, d + done, 1, n - done, 0, 0);
     return;
   }
-  const uintptr_t al = base | (uintptr_t)rb | (uintptr_t)sb;
+  const uintptr_t al = base | (uintptr_t)rb | (uintptr_t)sb | (uintptr_t)lb;
   if ((al & 15) == 0)
-    copy_chunks<16>(s, d, nrows, rb, sb);
+    copy_chunks<16>(s, d, nrows, rb, lb, sb);
   else if ((al & 7) == 0)
-    copy_chunks<8>(s, d, nrows, rb, sb);
+    copy_chunks<8>(s, d, nrows, rb, lb, sb);
   else if (sizeof(T) == 4 || (al & 3) == 0)   // float32 rows: always
-    copy_chunks<4>(s, d, nrows, rb, sb);
+    copy_chunks<4>(s, d, nrows, rb, lb, sb);
   else if constexpr (sizeof(T) < 4) {
     if ((al & 1) == 0)
-      copy_units_sync<uint16_t>(s, d, nrows, rb, sb);
+      copy_units_sync<uint16_t>(s, d, nrows, rb, lb, sb);
     else
-      copy_units_sync<uint8_t>(s, d, nrows, rb, sb);
+      copy_units_sync<uint8_t>(s, d, nrows, rb, lb, sb);
   }
 }
 
@@ -294,14 +297,17 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
               const int* __restrict__ q_seg, const int* __restrict__ k_seg,
               TQ* __restrict__ out, float* __restrict__ o_part,
               float* __restrict__ m_part, float* __restrict__ l_part, int B,
-              int Hq, int Hkv, int Sq, int S, int D_arg, int Dv_arg, int layer,
-              int num_splits, int tiles_per_split, float scale, Win win,
+              int Hq, int Hkv, int Sq, int S, int D_arg, int Dv_arg, int v_pitch,
+              int layer, int num_splits, int tiles_per_split, float scale, Win win,
               int window, float softcap) {
   using C = Cfg<MB, NS>;
   constexpr int W = C::W, kRows = C::kRows, kWPB = C::kWPB, kWords = (W + 31) / 32;
   constexpr bool kExact = !std::is_same<T, float>::value;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   const int D = kWidth ? kWidth : D_arg, Dv = kWidth ? kWidth : Dv_arg;
+  // V's row pitch: Dv for a contiguous V (the launch runs the kWidth
+  // instances for no other)
+  const int vp = kWidth ? kWidth : v_pitch;
   // the output columns this launch writes: all, or a window (mma_tf32.cuh;
   // with kWinGlobal Q and K stay in device memory and the ring holds V's
   // window only)
@@ -392,7 +398,7 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   const int kv_end = max(0, min(kv_length[b], S));
   const size_t head = ((size_t)layer * B + b) * Hkv + hk;   // (layer, b, hk)
   const T* kh = k + head * S * D;
-  const T* vh = v + head * S * Dv;
+  const T* vh = v + head * S * vp;           // V rows vp apart
   const float* ksh = kQuant ? k_scale + head * S : nullptr;
   const float* vsh = kQuant ? v_scale + head * S : nullptr;
   const int* kt_b = k_times ? k_times + (size_t)b * S : nullptr;
@@ -451,11 +457,11 @@ decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   auto issue = [&](int kt, int sl) {
     T* sk = s_ring + sl * slot;
     const int k0 = kt * W, nk = min(W, kv_end - k0);
-    if constexpr (kStaged) copy_rows<T>(kh + (size_t)k0 * D, nk, D, sk, ks);
+    if constexpr (kStaged) copy_rows<T>(kh + (size_t)k0 * D, nk, D, D, sk, ks);
     if constexpr (kWin != kWinNone)
-      load_window<T>(vh + (size_t)k0 * Dv + win.v0, nk, Do, Dv, sk + W * ks, vs);
+      load_window<T>(vh + (size_t)k0 * vp + win.v0, nk, Do, vp, sk + W * ks, vs);
     else
-      copy_rows<T>(vh + (size_t)k0 * Dv, nk, Dv, sk + W * ks, vs);
+      copy_rows<T>(vh + (size_t)k0 * vp, nk, Dv, vp, sk + W * ks, vs);
     if ((int)threadIdx.x < nk) {
       char* mt = reinterpret_cast<char*>(s_meta + sl * 4 * W + threadIdx.x);
       const int j = k0 + threadIdx.x;
@@ -784,11 +790,12 @@ using Int = std::integral_constant<int, N>;
 // `rows` = group x Sq query rows a kv head and the widths: up to 16 rows,
 // one block walking 64-key tiles; more, CTAs of up to 4 blocks walking
 // 32-key tiles; widths past 200 (NT > 25 column tiles), 4 blocks and
-// 16-key tiles at every row count. c = 200 is compiled as a constant.
+// 16-key tiles at every row count. c = 200 is compiled as a constant
+// (where `constant` allows it: a contiguous V).
 template <typename F>
-auto with_cta_shape(int rows, int D, int Dv, F&& f) {
+auto with_cta_shape(int rows, int D, int Dv, F&& f, bool constant = true) {
   const int nt = ((D > Dv ? D : Dv) + 7) / 8;
-  const bool c200 = D == 200 && Dv == 200;
+  const bool c200 = constant && D == 200 && Dv == 200;
   if (nt > 25) return f(Int<4>{}, Int<1>{}, Int<32>{}, Int<0>{});
   if (rows <= 16)
     return c200 ? f(Int<1>{}, Int<1>{}, Int<25>{}, Int<200>{})
@@ -826,7 +833,7 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v,
                        const int* kv_length, const int* q_times, const int* k_times,
                        const int* q_seg, const int* k_seg, float* o_part,
                        float* m_part, float* l_part, void* out, int B, int Hq,
-                       int Hkv, int Sq, int S, int D, int Dv, int layer,
+                       int Hkv, int Sq, int S, int D, int Dv, int v_pitch, int layer,
                        int num_splits, float scale, int q_bf16, int window,
                        float softcap, cudaStream_t stream) {
   constexpr int kStages = std::is_same<T, float>::value ? 2 : 3;
@@ -847,7 +854,7 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v,
     kernel<<<grid, kThreads, smem, stream>>>(
         (const TQ*)q, (const T*)k, (const T*)v, k_scale, v_scale, kv_length, q_times,
         k_times, q_seg, k_seg, (TQ*)out, o_part, m_part, l_part, B, Hq, Hkv, Sq, S, D,
-        Dv, layer, num_splits, tiles_per_split, scale, win, window, softcap);
+        Dv, v_pitch, layer, num_splits, tiles_per_split, scale, win, window, softcap);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -863,9 +870,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
                    const float* v_scale, const int* kv_length, const int* q_times,
                    const int* k_times, const int* q_seg, const int* k_seg,
                    float* o_part, float* m_part, float* l_part, void* out, int B,
-                   int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
-                   int num_splits, float scale, int q_bf16, int window, float softcap,
-                   cudaStream_t stream) {
+                   int Hq, int Hkv, int Sq, int S, int D, int Dv, int v_pitch,
+                   int layer, int num_splits, float scale, int q_bf16, int window,
+                   float softcap, cudaStream_t stream) {
   num_splits = num_splits_for(B, Hq, Hkv, Sq, S, D, Dv, num_splits < 1 ? 1 : num_splits, 0);
   if (window > 0 || softcap > 0.f) {         // the kWinCap instances
     if (D > 200 || Dv > 200) return cudaErrorInvalidValue;
@@ -873,8 +880,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
       return launch_cfg<T, decltype(tq), decltype(mb)::value, decltype(ns)::value, 25, 0,
                         kWinNone, true>(
           q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
-          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
-          window, softcap, stream);
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, v_pitch, layer, num_splits, scale,
+          q_bf16, window, softcap, stream);
     };
     const bool one = Hq / Hkv * Sq <= 16;    // with_cta_shape's choice
     if (q_bf16)
@@ -891,8 +898,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
     auto go = [&](auto tq, auto mode) {
       return launch_cfg<T, decltype(tq), 4, 1, 32, 0, decltype(mode)::value>(
           q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
-          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
-          -1, 0.f, stream);
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, v_pitch, layer, num_splits, scale,
+          q_bf16, -1, 0.f, stream);
     };
     if (q_bf16)
       return staged ? go(__nv_bfloat16{}, Int<kWinStaged>{})
@@ -904,11 +911,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
       return launch_cfg<T, decltype(tq), decltype(mb)::value, decltype(ns)::value,
                         decltype(nt)::value, decltype(width)::value>(
           q, k, v, k_scale, v_scale, kv_length, q_times, k_times, q_seg, k_seg, o_part,
-          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale, q_bf16,
-          -1, 0.f, stream);
+          m_part, l_part, out, B, Hq, Hkv, Sq, S, D, Dv, v_pitch, layer, num_splits, scale,
+          q_bf16, -1, 0.f, stream);
     };
     return q_bf16 ? go(__nv_bfloat16{}) : go(float{});
-  });
+  }, v_pitch == Dv);
 }
 
 }  // namespace
@@ -917,9 +924,14 @@ extern "C" {
 
 // q (B, Hq, Sq, D) float32 (q_bf16 0) or bfloat16 (1); k (L, B, Hkv, S, D),
 // v (L, B, Hkv, S, Dv) of the cache type (0 float32, 1 bfloat16, 2 int8)
-// read at `layer`; k_scale, v_scale (L, B, Hkv, S) f32 for int8, else
-// null; kv_length (B,) int32; times / segment ids int32 or null.
-// num_splits is held to [1, key tiles] (flash_decode_num_splits). Scratch
+// read at `layer`, its rows v_pitch >= Dv elements apart (v_pitch > Dv: V
+// is the first Dv columns of wider rows, as MLA's latent is of its cached
+// row; a (layer, b, head) block is S rows of v_pitch; the last argument,
+// so that a caller binding this entry calls a build from before it with
+// the same arguments); k_scale, v_scale
+// (L, B, Hkv, S) f32 for int8, else null; kv_length (B,) int32; times /
+// segment ids int32 or null. num_splits is held to [1, key tiles]
+// (flash_decode_num_splits). Scratch
 // o_part (B, Hq, splits, Sq, Dv), m_part, l_part (B, Hq, splits, Sq) f32 for
 // at least that many splits (unread with one split); out (B, Hq, Sq, Dv) of
 // q's type. Any widths; past 256 columns the launch runs balanced column
@@ -934,12 +946,14 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         void* o_part, void* m_part, void* l_part, void* out, int B,
                         int Hq, int Hkv, int Sq, int S, int D, int Dv, int layer,
                         int num_splits, int cache_dtype, int q_bf16, float scale,
-                        int window, float softcap, void* stream) {
+                        int window, float softcap, void* stream, int v_pitch) {
   if (B == 0 || Sq == 0) return 0;
+  if (v_pitch < Dv) return (int)cudaErrorInvalidValue;
 #define ARGS q, k, v, (const float*)k_scale, (const float*)v_scale, \
     (const int*)kv_length, (const int*)q_times, (const int*)k_times,             \
     (const int*)q_seg, (const int*)k_seg, (float*)o_part, (float*)m_part,        \
-    (float*)l_part, out, B, Hq, Hkv, Sq, S, D, Dv, layer, num_splits, scale,     \
+    (float*)l_part, out, B, Hq, Hkv, Sq, S, D, Dv, v_pitch, layer, num_splits,   \
+    scale,                                                                       \
     q_bf16, window, softcap, (cudaStream_t)stream
   switch (cache_dtype) {
     case 0: return (int)launch<float>(ARGS);

@@ -93,7 +93,9 @@ def decode_plain(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     """Cursor-bounded online-softmax decode in plain PyTorch.
 
     q (B, Hq, Sq, D); k (B, Hkv, S, D) and v (B, Hkv, S, Dv), or with
-    ``layer=i`` the stacked (L, B, Hkv, S, .) buffers read at layer i;
+    ``layer=i`` the stacked (L, B, Hkv, S, .) buffers read at layer i (v
+    may be a column view of wider rows: MLA's values are the first Dv
+    columns of its cached rows, ``v = k[..., :Dv]``);
     ``kv_length`` (B,). The loop runs ``ceil(max(kv_length) / block_k)``
     blocks; the last one clamps its start to ``S - block_k`` and masks the
     rows an earlier block already folded. Computes in float32, or in
@@ -184,7 +186,10 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
     a second kernel joins; the kernel holds it to its count of key tiles,
     and None picks enough to give every SM a CTA. ``window`` (which needs
     the times) and ``softcap`` take rows of at most 200 columns on the
-    card (every registered config's head is 64 or 128 wide)."""
+    card (every registered config's head is 64 or 128 wide). ``v`` is
+    contiguous or the leading Dv columns of a contiguous tensor of wider
+    rows (its row pitch goes to the kernel, so MLA's latent is read in
+    place, not stored twice)."""
     if q.device.type == "cpu":
         return decode_plain(q, k, v, kv_length, k_scale=k_scale,
                             v_scale=v_scale, q_segment_ids=q_segment_ids,
@@ -230,9 +235,13 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
     if k.dtype not in _CACHE_CODES or v.dtype != k.dtype:
         raise TypeError(f"cache dtype must be one of float32/bfloat16/int8 "
                         f"for both k and v, got {k.dtype} / {v.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
+    if k.device != dev or not k.is_contiguous():
+        raise ValueError(f"k must be contiguous on {dev}")
+    v_pitch = _row_pitch(v)
+    if v.device != dev or v_pitch is None:
+        raise ValueError(f"v must be contiguous on {dev}, or the leading "
+                         f"columns of a contiguous tensor of wider rows; got "
+                         f"strides {v.stride()} for {tuple(v.shape)}")
     if d < 1 or dv < 1:
         raise ValueError(f"row widths D={d}, Dv={dv} must be positive")
     if (window is not None or softcap is not None) and max(d, dv) > 200:
@@ -276,9 +285,24 @@ def _launch(q, k, v, kv_length, k_scale, v_scale, q_seg, k_seg, q_times,
               layer, num_splits, _CACHE_CODES[k.dtype], _Q_CODES[q.dtype],
               float(scale), -1 if window is None else int(window),
               0.0 if softcap is None else float(softcap),
-              torch.cuda.current_stream(dev).cuda_stream)
+              torch.cuda.current_stream(dev).cuda_stream, v_pitch)
     cuda.count_launch("flash_decode")
     return out
+
+
+def _row_pitch(v: torch.Tensor) -> Optional[int]:
+    """The row pitch of an (L, B, Hkv, S, Dv) cache: Dv for a contiguous
+    one, p for the leading Dv columns of a contiguous (..., p) tensor;
+    None for any other layout."""
+    if v.is_contiguous():
+        return v.shape[-1]
+    nl, b, h, s, dv = v.shape
+    p = v.stride(3)
+    want = (b * h * s * p, h * s * p, s * p, p, 1)
+    if p < dv or any(st != w for st, w, n in zip(v.stride(), want, v.shape)
+                     if n > 1):
+        return None
+    return p
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,4 +323,5 @@ def _num_splits():
 def _kernel():
     return cuda.launcher(
         "flash_decode", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+           ctypes.c_int])

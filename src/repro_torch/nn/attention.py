@@ -1,6 +1,6 @@
 """LM attention with grouped KV heads and a decode cache (port of
 ``repro/nn/attention.py``: ``_split_heads``, ``_merge_heads``,
-``_cache_update`` and ``Attention``).
+``_cache_update``, ``Attention`` and ``MLAttention``).
 
 GQA, MQA and MHA; rotary positions (``Rope1D``) on all or a fraction of
 each head's columns (stablelm rotates 20 of 80); ``query_scale``; biases;
@@ -23,6 +23,13 @@ the chunk comes from ``q_times`` / ``k_times`` set to the positions.
 A windowed layer passes the positions as times at every step (the window
 compares them); the decode kernel applies the window and the softcap
 itself. ``impl="chunked"`` (and ``"ref"``) run the reference's way.
+
+``MLAttention`` (deepseek's multi-head latent attention) caches one row a
+token: the normed latent ``ckv`` (``kv_lora_rank`` wide) and the shared
+rotary key ``kr`` side by side, under ``"ckv"`` (L, B, 1, max_len, r + dr).
+Its decode is the reference's absorbed form: queries ``[qn W_uk, qr]``
+score the whole row and the values are the latent, the same rows' first r
+columns, which the decode kernel reads in place through a column view.
 """
 from __future__ import annotations
 
@@ -32,11 +39,11 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from repro_torch.core.encodings import GroupEncoding
+from repro_torch.core.encodings import GroupEncoding, Rope1D
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import (canonical_cache_dtype,
                                               dequantize_kv, quantize_kv)
-from repro_torch.nn.layers import Dense
+from repro_torch.nn.layers import Dense, RMSNorm
 
 
 def _split_heads(x: torch.Tensor, num_heads: int, head_dim: int
@@ -263,3 +270,113 @@ class Attention(nn.Module):
             cache["k_scale"] = torch.zeros(shape[:-1], device=device)
             cache["v_scale"] = torch.zeros(shape[:-1], device=device)
         return cache
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention (deepseek-v2): queries through
+    ``q_lora_rank`` or directly; keys and values from a normed
+    ``kv_lora_rank`` latent, their rotary half from one key shared by the
+    heads. Scores are scaled by ``(qk_nope_dim + qk_rope_dim) ** -0.5``.
+
+    Without a cache, the full causal forward over ``k = [ckv W_uk, kr]``
+    and ``v = ckv W_uv`` (``ops.attention``: the flash kernels on the card).
+    With one, the absorbed decode over the latent rows
+    (``ops.decode_attention`` with one kv head; ``impl="chunked"`` /
+    ``"ref"`` run the reference's attention over the whole cache).
+    """
+
+    def __init__(self, d_model: int, num_heads: int, kv_lora_rank: int = 512,
+                 qk_nope_dim: int = 128, qk_rope_dim: int = 64,
+                 v_head_dim: int = 128, q_lora_rank: Optional[int] = None,
+                 rope_base: float = 10000.0, impl: str = "auto", device=None):
+        super().__init__()
+        d, h, r = d_model, num_heads, kv_lora_rank
+        dn, dr, dv = qk_nope_dim, qk_rope_dim, v_head_dim
+        self.num_heads, self.kv_lora_rank = h, r
+        self.qk_nope_dim, self.qk_rope_dim = dn, dr
+        self.rope = Rope1D(head_dim=dr, base=rope_base)
+        self.impl = impl
+        self.q_lora_rank = q_lora_rank
+        if q_lora_rank:
+            self.q_down = Dense((d,), (q_lora_rank,), device)
+            self.q_up = Dense((q_lora_rank,), (h, dn + dr), device)
+        else:
+            self.q = Dense((d,), (h, dn + dr), device)
+        self.kv_down = Dense((d,), (r,), device)
+        self.k_rope = Dense((d,), (dr,), device)
+        self.k_up = Dense((r,), (h, dn), device)
+        self.v_up = Dense((r,), (h, dv), device)
+        self.o = Dense((h, dv), (d,), device)
+        self.kv_norm = RMSNorm(r, device=device)
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    def forward(self, x: torch.Tensor, pose: Optional[torch.Tensor] = None,
+                *, cache=None, layer: int = 0,
+                step: Optional[CacheStep] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+        """As :meth:`Attention.forward`; pose (B, S, 1) positions."""
+        impl = impl or self.impl
+        b, s, _ = x.shape
+        if pose is None:
+            pose = torch.arange(s, dtype=torch.float32, device=x.device
+                                )[None, :, None].expand(b, s, 1)
+        p4 = pose[:, None]
+        q = (self.q_up(self.q_down(x)) if self.q_lora_rank else self.q(x)
+             ).transpose(1, 2)                              # (B, H, S, dn+dr)
+        qn, qr = q[..., :self.qk_nope_dim], q[..., self.qk_nope_dim:]
+        qr = self.rope.transform_q(qr, p4)
+        ckv = self.kv_norm(self.kv_down(x))                 # (B, S, r)
+        kr = self.rope.transform_k(self.k_rope(x)[:, None], p4)  # (B,1,S,dr)
+        scale = 1.0 / float(self.qk_dim) ** 0.5
+        if cache is not None:
+            out = self._decode(x, qn, qr, ckv, kr, cache, layer, step, impl,
+                               scale)
+        else:
+            kn = self.k_up(ckv).transpose(1, 2)
+            v = self.v_up(ckv).transpose(1, 2)
+            k = torch.cat([kn, kr.expand(b, self.num_heads, s,
+                                         self.qk_rope_dim)], -1)
+            out = ops.attention(torch.cat([qn, qr], -1).contiguous(),
+                                k.contiguous(), v.contiguous(), impl=impl,
+                                causal=True, scale=scale)
+        return self.o(_merge_heads(out))
+
+    def _decode(self, x, qn, qr, ckv, kr, cache, layer, step, impl, scale):
+        """Write the new latent rows, then the absorbed attention: scores
+        ``qn W_uk . ckv + qr . kr``, values the latent, out through W_uv."""
+        r = self.kv_lora_rank
+        rows = cache["ckv"]
+        _cache_update(rows, layer, torch.cat([ckv[:, None].to(kr.dtype), kr],
+                                             -1), step)
+        q_lat = torch.einsum("bhsd,rhd->bhsr", qn,
+                             self.k_up.kernel.to(x.dtype))
+        q_full = torch.cat([q_lat, qr], -1).contiguous()
+        if impl in ("chunked", "ref"):
+            k_full = rows[layer]
+            o_lat = ops.attention(q_full, k_full, k_full[..., :r], impl=impl,
+                                  causal=True, scale=scale,
+                                  q_offset=step.index)
+        else:
+            o_lat = ops.decode_attention(
+                q_full, rows, rows[..., :r], kv_length=step.kv_length,
+                layer=layer, impl="plain" if impl == "plain" else "auto",
+                scale=scale, q_times=step.q_times, k_times=step.k_times)
+        return torch.einsum("bhsr,rhd->bhsd", o_lat.to(x.dtype),
+                            self.v_up.kernel.to(x.dtype))
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   layers: int = 1):
+        """``{"ckv": (layers, batch, 1, max_len, kv_lora_rank +
+        qk_rope_dim)}``: each row the latent, then the rotary key. An int8
+        cache raises: the reference has no quantized MLA cache."""
+        dtype = canonical_cache_dtype(dtype, default=torch.bfloat16)
+        if dtype == torch.int8:
+            raise NotImplementedError(
+                "MLA has no int8 cache (neither has the reference's "
+                "MLAttention): use float32 or bfloat16")
+        return {"ckv": torch.zeros(
+            (layers, batch, 1, max_len, self.kv_lora_rank + self.qk_rope_dim),
+            dtype=dtype, device=self.kv_down.kernel.device)}

@@ -1,8 +1,10 @@
-"""The dense transformer block (port of ``repro/nn/blocks.py::Block``):
-pre-norms, optional post-norms (gemma2's), an attention mixer and an MLP.
+"""The transformer block (port of ``repro/nn/blocks.py::Block``):
+pre-norms, optional post-norms (gemma2's), an attention mixer
+(``Attention`` or ``MLAttention``) and a channel mixer (an MLP, or a
+``MoE`` whose load-balance loss the block returns beside its output).
 
-The reference's block also carries MoE, SSM and parallel-SSM mixers; the
-port has not taken those families yet, and ``build_model`` raises for them
+The reference's block also carries SSM and parallel-SSM mixers; the port
+has not taken those families yet, and ``build_model`` raises for them
 (``repro_torch.nn.transformer.unsupported``).
 """
 from __future__ import annotations
@@ -12,8 +14,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.nn.attention import Attention, CacheStep
+from repro_torch.nn.attention import CacheStep
 from repro_torch.nn.layers import LayerNorm, RMSNorm
+from repro_torch.nn.moe import MoE
 
 
 def make_norm(kind: str, dim: int, device=None) -> nn.Module:
@@ -27,7 +30,7 @@ def make_norm(kind: str, dim: int, device=None) -> nn.Module:
 
 
 class Block(nn.Module):
-    def __init__(self, d_model: int, attention: Optional[Attention] = None,
+    def __init__(self, d_model: int, attention: Optional[nn.Module] = None,
                  mlp: Optional[nn.Module] = None, norm: str = "rms",
                  post_norms: bool = False, device=None):
         super().__init__()
@@ -45,7 +48,11 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, pose: Optional[torch.Tensor] = None,
                 *, cache=None, layer: int = 0,
                 step: Optional[CacheStep] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None):
+        """(x, aux): aux is the MoE's load-balance loss, None without a
+        MoE (a tuple, so that it passes through ``torch.utils.checkpoint``
+        with x)."""
+        aux = None
         if self.attn is not None:
             mixed = self.attn(self.norm_mix(x), pose, cache=cache,
                               layer=layer, step=step, impl=impl)
@@ -54,7 +61,9 @@ class Block(nn.Module):
             x = x + mixed
         if self.mlp is not None:
             out = self.mlp(self.norm_mlp(x))
+            if isinstance(self.mlp, MoE):
+                out, aux = out
             if self.post_norms:
                 out = self.post_norm_mlp(out)
             x = x + out
-        return x
+        return x, aux

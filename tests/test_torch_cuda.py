@@ -1100,3 +1100,154 @@ def test_lm_train_step_on_the_card_matches_the_cpu(dev, arch):
     for name, w in want_g.items():
         err = float((got_g[name].cpu() - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)
+
+
+# -- MoE and MLA (deepseek-v2-lite, kimi-k2) ----------------------------------
+
+# (b, hq, sq, s, cursors, r, dr): MLA's absorbed decode, 16 heads against
+# one latent kv head whose values are the rows' first r columns; a tick at
+# deepseek's widths, a 40-row chunk, and narrow rows (the reduced config)
+MLA_DECODE_CASES = {
+    "tick": (4, 16, 1, 600, [1, 77, 544, 600], 512, 64),
+    "chunk": (2, 16, 40, 320, [40, 300], 512, 64),
+    "narrow": (3, 4, 1, 64, [5, 33, 64], 32, 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MLA_DECODE_CASES))
+def test_mla_pitch_decode_matches_plain(dev, name, cache_dtype, q_dtype):
+    """V as the leading r columns of the cached (r + dr)-wide rows (the
+    kernel reads them at the rows' pitch) against the plain version, and
+    bitwise equal to the same call on a contiguous copy of V."""
+    b, hq, sq, s, cursors, r, dr = MLA_DECODE_CASES[name]
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = torch.randn((2, b, 1, s, r + dr), generator=g, device=dev)
+    kvl = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+    rows = torch.where(past[None, :, None, :, None], float("nan"), rows).to(
+        getattr(torch, cache_dtype))
+    q = torch.randn((b, hq, sq, r + dr), generator=g, device=dev).to(
+        getattr(torch, q_dtype))
+    opts = dict(scale=(128 + dr) ** -0.5)
+    if sq > 1:
+        opts["q_times"] = (kvl[:, None] - sq + torch.arange(
+            sq, device=dev)).int().contiguous()
+        opts["k_times"] = torch.arange(s, dtype=torch.int32, device=dev)[
+            None].expand(b, s).contiguous()
+    v = rows[..., :r]
+    assert not v.is_contiguous()
+    got = fd.flash_decode(q, rows, v, kvl, layer=1, **opts)
+    copy = fd.flash_decode(q, rows, v.contiguous(), kvl, layer=1, **opts)
+    want = fd.decode_plain(q, rows, v, kvl, layer=1, **opts)
+    assert got.shape == (b, hq, sq, r)
+    tol = DECODE_TOL["bfloat16" if q_dtype == "bfloat16" else cache_dtype]
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, copy)
+
+
+@pytest.mark.gpu
+def test_flash_decode_refuses_a_strided_value_it_cannot_read(dev):
+    rows = torch.zeros((1, 2, 1, 64, 48), device=dev)
+    q = torch.zeros((2, 4, 1, 48), device=dev)
+    kvl = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="leading"):
+        fd.flash_decode(q, rows, rows[..., ::2][..., :16], kvl, layer=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.0])
+def test_moe_on_the_card_matches_the_cpu(dev, capacity_factor):
+    """The reduced MoE layer (with shared experts) on the card against the
+    same weights on the CPU: its output, aux loss and gradients, with and
+    without dropped assignments; bitwise repeatable on the card, and no
+    host synchronisation in the forward."""
+    from repro_torch.nn.module import init_params
+    from repro_torch.nn.moe import MoE
+    kw = dict(d_model=64, num_experts=8, top_k=2, expert_ff=32,
+              num_shared=2, capacity_factor=capacity_factor)
+    cpu = init_params(MoE(**kw, device="cpu"),
+                      torch.Generator().manual_seed(0))
+    card = MoE(**kw, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for m, xi in ((cpu, x), (card, x.to(dev)), (card, x.to(dev))):
+        m.requires_grad_(True)
+        xi = xi.clone().requires_grad_(True)
+        y, aux = m(xi)
+        grads = torch.autograd.grad((y.square().sum() + aux),
+                                    [xi] + list(m.parameters()))
+        outs.append([y, aux] + list(grads))
+    x_dev = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            card(x_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(outs[1][:2], outs[0][:2]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-4)
+    # the gradients (of x, then the parameters): each within 1e-4 of its
+    # tensor's largest |g|, tests/test_torch_moe.py's rule
+    for a, b in zip(outs[1][2:], outs[0][2:]):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()) + 1e-7, err
+    for a, b in zip(outs[1], outs[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_moe_lm_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced MoE config on the card against the same weights on the
+    CPU: the full forward (the flash forward, MLA's at D 32 / Dv 32), the
+    cached decode of 8 tokens (deepseek: the latent rows through the
+    decode kernel's pitch) and the train step's gradients, with the
+    kernels' launches exact."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_lm
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+    cfg = get_config(arch).reduced(dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    n = cfg.num_layers
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 8)))
+    logits = []
+    for m, t in ((cpu, toks), (card, toks.to(dev))):
+        with torch.no_grad():
+            full, aux, _ = m(t)
+            cache = m.init_cache(2, 8, torch.float32)
+            cuda.reset_launches()
+            steps = [m(t[:, i:i + 1], cache=cache, cache_index=i)[0]
+                     for i in range(8)]
+        logits.append((full, aux, torch.cat(steps, 1)))
+    assert dict(cuda.LAUNCHES) == {"flash_decode": 8 * n}
+    for a, b in zip(logits[1], logits[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(logits[1][2], logits[1][0], atol=2e-3,
+                               rtol=2e-2)
+    batch = synthetic_lm.generate_batch(0, 0, 2, synthetic_lm.LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=48))
+    want_g, want_m = make_train_step(cpu, adamw(1e-3)).grads(batch)
+    cuda.reset_launches()
+    got_g, got_m = make_train_step(card, adamw(1e-3)).grads(batch)
+    torch.cuda.synchronize()
+    assert dict(cuda.LAUNCHES) == {"flash_attention_fwd": 2 * n,
+                                   "flash_attention_dq": n,
+                                   "flash_attention_dkv": n}
+    for k in ("loss", "aux"):
+        np.testing.assert_allclose(float(got_m[k]), float(want_m[k]),
+                                   rtol=1e-5)
+    for name, w in want_g.items():
+        err = float((got_g[name].cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)
