@@ -65,7 +65,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    share of the pairs the forward's and backward's tiles compute that the
    mask admits;
 7. evaluation: evaluate_families with phase 5's trained model over all
-   seven scenario families (16 scenes each, 4 samples, 64 slots): exact
+   seven scenario families (8 scenes each, 4 samples, 64 slots): exact
    launch counts, every family's metrics finite with a kinematic
    infeasibility rate of 0, tables bitwise equal at 48 slots, no plain
    SE(2) op; wall seconds of scene generation, rollouts and scoring, and
@@ -77,7 +77,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    decode's launches, no se2 kernel), phase 5's training (the flash
    kernels 6 times a step, gradients through the kernels against the
    plain versions, pose_proj included), open-loop metrics and an
-   evaluation of 7 families x 4 scenes x 4 samples (launches exact, rates
+   evaluation of 7 families x 2 scenes x 4 samples (launches exact, rates
    finite, kinematic infeasibility 0); the plain transforms' calls and
    launches of rope2d and se2_repr are reported, not gated; the action
    probabilities of a freeform scene re-posed by z must hold within 5e-4
@@ -96,7 +96,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    kernels' launches exactly those counted from the code, the trace's
    trainer.step / .checkpoint / .eval spans and its report; steps/s
    against phase 5's bare loop and the seconds of a save's parts; (b)
-   20 steps straight against 10, a fresh Trainer's restore and 10 more:
+   10 steps straight against 5, a fresh Trainer's restore and 5 more:
    the data cursor, the losses within rtol 1e-5 and the parameters within
    1e-6, bitwise equality printed; (c) the NaN drill (--inject-nan-at):
    FloatingPointError, a checkpoint tagged halt_reason that a restore
@@ -104,7 +104,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    rendered, and one skipped step leaving the parameters and the AdamW
    state bitwise unchanged; (d) the newest checkpoint truncated: the
    restore falls back one step and counts it; (e) run_comparison over
-   the four encodings, 10 steps x 32 mixed scenes each: every row done,
+   the four encodings, 10 steps x 16 mixed scenes each: every row done,
    NLL and minADE finite, the loss falling, the table printed;
 10. the continuous-batching SimServer at full width (phase 4's seed-0
    sim-se2-fourier, 64 slots, max_len 384): first the decode at the
@@ -116,7 +116,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    arrivals a tick, float32 and int8: every lane ok and finite, launches
    exactly (ticks + admissions) x the model's per call, lanes/s, tick
    p50/p99, slab and peak memory; drain_lag 1 against 0 in one process
-   over the first 64 scenes, and under the profiler the launches, copies and host waits (stream,
+   over the first 32 scenes, and under the profiler the launches, copies and host waits (stream,
    device and event synchronisations) in each tick, at most one a tick
    with drain_lag 1; no plain SE(2) op; (b) the gauntlet in 8 slots,
    float32 and int8: an eviction mid-prefill, retirements, every stale row
@@ -148,7 +148,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    their plain versions, its cached decode (bf16 and int8 caches) against
    its full forward at 8e-2, a 64-slot rollout (bf16 and int8 caches),
    20 train steps (loss finite and falling, float32 parameters), the
-   7 x 4 x 4 evaluation and a 64-lane server drive, launches exact;
+   7 x 2 x 4 evaluation and a 32-lane server drive, launches exact;
    ticks/s, steps/s, lanes/s, peak memory and slab beside the float32
    model's, and the action probabilities' shift under a re-pose. Every
    sampled path of phases 4, 7-11 launches the categorical kernel once a
@@ -182,8 +182,9 @@ Run from the root of a checkout. Phases, each of which fails the run:
    (b) phi4-mini-3.8b at full width and depth (3.8 B parameters, float32,
    random weights from a CUDA generator seeded 0): the prefill step's last
    logits for 2 prompts of 512 tokens, and every position's, against the
-   same prompts fed token by token through the serve step, within 2e-3 /
-   2e-2, launches exact (32 flash forward, 32 x 512 decode) and no plain
+   same prompts fed to a cache, the first 384 tokens as one chunk and the
+   last 128 token by token through the serve step, within 2e-3 / 2e-2,
+   launches exact (32 flash forward, 32 x 129 decode) and no plain
    attention call; the registered bf16 config on the same weights: top-1
    equal to float32's at 85% of the positions at least, and in the
    prefill step's rows except at near-ties (float32's top two within
@@ -195,7 +196,7 @@ Run from the root of a checkout. Phases, each of which fails the run:
    near-tie (both runs' top two the same two tokens within 1e-3, read
    again at the parting token), decode launches exactly layers
    x ticks, no plain attention call; tokens/s, tick p50/p99, peak memory
-   and the device profile of the float32 drive's first 40 ticks (launches
+   and the device profile of the float32 drive's first 20 ticks (launches
    a tick, busy share);
    (d) ``python -m repro_torch.launch.serve --arch phi4-mini-3.8b`` exits
    0 with its decode launches logged; (e) stablelm-3b, granite-20b and
@@ -263,6 +264,44 @@ Run from the root of a checkout. Phases, each of which fails the run:
    kimi-k2-1t-a32b (1,028,298,994,688 parameters on meta) at full width,
    cut to 2 layers and 32 experts (4,463,004,672 parameters): decode
    against the full forward as (b).
+16. the SSM families: (a) the decode at hymba-1.5b's tick (8 slots x 25 / 5
+   heads x 64, cursors past its window of 1,024 up to 2,048; windowed and
+   global; float32, bf16 and int8 caches x float32 and bf16 queries) and at
+   its chunked prefill (2 x 1,152 rows, windowed), and the flash forward,
+   dq and dk/dv at its train attention (2 x 25 / 5 x 512 x 64, causal,
+   window 1,024; float32 and bf16) and the forward at its prefill step (2 x
+   1,152, the window biting), against their plain versions, timed beside
+   SDPA with a boolean window mask and the bound; (b) hymba-1.5b at full
+   width and depth (1,662,670,400 parameters, float32): 2 prompts of 1,152
+   tokens prefilled as one chunk, then 128 positions decoded past the
+   window, the chunk's positions held to the full forward over the prompts
+   and the decoded ones to the full forward over 1,280 tokens (2e-3 / 2e-2,
+   float32 cache; the two full forwards' own distance printed), launches
+   exact (32 flash forward; 32 decode a chunk or tick), no plain attention
+   call; with an int8 cache, the chunk and 16 ticks through the kernels
+   against the plain versions at 8e-2, each one's drift from the full
+   forward printed; ticks/s, a profile of 4 ticks (launches, busy share,
+   the scans' share of the device time) and peak memory above the weights;
+   (c) the LM Server at full width and 5 layers (the fewest its
+   mostly-local groups allow), 16 requests (prompts 16-64 tokens, 32 new
+   each) through 8 slots: every request done, 4 equal to their solo runs or
+   parted at a near-tie (13c's gate), at least two of them admitted into a
+   slot that had served (the port zeroes a slot's recurrent state at
+   admission), decode launches exactly layers x ticks; (d) hymba's
+   gradients at 5 layers through the kernels against the plain versions
+   (float32, 2 x 512 tokens, 1e-3 of each tensor's max |g|), then 10 AdamW
+   steps at full depth in bf16: the loss's 5-step means fall, 64 / 32 / 32
+   fwd / dq / dk/dv launches a step, steps/s, peak memory, and the Mamba
+   scan's share of a step (a layer's scan timed by CUDA events at the
+   step's shapes); (e) rwkv6-7b at full width and depth (7,534,944,256
+   parameters, float32, attention-free): 2 prompts of 512 tokens as one
+   chunk and 32 decoded positions against the full forward as (b) holds
+   hymba's (2e-3 / 2e-2), the ticks' profile and the WKV share, and its Server through
+   (c)'s gates (requests of 8-24 tokens, 16 new); (f) rwkv6 at full width
+   and 4 layers, bf16, 10 AdamW steps: the loss falls, peak memory printed.
+
+Every phase's wall seconds are logged as it ends, and together before the
+kernels' record.
 
 The second-to-last lines are the kernels' JSON record and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -339,14 +378,15 @@ FAMILIES = ("freeform",)
 MIXED_PAIR = ("highway", "pedestrian_crossing")
 # the evaluation: every family, scenes a family, samples a scene, and the
 # slot counts of the two runs that must give bitwise-equal tables
-EVAL_SCENES, EVAL_SAMPLES, EVAL_SLOTS = 16, 4, (64, 48)
+# (8 scenes a family, not 16, make room for phase 16 in the run's 1,200 s)
+EVAL_SCENES, EVAL_SAMPLES, EVAL_SLOTS = 8, 4, (64, 48)
 EVAL_SCENE_SEED = 777         # evaluate_families' default scene seed
 # phase 8: the other three Table-I arches, each rolled out, trained and
 # scored as phases 4, 5 and 7 do (scenes a family of its evaluation), then
 # held to SE(2) invariance under the re-posings z and Algorithm 1 against
 # Algorithm 2
 TABLE1_ARCHS = ("sim-absolute", "sim-rope2d", "sim-se2-repr")
-TABLE1_EVAL_SCENES = 4
+TABLE1_EVAL_SCENES = 2
 # tests/test_se2.py:154 (se2_repr, exact up to float32) and :168 (the
 # absolute baseline must move); rope2d is re-posed by translations only
 INVARIANCE_Z = {"se2_repr": (3.0, -2.0, 0.7), "rope2d": (3.0, -2.0, 0.0),
@@ -364,11 +404,13 @@ ALG_HEADS, ALG_N, ALG_MEM_N, ALG_EXTENT_M = 8, 256, (1024, 4096), 30.0
 # (e) the Table-I comparison's steps a run
 TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_EVAL_EVERY = 30, 10, 15
 TRAINER_EVAL_SCENES, TRAINER_EVAL_SAMPLES, TRAINER_HOLDOUT = 2, 2, 2
-RESTART_STEPS = 20
+# (10 steps, restarted at 5, not 20: room for phase 16 in the run's limit)
+RESTART_STEPS = 10
 NAN_AT, MAX_NANS = 3, 5
 # (10, not 20, keeps the whole run near 1,000 s of its 1,200 s: 75 of the
-# 20-step comparison's 79 s were training, PERF.md §6)
-COMPARE_STEPS = 10
+# 20-step comparison's 79 s were training, PERF.md §6; and 16 scenes a
+# step, not TRAIN_BATCH's 32, make room for phase 16)
+COMPARE_STEPS, COMPARE_BATCH = 10, 16
 # the restart against the straight run: the reference's own tolerances
 # (tests/test_trainer_server.py:145-149)
 RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
@@ -377,14 +419,15 @@ RESTART_LOSS_RTOL, RESTART_PARAM_ATOL = 1e-5, 1e-6
 # 64 / 24 lanes a tick a full slab retires), the scenes' seed and the
 # working ticks the latency histogram skips; (b) the gauntlet's slots (also
 # (d)'s); (d) the lanes of the quarantine run
-# (the drain_lag comparison's four drives run the first 64 scenes, not all
+# (the drain_lag comparison's four drives run the first 32 scenes, not all
 # 128: the six drives took half of 10a's 100 s on a slow card host, whose
 # whole run passed 1,200 s, PERF.md §6)
 SERVE_SLOTS, SERVE_SCENES, SERVE_SAMPLES, SERVE_T_TOTAL = 64, 128, 2, 24
-SERVE_LAG_SCENES = 64
+SERVE_LAG_SCENES = 32
 SERVE_RATE, SERVE_SEED, SERVE_WARMUP_TICKS = 2.0, 10, 2
-# scenes of the profiled drive
-SERVE_PROFILE_SCENES = 32
+# scenes of the profiled drive (16, not 32: the profiler's processing of
+# the events took most of 10a's minute)
+SERVE_PROFILE_SCENES = 16
 GAUNTLET_SLOTS, QUARANTINE_LANES = 8, 12
 
 # phase 11: (b) the attention kernels at row widths (D, Dv) that are not
@@ -419,7 +462,7 @@ SAMPLING_SCENES, SAMPLING_SAMPLES = 32, 2
 # both paths, in other places, through 6 layers forward and back
 BF16_MODEL_TOL = dict(atol=8e-2, rtol=8e-2)
 BF16_GRAD_REL_TOL = 8e-2
-BF16_EVAL_SCENES, BF16_SERVE_SCENES = 4, 32
+BF16_EVAL_SCENES, BF16_SERVE_SCENES = 2, 16
 # phase 13: the dense LM serving stack. (a) the decode at phi4-mini-3.8b's
 # tick (slots, cursors spread over 1 up to this many rows) and the flash
 # forward at its prefill (prompts x tokens); (b) the full-width model's
@@ -432,6 +475,10 @@ LM_ARCH = "phi4-mini-3.8b"
 LM_SLOTS, LM_MAX_CURSOR = 8, 2048
 LM_PREFILL_B, LM_PREFILL_S = 2, 1024
 LM_GATE_PROMPTS, LM_GATE_LEN = 2, 512
+# 13b decodes the gate's last positions a serve step each, the first ones as
+# one chunk (all 512 a step each took 20.6 s of a run that must also fit
+# phase 16; the chunk's positions go through the decode kernel too)
+LM_GATE_STEPS = 128
 LM_GATE_TOL = dict(atol=2e-3, rtol=2e-2)
 # (also the server's solo-run gate: a slot rounds otherwise beside others,
 # and at prompts of 16-128 tokens an int8 request parted from its solo run
@@ -450,7 +497,7 @@ LM_SERVE_PROMPT, LM_SERVE_MAX_LEN = (16, 256), 320
 # (4 layers; 8 took 60 s) keeps the whole run near 1,000 s
 # (13b and 13d run the full 32 layers)
 LM_SERVE_LAYERS = 4
-LM_PROFILE_TICKS = 40
+LM_PROFILE_TICKS = 20
 LM_SHALLOW_ARCHS = ("stablelm-3b", "granite-20b", "internvl2-26b")
 LM_SHALLOW_LAYERS, LM_SHALLOW_TOKENS = 2, 64
 # phase 14: LM training and gemma2. (a) the flash kernels at phi4-mini's
@@ -504,6 +551,32 @@ MOE_SERVE_PROMPT, MOE_SERVE_MAX_LEN = (16, 128), 192
 MOE_TRAIN_LAYERS, MOE_GRAD_LAYERS, MOE_TRAIN_STEPS = 4, 2, 10
 KIMI_LAYERS, KIMI_EXPERTS, KIMI_PREFILL, KIMI_NEW = 2, 32, 48, 16
 MOE_COUNTS = {MOE_ARCH: 15_706_484_224, KIMI_ARCH: 1_028_298_994_688}
+# phase 16: the SSM families. (a) the attention kernels at hymba-1.5b's
+# heads: the decode at its tick (slots, cursors past its window up to this
+# many rows); (b) hymba at full width and depth: prompts x tokens as one
+# chunk (a multiple of its scan chunk, 128), then new tokens decoded past
+# its window; the ticks profiled; (c) the Server (the fewest layers its
+# mostly-local groups allow): requests, slots, new tokens, prompt lengths,
+# cache rows; (d) the gradient check's layers, AdamW steps; (e) rwkv6-7b at
+# full width and depth: prompt tokens (a multiple of its scan chunk, 16),
+# new tokens; (f) its training cut in depth; the reference's counts of the
+# two configs' specs; the profiles' range around each scan
+HYMBA_ARCH, RWKV_ARCH = "hymba-1.5b", "rwkv6-7b"
+HYMBA_SLOTS, HYMBA_MAX_CURSOR = 8, 2048
+HYMBA_PROMPTS, HYMBA_PREFILL, HYMBA_NEW = 2, 1152, 128
+SSM_PROFILE_TICKS = 4
+# (b) the int8 cache's ticks, through the kernels and the plain versions
+SSM_INT8_TICKS = 16
+SSM_SERVE_LAYERS, SSM_SERVE_REQUESTS, SSM_SERVE_SLOTS, SSM_SERVE_NEW = \
+    5, 16, 8, 32
+SSM_SERVE_PROMPT, SSM_SERVE_MAX_LEN = (16, 64), 128
+SSM_GRAD_LAYERS, SSM_TRAIN_STEPS = 5, 10
+RWKV_PREFILL, RWKV_NEW, RWKV_TRAIN_LAYERS = 512, 32, 4
+# (e) rwkv6's Server at full depth (a tick about 85 ms, host-bound):
+# shorter requests than (c)'s, the same gates
+RWKV_SERVE_PROMPT, RWKV_SERVE_NEW = (8, 24), 16
+SSM_COUNTS = {HYMBA_ARCH: 1_662_670_400, RWKV_ARCH: 7_534_944_256}
+SCAN_SPAN = "ssm_scan"
 
 # bound_ms denominators of phase 6's new rows: bf16 products on the tensor
 # cores (H100 SXM data sheet), and 32-bit integer operations for the
@@ -553,6 +626,17 @@ T0 = time.perf_counter()
 
 def log(*args):
     print(*args, flush=True)
+
+
+# each phase's wall seconds, as logged by phase_done
+PHASE_SECONDS = {}
+
+
+def phase_done(name, t0):
+    """Log the wall seconds of phase ``name`` since ``t0`` and keep them for
+    the run's summary."""
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
 
 
 def phase(title):
@@ -975,22 +1059,31 @@ def score_gaps(model, scen, scenes, t_hist, n_samples, seed):
                                      scen.num_agents)
 
 
-def device_profile(run, wall_s, per, what):
+def device_profile(run, wall_s, per, what, spans=None):
     """Device time by kernel (torch.profiler) over ``run()`` against the
     unprofiled wall time ``wall_s`` of the same work; ``per`` is (unit,
-    units in the run, read after it). Returns the busy share, or None when
-    the profiler recorded no device time."""
+    units in the run, read after it). ``spans``: a dict whose keys name
+    ``record_function`` ranges inside ``run``; each value is set to the
+    device milliseconds of the kernels launched within that range. Returns
+    the busy share, or None when the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    spans = {} if spans is None else spans
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     # kernel events only: a PyTorch op's event repeats its kernels' time
+    # (and a range's device-side annotation spans its kernels)
     per_kernel = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key)
          for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.key not in spans), reverse=True)
+    for name in spans:
+        spans[name] = sum(e.device_time_total for e in prof.key_averages()
+                          if e.key == name and e.device_type
+                          == torch.autograd.DeviceType.CPU) / 1e3
     device_ms = sum(ms for ms, _, _ in per_kernel)
     n_kernels = sum(count for _, count, _ in per_kernel)
     runtime = {e.key: e.count for e in prof.key_averages()
@@ -1014,6 +1107,9 @@ def device_profile(run, wall_s, per, what):
         f"{n_kernels} kernels ({n_kernels / units:.0f} per {per[0]}) over "
         f"a {wall_s * 1e3:.2f} ms unprofiled run: busy {busy:.1%}, idle "
         f"{1 - busy:.1%}")
+    for name, ms in spans.items():
+        log(f"profile {what}: {ms:.2f} ms of the device time in kernels "
+            f"launched within {name} ({ms / device_ms:.1%})")
     for ms, count, key in per_kernel[:15]:
         log(f"  {ms:9.3f} ms {count:6d} x {key[:90]}")
     return busy
@@ -1883,7 +1979,7 @@ def trainer_phase(arch, per_step, bare_rate, launches):
         t0 = time.perf_counter()
         rows = run_comparison(
             arch, COMPARISON_ENCODINGS, steps=COMPARE_STEPS,
-            batch=TRAIN_BATCH, lr=TRAIN_LR, seed=0,
+            batch=COMPARE_BATCH, lr=TRAIN_LR, seed=0,
             holdout_n=TRAINER_HOLDOUT,
             n_scenes_per_family=TRAINER_EVAL_SCENES,
             eval_samples=TRAINER_EVAL_SAMPLES, ckpt_root=str(work / "e"))
@@ -1898,7 +1994,7 @@ def trainer_phase(arch, per_step, bare_rate, launches):
                     and row["loss_last"] < row["loss_first"]):
                 raise AssertionError(f"comparison {enc}: {row}")
         log(f"run_comparison: {len(COMPARISON_ENCODINGS)} encodings x "
-            f"{COMPARE_STEPS} steps x {TRAIN_BATCH} scenes of all seven "
+            f"{COMPARE_STEPS} steps x {COMPARE_BATCH} scenes of all seven "
             f"families, evaluation 7 x {TRAINER_EVAL_SCENES} x "
             f"{TRAINER_EVAL_SAMPLES}, in {time.perf_counter() - t0:.1f} s; "
             f"every row done, NLL and minADE finite, loss falling; "
@@ -2601,7 +2697,7 @@ def bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches,
     full forward and the flash forward against the reference forward at
     8e-2; a 64-slot rollout with bf16 and int8 caches, 20 train steps
     (loss finite and falling, gradients through the kernels against the
-    plain versions), the 7 x 4 x 4 evaluation and a 64-lane server drive,
+    plain versions), the 7 x 2 x 4 evaluation and a 32-lane server drive,
     each with its launches exact; ticks/s, steps/s, lanes/s, peak memory and
     slab beside the float32 model's in this process; the action
     probabilities' shift under a re-pose."""
@@ -3213,30 +3309,33 @@ def lm_kernels(gen, dev, max_err, records):
                         "device_time_ms": device}))
 
 
-def lm_tokenwise(model, toks, prefix, max_len):
-    """Logits of every token position decoded over a fresh float32 cache:
-    the prefix (if any) and the first token as one chunk (the decode kernel
-    with q_times / k_times), then one token a serve step."""
+def lm_tokenwise(model, toks, prefix, max_len, n_chunk=1,
+                 cache_dtype="float32"):
+    """Logits of every token position decoded over a fresh cache (float32
+    unless ``cache_dtype``): the prefix (if any) and the first ``n_chunk``
+    tokens as one chunk (the decode kernel with q_times / k_times), then
+    one token a serve step."""
     import torch
     from repro_torch.runtime.steps import make_serve_step
     serve = make_serve_step(model)
     p = 0 if prefix is None else prefix.shape[1]
-    cache = model.init_cache(toks.shape[0], max_len, torch.float32)
-    first, _, cache = model(toks[:, :1], prefix_embeds=prefix, cache=cache,
-                            cache_index=0)
+    cache = model.init_cache(toks.shape[0], max_len, cache_dtype)
+    first, _, cache = model(toks[:, :n_chunk], prefix_embeds=prefix,
+                            cache=cache, cache_index=0)
     outs = [first[:, p:]]
-    for i in range(1, toks.shape[1]):
+    for i in range(n_chunk, toks.shape[1]):
         lg, cache = serve(cache, toks[:, i:i + 1], p + i)
         outs.append(lg[:, None])
     return torch.cat(outs, 1)
 
 
 def lm_served(model, requests, cache_dtype, slots, max_len,
-              max_ticks=None):
+              max_ticks=None, slot_of=None):
     """Drive a Server over ``requests`` [(uid, prompt, max_new)] (to the
     end, or ``max_ticks`` ticks); returns (server, wall s, per-tick s,
     launches, tick a request was admitted, plain attention calls, peak
-    memory above the model's)."""
+    memory above the model's). ``slot_of``, a dict, gets each request's
+    slot."""
     import torch
     from repro_torch.kernels import cuda
     from repro_torch.runtime.server import Request, Server
@@ -3256,9 +3355,11 @@ def lm_served(model, requests, cache_dtype, slots, max_len,
             ts = time.perf_counter()
             srv.step()
             ticks.append(time.perf_counter() - ts)
-            for s in srv.slots:
+            for i, s in enumerate(srv.slots):
                 if s.request is not None:
                     admitted.setdefault(s.request.uid, srv.ticks - 1)
+                    if slot_of is not None:
+                        slot_of.setdefault(s.request.uid, i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(cuda.LAUNCHES)
@@ -3303,7 +3404,7 @@ def solo_gate(model, requests, done, checked, cache_dtype, slots, max_len,
     for uid, why in checked.items():
         solo, _, _, counts, *_ = lm_served(model, [requests[uid]],
                                            cache_dtype, 1, max_len)
-        n += counts["flash_decode"]
+        n += counts.get("flash_decode", 0)
         got, alone = done[uid].generated, solo.done[uid].generated
         if got == alone:
             equal[uid] = why
@@ -3389,11 +3490,12 @@ def lm_phase(launches, max_err, records):
         full, _, _ = model(toks)
     cuda.reset_launches()
     t0 = time.perf_counter()
+    n_chunk = LM_GATE_LEN - LM_GATE_STEPS
     with PlainCalls() as plain:
-        dec = lm_tokenwise(model, toks, None, LM_GATE_LEN)
+        dec = lm_tokenwise(model, toks, None, LM_GATE_LEN, n_chunk=n_chunk)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
-    want = {"flash_decode": cfg.num_layers * LM_GATE_LEN}
+    want = {"flash_decode": cfg.num_layers * (1 + LM_GATE_STEPS)}
     if dict(cuda.LAUNCHES) != want or plain.calls:
         raise AssertionError(f"13b decode launches {dict(cuda.LAUNCHES)} != "
                              f"{want}; plain calls {plain.calls}")
@@ -3405,9 +3507,10 @@ def lm_phase(launches, max_err, records):
                              "the full forward", dec, full, **LM_GATE_TOL)
     log(f"13b {LM_GATE_PROMPTS} prompts x {LM_GATE_LEN} tokens: the prefill "
         f"step in {prefill_s:.3f} s ({cfg.num_layers} flash forward "
-        f"launches); {LM_GATE_LEN} serve steps in {dec_s:.2f} s "
-        f"({dec_s / LM_GATE_LEN * 1e3:.2f} ms a step, "
-        f"{cfg.num_layers * LM_GATE_LEN} decode launches, no plain "
+        f"launches); a chunk of {n_chunk} tokens, then {LM_GATE_STEPS} "
+        f"serve steps, in {dec_s:.2f} s ({dec_s / LM_GATE_STEPS * 1e3:.2f} "
+        f"ms a step with the chunk, {want['flash_decode']} decode launches, "
+        f"no plain "
         f"attention call); last logits max abs err {err_last:.3e}, every "
         f"position {err_all:.3e} (gate {LM_GATE_TOL})")
     del dec
@@ -3567,7 +3670,7 @@ def lm_phase(launches, max_err, records):
             f"forward max abs err {err:.3e}")
         del model, full, dec
         torch.cuda.empty_cache()
-    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    phase_done("13", t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -4232,7 +4335,7 @@ def lm_train_phase(launches, max_err, records):
     phase(f"14f. {GEMMA_ARCH} at full width and {GEMMA_LAYERS} layers: "
           f"windowed, softcapped decode")
     gemma2_serving(dev, launches)
-    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    phase_done("14", t_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -4414,28 +4517,33 @@ def mla_kernels(gen, dev, max_err, records):
                         **nested, "device_time_ms": device}))
 
 
-def moe_decode_gate(model, toks, n_prefill, launches, what):
+def decode_gate(model, toks, n_prefill, launches, what, cache_dtype="float32",
+                full=None):
     """Every position's logits two ways: the full forward (a flash forward
-    a layer), and the cache: the first ``n_prefill`` tokens as one chunk
-    (the decode kernel a layer, causal through the positions), then a
+    an attention layer; ``full`` where the caller has it), and the cache
+    (``cache_dtype``): the first ``n_prefill`` tokens as one chunk (the
+    decode kernel an attention layer, causal through the positions), then a
     serve step a token. Launches exact, no plain attention call. Returns
     (full, cached, aux, the chunk's seconds, each tick's seconds)."""
     import torch
     from repro_torch.kernels import cuda
     from repro_torch.runtime.steps import make_serve_step
-    n_layers = model.cfg.num_layers
+    n_attn = sum(m.attn is not None for g in model.groups for m in g)
     b, s = toks.shape
     serve = make_serve_step(model)
+    aux = None
     with PlainCalls() as plain:
-        cuda.reset_launches()
-        with torch.no_grad():
-            full, aux, _ = model(toks)
-        torch.cuda.synchronize()
-        if dict(cuda.LAUNCHES) != {"flash_attention_fwd": n_layers}:
-            raise AssertionError(f"{what} full forward: launches "
-                                 f"{dict(cuda.LAUNCHES)}")
-        launches["flash_attention_fwd"] += n_layers
-        cache = model.init_cache(b, s, torch.float32)
+        if full is None:
+            cuda.reset_launches()
+            with torch.no_grad():
+                full, aux, _ = model(toks)
+            torch.cuda.synchronize()
+            want = {"flash_attention_fwd": n_attn} if n_attn else {}
+            if dict(cuda.LAUNCHES) != want:
+                raise AssertionError(f"{what} full forward: launches "
+                                     f"{dict(cuda.LAUNCHES)} != {want}")
+            launches["flash_attention_fwd"] += n_attn
+        cache = model.init_cache(b, s, cache_dtype)
         cuda.reset_launches()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -4450,12 +4558,13 @@ def moe_decode_gate(model, toks, n_prefill, launches, what):
             torch.cuda.synchronize()
             ticks.append(time.perf_counter() - t0)
             outs.append(lg[:, None])
-        want = {"flash_decode": n_layers * (1 + s - n_prefill)}
+        want = ({"flash_decode": n_attn * (1 + s - n_prefill)} if n_attn
+                else {})
         if dict(cuda.LAUNCHES) != want or plain.calls:
             raise AssertionError(f"{what} cached decode: launches "
                                  f"{dict(cuda.LAUNCHES)} != {want}; plain "
                                  f"calls {plain.calls}")
-    launches["flash_decode"] += want["flash_decode"]
+    launches["flash_decode"] += want.get("flash_decode", 0)
     return full, torch.cat(outs, 1), aux, chunk_s, ticks
 
 
@@ -4516,7 +4625,7 @@ def moe_serving_full(dev, launches):
         0, cfg.vocab_size, (MOE_GATE_PROMPTS, MOE_GATE_LEN + MOE_GATE_NEW))
     ).to(dev)
     torch.cuda.reset_peak_memory_stats()
-    full, dec, aux, chunk_s, ticks = moe_decode_gate(
+    full, dec, aux, chunk_s, ticks = decode_gate(
         model, toks, MOE_GATE_LEN, launches, "15b")
     peak = torch.cuda.max_memory_allocated() - base - weights
     err_chunk = close_or_raise("15b the prefill chunk's logits against the "
@@ -4765,7 +4874,7 @@ def kimi_check(dev, launches):
     rng = np.random.default_rng(152)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, KIMI_PREFILL + KIMI_NEW))).to(dev)
-    full, dec, aux, chunk_s, ticks = moe_decode_gate(
+    full, dec, aux, chunk_s, ticks = decode_gate(
         model, toks, KIMI_PREFILL, launches, "15e")
     err = close_or_raise("15e decode against the full forward", dec, full,
                          **LM_GATE_TOL)
@@ -4813,7 +4922,627 @@ def moe_phase(launches, max_err, records):
     phase(f"15e. {KIMI_ARCH} at full width, {KIMI_LAYERS} layers and "
           f"{KIMI_EXPERTS} experts")
     kimi_check(dev, launches)
-    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    phase_done("15", t_phase)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the SSM families (hymba-1.5b, rwkv6-7b)
+# ---------------------------------------------------------------------------
+
+class ScanSpans:
+    """While entered, each SSM scan call (a Mamba chunk or step, a WKV
+    chunk or step: ``nn/ssm.py``) runs inside a ``record_function`` range
+    named SCAN_SPAN, so a profile reads the device time of the kernels it
+    launches (a checkpointed chunk's recompute included, its backward's
+    kernels not: autograd's engine launches those outside the range)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.nn import ssm
+        tm = ssm.RWKV6TimeMix
+        self._saved = [(ssm, "_selective_chunk", ssm._selective_chunk),
+                       (tm, "_wkv_chunk", tm.__dict__["_wkv_chunk"]),
+                       (tm, "_wkv_step", tm.__dict__["_wkv_step"])]
+        for owner, name, fn in self._saved:
+            static = isinstance(fn, staticmethod)
+
+            def ranged(*a, _fn=fn.__func__ if static else fn, **kw):
+                with torch.profiler.record_function(SCAN_SPAN):
+                    return _fn(*a, **kw)
+            setattr(owner, name, staticmethod(ranged) if static else ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def time_rows(timings, records):
+    """Time each row of ``timings`` {(kernel, row): dict(fn, plain,
+    library, bytes, flops, rate, shape)} as phase 6 times (CUDA events;
+    CUPTI for the kernel and the library call) and nest it in its kernel's
+    record under ``row``."""
+    for (kernel, name), tm in timings.items():
+        ms = time_ms(tm["fn"])
+        plain_ms = time_ms(tm["plain"], batches=5, per_batch=4, warmup=1)
+        library_ms = time_ms(tm["library"]) if tm["library"] else None
+        device = {"ms": kernel_ms(tm["fn"])}
+        if tm["library"]:
+            device["library_ms"] = kernel_ms(tm["library"])
+        byte_ms = tm["bytes"] / HBM_BYTES_PER_S * 1e3
+        flop_ms = tm["flops"] / tm["rate"] * 1e3
+        nested = {"ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(byte_ms, flop_ms),
+                  "bound_by": "bytes" if byte_ms >= flop_ms
+                  else "operations", "library_ms": library_ms,
+                  "bound_f32_ms": max(byte_ms,
+                                      tm["flops"] / F32_FLOP_PER_S * 1e3)}
+        owner = next(r for r in records if r["name"] == kernel)
+        owner[name] = nested
+        log(json.dumps({"kernel": kernel, "row": name, "shape": tm["shape"],
+                        **nested, "device_time_ms": device}))
+
+
+def ssm_kernels(gen, dev, max_err, records):
+    """Phase 16a: the decode at hymba's tick (windowed and global) and at
+    its chunked prefill, and the flash forward, dq and dk/dv at its train
+    attention and its prefill step, against their plain versions (phase
+    3's tolerances) and timed beside SDPA with a boolean window mask and
+    the bound; rows "hymba_*" in the kernels' records."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import dequantize_kv
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = configs.get_config(HYMBA_ARCH)
+    hq, hkv, d, window = (cfg.num_q_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, cfg.window)
+    scale = d ** -0.5
+    rng = np.random.default_rng(16)
+    cursors = np.concatenate([[window + 1, HYMBA_MAX_CURSOR], rng.integers(
+        window + 1, HYMBA_MAX_CURSOR + 1, HYMBA_SLOTS - 2)])
+    timings = {}
+    # the decode: the tick (one row a slot at its cursor) windowed and
+    # global, and the chunked prefill (the prompts' rows against
+    # themselves, causal through the positions, windowed)
+    cases = [(win, cd, qd, 1) for win in (window, None)
+             for cd in ("float32", "bfloat16", "int8") for qd in (f32, bf16)]
+    cases.append((window, "float32", f32, HYMBA_PREFILL))
+    for win, cd, qd, sq in cases:
+        cur = cursors if sq == 1 else [sq] * HYMBA_PROMPTS
+        b, s = len(cur), int(max(cur))
+        q, k, v, kvl, opts = lm_decode_case(
+            gen, dev, b=b, hq=hq, hkv=hkv, d=d, s=s, cursors=cur,
+            cache_dtype=cd, q_dtype=qd, sq=sq)
+        if win is not None and sq == 1:
+            opts["q_times"] = (kvl[:, None] - 1).contiguous()
+            opts["k_times"] = torch.arange(
+                s, dtype=torch.int32, device=dev)[None].expand(b, s
+                                                              ).contiguous()
+        opts.update(window=win, scale=scale)
+        run = lambda q=q, k=k, v=v, kvl=kvl, opts=opts: \
+            ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                 impl="flash_decode", **opts)
+        plain = lambda q=q, k=k, v=v, kvl=kvl, opts=opts: \
+            ops.decode_attention(q, k, v, kv_length=kvl, layer=1,
+                                 impl="plain", **opts)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        what = (f"{'windowed' if win else 'global'} "
+                f"{'tick' if sq == 1 else f'prefill chunk of {sq}'}, {cd} "
+                f"cache, {str(qd)[6:]} query")
+        err = close_or_raise(f"16a flash_decode {what}", got, want,
+                             **DECODE_TOL["bfloat16" if qd == bf16 else cd])
+        if not torch.equal(got, again):
+            raise AssertionError(f"16a flash_decode {what}: not bitwise "
+                                 f"repeatable")
+        max_err["flash_decode"] = max(max_err["flash_decode"], err)
+        log(f"16a flash_decode {what}: {b} slots x {hq}/{hkv} heads x {d}, "
+            f"cursors {min(cur)}-{max(cur)}, window {win}: max abs err "
+            f"{err:.3e}, bitwise repeatable")
+        nest = {(window, "float32", f32, 1): "hymba_tick",
+                (window, "bfloat16", bf16, 1): "hymba_tick_bf16",
+                (window, "int8", bf16, 1): "hymba_tick_int8_bf16q",
+                (None, "float32", f32, 1): "hymba_tick_global",
+                (window, "float32", f32, HYMBA_PREFILL):
+                    "hymba_prefill_chunk"}.get((win, cd, qd, sq))
+        if nest is None:
+            continue
+        # the pairs the mask admits, and the rows they read
+        qpos = (kvl[:, None] - sq + torch.arange(sq, device=dev)).long()
+        kpos = torch.arange(s, device=dev)
+        mask = (kpos[None, None, :] <= qpos[:, :, None])
+        if win is not None:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - win
+        pairs = int(mask.sum())
+        rows = int(mask.any(1).sum())
+        es = k.element_size()
+        kl, vl = (torch.nan_to_num(
+            dequantize_kv(t_[1], sc[1], dtype=qd) if cd == "int8"
+            else t_[1].to(qd))
+            for t_, sc in ((k, opts["k_scale"]), (v, opts["v_scale"])))
+        timings[("flash_decode", nest)] = dict(
+            fn=run, plain=plain,
+            library=lambda q=q, kl=kl, vl=vl, m=mask[:, None]:
+            F.scaled_dot_product_attention(q, kl, vl, attn_mask=m,
+                                           scale=scale, enable_gqa=True),
+            bytes=(rows * hkv * 2 * d * es + (rows * hkv * 2 * 4
+                                              if cd == "int8" else 0)
+                   + 2 * b * hq * sq * d * q.element_size() + b * 4),
+            flops=2 * pairs * hq * 2 * d,
+            rate=SPLIT_TF32_FLOP_PER_S if cd == "float32"
+            else BF16_FLOP_PER_S,
+            shape=f"hymba {what}: {b} slots x {hq}/{hkv} x {d}, {rows} rows "
+                  f"read, {pairs} (q, k) pairs a head")
+    # the flash kernels: the train attention (windowed layers: the window
+    # exceeds the sequence) and the prefill step over the prompts, where
+    # the window bites
+    flash_cases = {"hymba_train": (LM_TRAIN_B, LM_TRAIN_S, f32, True),
+                   "hymba_train_bf16": (LM_TRAIN_B, LM_TRAIN_S, bf16, True),
+                   "hymba_prefill": (HYMBA_PROMPTS, HYMBA_PREFILL, f32,
+                                     False)}
+    opts = dict(causal=True, window=window, scale=scale)
+    for name, (b, s, dt, backward) in flash_cases.items():
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                     (b, hkv, s, d), (b, hq, s, d)))
+        key = "float32" if dt == f32 else "bfloat16"
+        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        again, _ = fa.flash_attention_fwd(q, k, v, **opts)
+        want, want_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        err = close_or_raise(f"16a flash forward {name}", out, want,
+                             **FLASH_TOL[key])
+        close_or_raise(f"16a flash forward {name} lse", lse, want_lse,
+                       atol=1e-4, rtol=1e-5)
+        if not torch.equal(out, again):
+            raise AssertionError(f"16a flash forward {name}: not bitwise "
+                                 f"repeatable")
+        gerr = {}
+        if backward:
+            got = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+            got2 = fab.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+            wide = torch.float64 if dt == f32 else dt
+            wantg = fab.flash_bwd_plain(q.to(wide), k.to(wide), v.to(wide),
+                                        out.to(wide), lse, do.to(wide),
+                                        **opts)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, got2)):
+                raise AssertionError(f"16a {name} backward: not bitwise "
+                                     f"repeatable")
+            for which, a, w in zip(("dq", "dk", "dv"), got, wantg):
+                gerr[which] = close_or_raise(f"16a flash {which} {name}", a,
+                                             w.to(dt), **FLASH_GRAD_TOL[key])
+        if dt == f32:
+            max_err["flash_attention_fwd"] = max(
+                max_err["flash_attention_fwd"], err)
+            if backward:
+                max_err["flash_attention_dq"] = max(
+                    max_err["flash_attention_dq"], gerr["dq"])
+                max_err["flash_attention_dkv"] = max(
+                    max_err["flash_attention_dkv"], gerr["dk"], gerr["dv"])
+        log(f"16a flash {name}: {b} x {hq}/{hkv} heads x {s} x {d}, {key}, "
+            f"window {window}: max abs err out {err:.3e}"
+            + "".join(f", {w_} {e_:.3e}" for w_, e_ in gerr.items())
+            + "; bitwise repeatable")
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        es = q.element_size()
+        pairs = b * hq * int(mask.sum())
+        qb, kb, row = b * hq * s * d * es, b * hkv * s * d * es, b * hq * s * 4
+        rate = SPLIT_TF32_FLOP_PER_S if dt == f32 else BF16_FLOP_PER_S
+        shape = f"{b} x {hq}/{hkv} heads x {s} x {d}, window {window}, {key}"
+        timings[("flash_attention_fwd", name)] = dict(
+            fn=lambda q=q, k=k, v=v: fa.flash_attention_fwd(q, k, v, **opts),
+            plain=lambda q=q, k=k, v=v: fa.flash_fwd_plain(q, k, v, **opts),
+            library=lambda q=q, k=k, v=v, m=mask:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale,
+                                           enable_gqa=True),
+            bytes=2 * qb + 2 * kb + row, flops=2 * pairs * 2 * d, rate=rate,
+            shape=shape)
+        if not backward:
+            continue
+        delta = torch.sum(do.float() * out.float(), dim=-1)
+        lq, lk, lv = (t_.detach().clone().requires_grad_(True)
+                      for t_ in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+        lib_bwd = lambda lout=lout, lq=lq, lk=lk, lv=lv, do=do: \
+            torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+        plain_bwd = lambda q=q, k=k, v=v, out=out, lse=lse, do=do: \
+            fab.flash_bwd_plain(q, k, v, out, lse, do, **opts)
+        timings[("flash_attention_dq", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta:
+            fab.flash_attention_dq(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd, bytes=3 * qb + 2 * kb + 2 * row,
+            flops=2 * pairs * 3 * d, rate=rate, shape=shape)
+        timings[("flash_attention_dkv", name)] = dict(
+            fn=lambda q=q, k=k, v=v, do=do, lse=lse, delta=delta:
+            fab.flash_attention_dkv(q, k, v, do, lse, delta, **opts),
+            plain=plain_bwd, library=lib_bwd, bytes=2 * qb + 4 * kb + 2 * row,
+            flops=2 * pairs * 4 * d, rate=rate, shape=shape)
+    time_rows(timings, records)
+
+
+def ssm_model(arch, dev, what, **overrides):
+    """``arch`` at full width on the card (``overrides`` replaced; weights
+    from a CUDA generator seeded 0): (model, bytes of its weights)."""
+    import torch
+    from repro_torch.nn.module import count_params
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm_model(arch, dev, **overrides)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    cfg = model.cfg
+    sizes = [len(g) for g in model.groups]
+    log(f"{what} {arch}: {cfg.num_layers} layers ({sizes} a group), d_model "
+        f"{cfg.d_model}, "
+        + (f"{cfg.num_q_heads}/{cfg.num_kv_heads} heads x "
+           f"{cfg.resolved_head_dim}, window {cfg.window}, "
+           if cfg.attention_kind != "none" else "attention-free, ")
+        + f"SSM {cfg.ssm}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}: "
+        f"{count_params(model):,} parameters, {weights / 2**30:.2f} GiB "
+        f"({cfg.dtype} compute), drawn in {time.perf_counter() - t0:.2f} s")
+    return model, weights
+
+
+def ssm_ticks_profile(model, toks, n_prefill, launches, what):
+    """SSM_PROFILE_TICKS serve steps past a chunked prefill of
+    ``n_prefill`` tokens (float32 cache), timed and profiled with the
+    scans in ranges: (busy share, the scans' share of the device time)."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime.steps import make_serve_step
+    n_attn = sum(m.attn is not None for g in model.groups for m in g)
+    serve = make_serve_step(model)
+    cache = model.init_cache(toks.shape[0], toks.shape[1], "float32")
+    with torch.no_grad():
+        model(toks[:, :n_prefill], cache=cache, cache_index=0)
+
+    def ticks_run():
+        with ScanSpans():
+            for i in range(n_prefill, n_prefill + SSM_PROFILE_TICKS):
+                serve(cache, toks[:, i:i + 1], i)
+            torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    ticks_run()
+    wall = time.perf_counter() - t0
+    spans = {SCAN_SPAN: 0.0}
+    busy = device_profile(ticks_run, wall, ("tick", lambda: SSM_PROFILE_TICKS),
+                          what, spans=spans)
+    want = ({"flash_decode": 2 * n_attn * SSM_PROFILE_TICKS} if n_attn
+            else {})
+    if dict(cuda.LAUNCHES) != want:
+        raise AssertionError(f"{what}: launches {dict(cuda.LAUNCHES)} != "
+                             f"{want}")
+    launches["flash_decode"] += want.get("flash_decode", 0)
+    return busy, spans[SCAN_SPAN]
+
+
+def ssm_serving_full(arch, prefill, new, dev, launches, tag, int8=False):
+    """Phase 16b / 16e: ``arch`` at full width and depth, float32: 2 prompts
+    of ``prefill`` tokens as one chunk, then ``new`` decoded positions,
+    against the full forward (float32 cache); with ``int8``, a chunk and
+    SSM_INT8_TICKS ticks over an int8 cache through the kernels against
+    the same through the plain versions, both drifts printed; the ticks'
+    rate, profile and the scans' share.
+
+    The chunk's positions are held to the full forward over the prompts,
+    the decoded ones to the full forward over every token: a causal model
+    gives the prompts' positions the same logits either way, but rwkv6's
+    random weights amplify float32 rounding through its depth, so two full
+    forwards of other lengths (other GEMM shapes) part at the prompts'
+    first positions by up to 3.3 at 32 layers on an H100 (PERF.md §6);
+    that floor is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.nn.module import count_params
+    model, weights = ssm_model(arch, dev, tag, dtype="float32")
+    if count_params(model) != SSM_COUNTS[arch]:
+        raise AssertionError(f"{tag} {arch}: {count_params(model):,} "
+                             f"parameters")
+    n_attn = sum(m.attn is not None for g in model.groups for m in g)
+    rng = np.random.default_rng(161)
+    toks = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (2, prefill + new))).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full, dec, _, chunk_s, ticks = decode_gate(model, toks, prefill,
+                                               launches, f"{tag} float32")
+    with PlainCalls() as plain:
+        cuda.reset_launches()
+        with torch.no_grad():
+            head, _, _ = model(toks[:, :prefill])
+    if dict(cuda.LAUNCHES) != ({"flash_attention_fwd": n_attn} if n_attn
+                               else {}) or plain.calls:
+        raise AssertionError(f"{tag} the prompts' full forward: launches "
+                             f"{dict(cuda.LAUNCHES)}; plain calls "
+                             f"{plain.calls}")
+    launches["flash_attention_fwd"] += n_attn
+    floor = float((head - full[:, :prefill]).abs().max())
+    err_chunk = close_or_raise(f"{tag} the prefill chunk against the full "
+                               f"forward over the prompts", dec[:, :prefill],
+                               head, **LM_GATE_TOL)
+    err_dec = close_or_raise(f"{tag} the decoded positions against the full "
+                             f"forward", dec[:, prefill:], full[:, prefill:],
+                             **LM_GATE_TOL)
+    tick_ms = np.asarray(ticks) * 1e3
+    log(f"{tag} {arch}, float32 cache: 2 prompts x {prefill} tokens as one "
+        f"chunk in {chunk_s:.3f} s, then {new} ticks at positions {prefill}-"
+        f"{prefill + new - 1}: {1e3 / np.median(tick_ms):.1f} ticks/s "
+        f"({2 * new / sum(ticks):.1f} tokens/s), tick p50 "
+        f"{np.percentile(tick_ms, 50):.2f} ms, p99 "
+        f"{np.percentile(tick_ms, 99):.2f} ms; max abs err {err_chunk:.3e} "
+        f"(the chunk against the full forward over the prompts), "
+        f"{err_dec:.3e} (decoded, against the full forward over "
+        f"{prefill + new}) (gate {LM_GATE_TOL}); the two full forwards "
+        f"part by {floor:.3e} at the prompts' positions (float32 rounding "
+        f"of other GEMM shapes, the floor); launches exact, no plain "
+        f"attention call")
+    del dec, head
+    if int8:
+        # the reference's own int8 decode drifts past MODEL_TOL["int8"] from
+        # its full forward at the reduced hymba (0.104-0.111 on the CPU, the
+        # port's within 2e-3 of it): held to the plain versions on the same
+        # int8 cache instead, as phase 8 holds se2_repr's
+        sub = toks[:, :prefill + SSM_INT8_TICKS]
+        _, dec8, _, _, _ = decode_gate(model, sub, prefill, launches,
+                                       f"{tag} int8", cache_dtype="int8",
+                                       full=full)
+        model.impl = "plain"
+        try:
+            with torch.no_grad():
+                plain8 = lm_tokenwise(model, sub, None, sub.shape[1],
+                                      n_chunk=prefill, cache_dtype="int8")
+        finally:
+            model.impl = "auto"
+        err8 = close_or_raise(f"{tag} int8: the kernels against the plain "
+                              f"versions", dec8, plain8, **MODEL_TOL["int8"])
+        drift = [float((d_ - full[:, :sub.shape[1]]).abs().max())
+                 for d_ in (dec8, plain8)]
+        log(f"{tag} {arch}, int8 cache: a chunk of {prefill} and "
+            f"{SSM_INT8_TICKS} ticks through the kernels against the plain "
+            f"versions on the same int8 cache: max abs err {err8:.3e} (gate "
+            f"{MODEL_TOL['int8']}); drift from the full forward "
+            f"{drift[0]:.3e} (kernels), {drift[1]:.3e} (plain versions)")
+        del dec8, plain8
+    peak = torch.cuda.max_memory_allocated() - base
+    del full
+    busy, scan_ms = ssm_ticks_profile(model, toks, prefill, launches,
+                                      f"{tag} {arch} ticks at 2 slots")
+    log(f"{tag} {arch}: busy share of a tick "
+        + ("not measured" if busy is None else f"{busy:.1%}")
+        + f"; the scan's device time {scan_ms / SSM_PROFILE_TICKS:.3f} ms a "
+        f"tick; peak memory {peak / 2**30:.2f} GiB above the "
+        f"{weights / 2**30:.2f} GiB of weights")
+    return model
+
+
+def ssm_server(model, launches, tag, prompt=SSM_SERVE_PROMPT,
+               new=SSM_SERVE_NEW):
+    """Phase 16c / 16e: the LM Server over ``model``: SSM_SERVE_REQUESTS
+    requests (prompts of ``prompt`` tokens, ``new`` new each) through
+    SSM_SERVE_SLOTS slots, float32 cache; every request done, 4 equal to
+    their solo runs or parted at a near-tie (13c's gate), at least two of
+    them admitted into a slot that had served; decode launches exactly
+    attention layers x ticks, no plain attention call."""
+    import numpy as np
+    n_attn = sum(m.attn is not None for g in model.groups for m in g)
+    rng = np.random.default_rng(162)
+    lens = rng.integers(prompt[0], prompt[1] + 1, SSM_SERVE_REQUESTS)
+    requests = [(uid, rng.integers(1, model.cfg.vocab_size, n), new)
+                for uid, n in enumerate(lens)]
+    slot_of = {}
+    srv, wall, ticks, counts, admitted, plain_calls, peak = lm_served(
+        model, requests, "float32", SSM_SERVE_SLOTS, SSM_SERVE_MAX_LEN,
+        slot_of=slot_of)
+    done = srv.done
+    if sorted(done) != list(range(SSM_SERVE_REQUESTS)) or any(
+            len(r_.generated) != new for r_ in done.values()):
+        raise AssertionError(f"{tag}: requests {sorted(done)} or lengths "
+                             f"wrong")
+    want = {"flash_decode": n_attn * srv.ticks} if n_attn else {}
+    if counts != want or plain_calls:
+        raise AssertionError(f"{tag}: launches {counts} != {want}; plain "
+                             f"calls {plain_calls}")
+    launches["flash_decode"] += want.get("flash_decode", 0)
+    checked = {int(np.argmin(lens)): "shortest", int(np.argmax(lens)):
+               "longest"}
+    mid = sorted((t, u) for u, t in admitted.items()
+                 if t > 0 and u not in checked)
+    for t, u in (mid[0], mid[-1]):
+        checked[u] = f"admitted at tick {t}"
+    reused = [u for u in checked if any(
+        slot_of[o] == slot_of[u] and admitted[o] < admitted[u]
+        for o in admitted)]
+    if len(checked) != 4 or len(reused) < 2:
+        raise AssertionError(f"{tag}: {checked} are not 4 requests, or "
+                             f"fewer than two re-admitted ({reused})")
+    n_solo, equal, tied = solo_gate(model, requests, done, checked,
+                                    "float32", SSM_SERVE_SLOTS,
+                                    SSM_SERVE_MAX_LEN, tag)
+    launches["flash_decode"] += n_solo
+    n_tok = sum(len(r_.generated) for r_ in done.values())
+    tick_ms = np.asarray(ticks) * 1e3
+    log(f"{tag} {SSM_SERVE_REQUESTS} requests (prompts {lens.min()}-"
+        f"{lens.max()} tokens, {new} new each, greedy) through "
+        f"{SSM_SERVE_SLOTS} slots at {model.cfg.num_layers} layers, float32 "
+        f"cache: {srv.ticks} ticks, {wall:.2f} s, {n_tok / wall:.1f} "
+        f"generated tokens/s; tick p50 {np.percentile(tick_ms, 50):.2f} ms, "
+        f"p99 {np.percentile(tick_ms, 99):.2f} ms; decode launches "
+        f"{counts}, no plain attention call; peak memory "
+        f"{peak / 2**30:.2f} GiB above the model's; requests "
+        f"{sorted(reused)} admitted into a slot that had served; "
+        + solo_summary(equal, tied))
+
+
+def ssm_train_run(model, weights, steps, launches, tag):
+    """``steps`` AdamW steps (launch/train's chain, peak LM_TRAIN_LR) of
+    LM_TRAIN_B x LM_TRAIN_S synthetic_lm tokens, remat: the loss finite and
+    its 5-step means falling, the flash kernels' launches exact, no plain
+    attention call; steps/s and peak memory above the weights."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.optim import adamw, chain, clip_by_global_norm, \
+        warmup_cosine
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.training.steps import loss_summary
+    cfg = model.cfg
+    batches = [lm_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, i * LM_TRAIN_B,
+                        model.device) for i in range(steps)]
+    n = sum(m.attn is not None for g in model.groups for m in g)
+    per_step = ({"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+                 "flash_attention_dkv": n} if n else {})
+    opt = chain(clip_by_global_norm(1.0),
+                adamw(warmup_cosine(LM_TRAIN_LR, 20, steps)))
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt, remat=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    cuda.reset_launches()
+    with PlainCalls() as plain:
+        for batch in batches:
+            t0 = time.perf_counter()
+            grads, metrics = step.grads(batch)
+            losses.append(float(metrics["loss"]))
+            state = step.update(state, grads)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    want = {k_: v_ * steps for k_, v_ in per_step.items()}
+    if dict(cuda.LAUNCHES) != want or plain.calls:
+        raise AssertionError(f"{tag}: launches {dict(cuda.LAUNCHES)} != "
+                             f"{want}; plain calls {plain.calls}")
+    for k_, v_ in want.items():
+        launches[k_] += v_
+    ends = loss_summary(losses)
+    if not (all(math.isfinite(x) for x in losses)
+            and ends["loss_last"] < ends["loss_first"]):
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() - base
+    med = statistics.median(secs[1:])
+    log(f"{tag} {cfg.name} at full width and {cfg.num_layers} layers, "
+        f"compute {cfg.dtype}, remat, {steps} AdamW steps of {LM_TRAIN_B} x "
+        f"{LM_TRAIN_S} synthetic_lm tokens, peak lr {LM_TRAIN_LR}: loss "
+        f"{ends['loss_first']:.4f} -> {ends['loss_last']:.4f} (5-step means; "
+        f"{', '.join(f'{x:.3f}' for x in losses)}); {1 / med:.3f} steps/s, "
+        f"{LM_TRAIN_B * LM_TRAIN_S / med:.0f} tokens/s (median step "
+        f"{med:.3f} s, the first {secs[0]:.3f} s); peak memory "
+        f"{peak / 2**30:.2f} GiB above the {weights / 2**30:.2f} GiB of "
+        f"weights and the optimizer's state; launches a step {per_step}, no "
+        f"plain attention call")
+    return med
+
+
+def scan_train_ms(cfg, dev):
+    """CUDA-event milliseconds of one Mamba layer's scan in a remat train
+    step at LM_TRAIN_B x LM_TRAIN_S tokens, ``cfg``'s widths and dtypes:
+    ``selective_ssm_fused`` without gradients (the layer's forward) plus
+    with them, forward and backward (the layer's recompute; each chunk
+    checkpointed, so recomputed once more in its backward)."""
+    import torch
+    from repro_torch.nn.ssm import selective_ssm_fused
+    gen = torch.Generator(device=dev).manual_seed(164)
+    b, t = LM_TRAIN_B, LM_TRAIN_S
+    di, n = cfg.ssm.d_inner or 2 * cfg.d_model, cfg.ssm.state_size
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    dt = torch.nn.functional.softplus(rand(b, t, di))
+    ins = [dt, rand(b, t, n), rand(b, t, n),
+           rand(b, t, di, dtype=cfg.compute_dtype), -torch.exp(rand(di, n)),
+           torch.zeros((b, di, n), device=dev)]
+    gy = rand(b, t, di)
+    grads = [x.clone().requires_grad_(True) for x in ins[:5]] + ins[5:]
+
+    def fwd():
+        with torch.no_grad():
+            selective_ssm_fused(*ins, chunk=cfg.ssm.chunk)
+
+    def fwd_bwd():
+        y, _ = selective_ssm_fused(*grads, chunk=cfg.ssm.chunk)
+        torch.autograd.grad(y, grads[:5], gy)
+
+    return (time_ms(fwd, batches=5, per_batch=2, warmup=1)
+            + time_ms(fwd_bwd, batches=5, per_batch=2, warmup=1))
+
+
+def ssm_phase(launches, max_err, records):
+    """Phase 16: the SSM families (see the module docstring)."""
+    import gc
+
+    import torch
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    before = dict(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 16 starts with {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated by earlier phases")
+    phase(f"16a. the SSM families: the attention kernels at {HYMBA_ARCH}'s "
+          f"shapes")
+    ssm_kernels(torch.Generator(device=dev).manual_seed(16), dev, max_err,
+                records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"16b. {HYMBA_ARCH} at full width and depth: a chunked prefill "
+          f"and decode past the window against the full forward")
+    model = ssm_serving_full(HYMBA_ARCH, HYMBA_PREFILL, HYMBA_NEW, dev,
+                             launches, "16b", int8=True)
+    del model
+    torch.cuda.empty_cache()
+    phase(f"16c. the LM Server over {HYMBA_ARCH} at {SSM_SERVE_LAYERS} "
+          f"layers")
+    model, _ = ssm_model(HYMBA_ARCH, dev, "16c", dtype="float32",
+                         num_layers=SSM_SERVE_LAYERS)
+    ssm_server(model, launches, "16c")
+    del model
+    torch.cuda.empty_cache()
+    phase(f"16d. {HYMBA_ARCH} trains at full width and depth")
+    lm_grad_check(HYMBA_ARCH, SSM_GRAD_LAYERS, LM_TRAIN_B, LM_TRAIN_S, dev,
+                  launches, tag="16d")
+    model, weights = ssm_model(HYMBA_ARCH, dev, "16d")
+    step_s = ssm_train_run(model, weights, SSM_TRAIN_STEPS, launches, "16d")
+    # the scan's share of a step, timed by events a layer (a full-depth
+    # step's 73,000 kernels take the profiler over a minute to record)
+    scan_ms = model.cfg.num_layers * scan_train_ms(model.cfg, dev)
+    log(f"16d the Mamba scan at {LM_TRAIN_B} x {LM_TRAIN_S} tokens: "
+        f"{scan_ms / model.cfg.num_layers:.2f} ms a layer a step (its "
+        f"forward, recompute and backward; CUDA events), {scan_ms:.1f} ms of "
+        f"the {step_s * 1e3:.1f} ms step ({scan_ms / (step_s * 1e3):.1%})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"16e. {RWKV_ARCH} at full width and depth: prefill and decode "
+          f"against the full forward, its Server")
+    model = ssm_serving_full(RWKV_ARCH, RWKV_PREFILL, RWKV_NEW, dev,
+                             launches, "16e")
+    ssm_server(model, launches, "16e", RWKV_SERVE_PROMPT, RWKV_SERVE_NEW)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"16f. {RWKV_ARCH} trains at full width and {RWKV_TRAIN_LAYERS} "
+          f"layers")
+    model, weights = ssm_model(RWKV_ARCH, dev, "16f",
+                               num_layers=RWKV_TRAIN_LAYERS)
+    ssm_train_run(model, weights, SSM_TRAIN_STEPS, launches, "16f")
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 16 launches: " + json.dumps(
+        {k_: launches[k_] - before[k_] for k_ in launches
+         if launches[k_] != before[k_]}))
+    phase_done("16", t_phase)
 
 
 def main() -> int:
@@ -4843,13 +5572,17 @@ def main() -> int:
     from repro_torch.training.data import make_sim_batch
 
     # 1. the card ------------------------------------------------------------
+    t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    phase_done("1", t_phase)
+
     # 2. build ---------------------------------------------------------------
+    t_phase = time.perf_counter()
     phase("2. build")
     t0 = time.perf_counter()
     build_logs = cuda.build_all()
@@ -4892,7 +5625,10 @@ def main() -> int:
         f"c {c}, max_len {s_max}, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
 
+    phase_done("2", t_phase)
+
     # 3. kernels against their plain versions ----------------------------------
+    t_phase = time.perf_counter()
     phase("3. kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = dict.fromkeys(REPLACES, 0.0)
@@ -5032,7 +5768,10 @@ def main() -> int:
             gen, dev, n_slots, scen.num_agents, scen.num_actions, per_slot))
         max_err["categorical"] = max(max_err["categorical"], err)
 
+    phase_done("3", t_phase)
+
     # 4. rollout -----------------------------------------------------------------
+    t_phase = time.perf_counter()
     phase("4. rollout")
     scenes = [scenarios.generate_scene("freeform", 0, i, scen)
               for i in range(n_slots)]
@@ -5061,7 +5800,10 @@ def main() -> int:
     log("rollout: no call into core/encodings.py or core/fourier.py that "
         "runs a tensor op")
 
+    phase_done("4", t_phase)
+
     # 5. training -----------------------------------------------------------------
+    t_phase = time.perf_counter()
     phase("5. training")
     del engine
     torch.cuda.empty_cache()
@@ -5084,7 +5826,10 @@ def main() -> int:
         "runs a tensor op")
     data.close()
 
+    phase_done("5", t_phase)
+
     # 6. times at the main-path shapes ------------------------------------------
+    t_phase = time.perf_counter()
     phase("6. times")
     kvl = scen.num_map + scen.num_steps * scen.num_agents - 2 * scen.num_agents
     c150 = SE2Fourier(head_dim=WIDTH_HEAD_DIM,
@@ -5303,10 +6048,15 @@ def main() -> int:
             measured[timer, fn] = timer(fn)
         return measured[timer, fn]
 
+    def plain_time_ms(fn):
+        """A plain version's events over 20 calls (they take milliseconds
+        where the kernels take tens of microseconds)."""
+        return time_ms(fn, batches=5, per_batch=4, warmup=1)
+
     for name, tm in timings.items():
         kernel = tm.get("kernel", name)
         ms = time_ms(tm["fn"])
-        plain_ms = once(time_ms, tm["plain"])
+        plain_ms = once(plain_time_ms, tm["plain"])
         library_ms = once(time_ms, tm["library"]) if tm["library"] else None
         # CUPTI for the kernel and the library call; the plain versions by
         # events only: a profiler session costs about a second, and the
@@ -5365,7 +6115,10 @@ def main() -> int:
     del timings, measured, flash_200
     torch.cuda.empty_cache()
 
+    phase_done("6", t_phase)
+
     # 7. evaluation ---------------------------------------------------------
+    t_phase = time.perf_counter()
     phase("7. evaluation")
     eval_cfg = EvalConfig(t_hist=t_hist, n_samples=EVAL_SAMPLES, seed=0)
     fams = scenarios.registry.names()
@@ -5453,18 +6206,27 @@ def main() -> int:
         f"{EVAL_SLOTS[1]} slots; no call into core/encodings.py or "
         f"core/fourier.py that runs a tensor op")
 
+    phase_done("7", t_phase)
+
     # 8. the other three Table-I arches ------------------------------------
+    t_phase = time.perf_counter()
     table1_phase(tmodel, ol, scen, scenes, pairs, t_hist, s_max, launches)
+    phase_done("8", t_phase)
 
     # 9. the trainer stack --------------------------------------------------
+    t_phase = time.perf_counter()
     del tmodel
     torch.cuda.empty_cache()
     trainer_phase(arch, per_step, bare_rate, launches)
+    phase_done("9", t_phase)
 
     # 10. the continuous-batching server -----------------------------------
+    t_phase = time.perf_counter()
     server_phase(model, scen, s_max, launches, max_err)
+    phase_done("10", t_phase)
 
     # 11. jax.random-exact sampling, widths off 4, bfloat16 ---------------
+    t_phase = time.perf_counter()
     sampling_phase(model, scen, scenes, t_hist, s_max)
     widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err,
                  WIDTH_CASES, WIDTH_HEAD_DIM, "11b. widths: the attention "
@@ -5472,8 +6234,10 @@ def main() -> int:
     serve_sim_defaults()
     bf16_phase(model, scen, scenes, pairs, t_hist, s_max, launches, max_err,
                f32_rollout, bare_rate)
+    phase_done("11", t_phase)
 
     # 12. rows past 256; the fleet on torch.distributed --------------------
+    t_phase = time.perf_counter()
     widths_phase(cfg, scen, scenes, pairs, t_hist, s_max, launches, max_err,
                  WIDE_CASES, WIDE_HEAD_DIM, "12a. rows wider than 256: "
                  "column windows")
@@ -5481,6 +6245,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_phase(cfg, scen, t_hist, launches)
     launcher_phase()
+    phase_done("12", t_phase)
 
     # 13. the dense LM serving stack ----------------------------------------
     lm_phase(launches, max_err, records)
@@ -5490,10 +6255,14 @@ def main() -> int:
 
     # 15. MoE with MLA -------------------------------------------------------
     moe_phase(launches, max_err, records)
+
+    # 16. the SSM families ----------------------------------------------------
+    ssm_phase(launches, max_err, records)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
     phase("done")
+    log(f"phase wall seconds: {json.dumps(PHASE_SECONDS)}")
     log(json.dumps({"kernels": records}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """Feed-forward blocks (port of ``repro/nn/mlp.py``): the gated MLP
-(SwiGLU / GeGLU) and the plain two-matrix MLP."""
+(SwiGLU / GeGLU), the plain two-matrix MLP and RWKV-6's channel mix."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.nn.layers import ACTIVATIONS, Dense
+from repro_torch.nn.module import ParamSpec, new_parameter
 
 
 class GatedMLP(nn.Module):
@@ -35,3 +39,30 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(self.act(self.up(x)))
+
+
+class RWKVChannelMix(nn.Module):
+    """RWKV-6 channel mixing: a token-shift lerp, a squared-relu key and a
+    sigmoid receptance gate."""
+
+    def __init__(self, d_model: int, d_ff: int, device=None):
+        super().__init__()
+        d, f = d_model, d_ff
+        self.mix_k = new_parameter(ParamSpec((d,), init="uniform", scale=0.5),
+                                   device)
+        self.mix_r = new_parameter(ParamSpec((d,), init="uniform", scale=0.5),
+                                   device)
+        self.key = Dense((d,), (f,), device)
+        self.value = Dense((f,), (d,), device)
+        self.receptance = Dense((d,), (d,), device)
+
+    def forward(self, x: torch.Tensor,
+                shifted: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``shifted``: the previous token's activations (a decode passes
+        the cached one first); None shifts ``x`` itself, zeros first."""
+        if shifted is None:
+            shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        xk = x + (shifted - x) * self.mix_k.to(x.dtype)
+        xr = x + (shifted - x) * self.mix_r.to(x.dtype)
+        k = torch.square(F.relu(self.key(xk)))
+        return torch.sigmoid(self.receptance(xr)) * self.value(k)

@@ -3,12 +3,13 @@
 A layer declares each weight with a :class:`ParamSpec` (shape and init
 kind); :func:`init_params` fills every parameter of a module from one
 ``torch.Generator``. The init kinds are the reference's that the ported
-layers use (fan_in, normal with its ``scale``, ones, zeros); the random
-numbers differ, since the port does not reproduce ``jax.random`` (weights
-cross over through ``repro_torch.params.from_reference`` where a test
-needs equality). A module built on the ``meta`` device has shapes and no
-storage: :func:`count_params` counts a 20 B-parameter config that way
-without allocating it.
+layers use (fan_in, normal with its ``scale``, uniform in [-scale, scale],
+ones, zeros); the random numbers differ, since the port does not
+reproduce ``jax.random`` (weights cross over through
+``repro_torch.params.from_reference`` where a test needs equality). A
+module built on the ``meta`` device has shapes and no storage:
+:func:`count_params` counts a 20 B-parameter config that way without
+allocating it.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "fan_in"          # fan_in | normal | ones | zeros
+    init: str = "fan_in"          # fan_in | normal | uniform | ones | zeros
     fan_in: int = 0               # fan_in init: input size (0 -> shape[0])
-    scale: float = 0.02           # normal init: standard deviation
+    scale: float = 0.02           # normal: standard deviation; uniform: bound
 
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
@@ -51,6 +52,10 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         fan_in = spec.fan_in or (spec.shape[0] if spec.shape else 1)
         return torch.randn(spec.shape, generator=gen, device=dev) / float(
             np.sqrt(max(fan_in, 1)))
+    if spec.init == "uniform":
+        # the reference's ``jax.random.uniform(minval=-scale, maxval=scale)``
+        return (torch.rand(spec.shape, generator=gen, device=dev) * 2.0
+                - 1.0) * spec.scale
     raise ValueError(f"unknown init {spec.init!r}")
 
 

@@ -1,17 +1,24 @@
 """Config-driven decoder LM (port of ``repro/nn/transformer.py``:
 ``TransformerLM`` and ``build_model``) for the dense families (stablelm-3b,
-phi4-mini-3.8b, granite-20b, internvl2-26b's backbone, gemma2-27b) and the
-MoE families (deepseek-v2-lite-16b with MLA, kimi-k2-1t-a32b).
+phi4-mini-3.8b, granite-20b, internvl2-26b's backbone, gemma2-27b), the
+MoE families (deepseek-v2-lite-16b with MLA, kimi-k2-1t-a32b) and the SSM
+families (hymba-1.5b, rwkv6-7b).
 
 The model is built from a ``ModelConfig`` as layer groups, one
 ``nn.ModuleList`` per group (the reference scans a stacked group;
 ``params.py`` carries weights across). The dense families are one plain
 stack; gemma2's ``window_pattern="alternating"`` is one group of
 (local, global) :class:`LayerPair` s, the reference's ``("pair", a, b)``
-group. A MoE config's first ``first_k_dense`` layers are a group of their
-own with a dense MLP of width ``dense_ff`` (deepseek's and kimi's one
-leading layer), then one group of MoE layers; ``attention_kind="mla"``
-takes ``MLAttention``. Learned positions (granite), a precomputed modality
+group; hymba's ``"mostly_local"`` is five groups: one global layer, half
+of the windowed layers, one global layer, the other windowed layers, one
+global layer (the reference stacks none of the three single layers). A
+MoE config's first ``first_k_dense`` layers are a group of their own with
+a dense MLP of width ``dense_ff`` (deepseek's and kimi's one leading
+layer), then one group of MoE layers; ``attention_kind="mla"`` takes
+``MLAttention``. An SSM config adds a Mamba or RWKV-6 mixer to every
+block (``nn/ssm.py``): hymba's runs beside the attention
+(``parallel_ssm``), rwkv6's alone (``attention_kind="none"``, with the
+RWKV channel mix). Learned positions (granite), a precomputed modality
 prefix (internvl's 256 patch embeddings), tied or untied heads, scaled
 embeddings, the attention and final softcaps and gemma2's post-norms.
 
@@ -22,20 +29,21 @@ checkpoint of each scanned layer); it engages only where autograd
 records and no cache is given. The aux loss is the sum of the MoE layers'
 load-balance losses (0 for a dense model).
 
-Decode: ``init_cache`` gives one layer-stacked buffer per group (per half
+Decode: ``init_cache`` gives one layer-stacked dict per group (per half
 of a pair group): (L, B, Hkv, max_len, D) ``k`` / ``v``, or MLA's latent
 rows ``ckv`` (L, B, 1, max_len, r + dr), the shape
-``ops.decode_attention(layer=)`` reads in place; ``forward(tokens,
-cache=, cache_index=)`` writes the new rows and returns the same cache
-dict.
+``ops.decode_attention(layer=)`` reads in place, and an SSM's recurrent
+state (``Block.init_cache``); ``forward(tokens, cache=, cache_index=)``
+writes the new rows and state and returns the same cache dict. No cursor
+masks a recurrent state as it masks rows: :meth:`TransformerLM.reset_slots`
+zeroes a slot's state before a new sequence starts in it.
 
 Families the port has not taken yet raise ``NotImplementedError`` naming
-their ROADMAP item: SSMs (hymba's mostly-local groups come with its SSM
-heads), enc-dec.
+their ROADMAP item: enc-dec.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -46,21 +54,21 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.attention import Attention, MLAttention, cache_step
 from repro_torch.nn.blocks import Block, make_norm
 from repro_torch.nn.layers import Dense, Embedding
-from repro_torch.nn.mlp import MLP, GatedMLP
+from repro_torch.nn.mlp import MLP, GatedMLP, RWKVChannelMix
 from repro_torch.nn.module import init_params
 from repro_torch.nn.moe import MoE
+from repro_torch.nn.ssm import MambaMixer, RWKV6TimeMix
+
+# a block cache's recurrent state (``Block.init_cache``), zeroed by
+# ``reset_slots``; every other entry is attention rows
+_STATE_KEYS = ("ssm", "cmix_shift")
 
 
 def unsupported(cfg) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet (with the ROADMAP item that
-    will port it), or None for the dense and MoE families."""
+    will port it), or None."""
     if cfg.enc_dec:
         return "encoder-decoder models (ROADMAP A10.5)"
-    if (cfg.ssm is not None or cfg.parallel_ssm
-            or cfg.attention_kind == "none" or cfg.mlp_kind == "rwkv"):
-        return "SSM and RWKV mixers (ROADMAP A10.4)"
-    if cfg.window_pattern == "mostly_local":
-        return "hymba's mostly-local layer groups (ROADMAP A10.4)"
     return None
 
 
@@ -84,6 +92,17 @@ class LayerPair(nn.Module):
         return x, aux_a + aux_b
 
 
+def _block_caches(cache: Dict[str, Any]) -> Iterable[dict]:
+    """Every block-level cache dict of a model's cache (both halves of a
+    pair group)."""
+    for gc in cache.values():
+        if "a" in gc and "b" in gc:
+            yield gc["a"]
+            yield gc["b"]
+        else:
+            yield gc
+
+
 class TransformerLM(nn.Module):
     """Decoder-only LM; built on ``device`` (default ``cuda``; raises
     without a card unless ``device="cpu"``, ``"meta"`` for shapes only)
@@ -105,10 +124,15 @@ class TransformerLM(nn.Module):
         self.embedding = Embedding(cfg.padded_vocab, d, dev,
                                    scale_by_sqrt_dim=cfg.scale_embeddings)
         # the reference's layer groups (``_build_groups``): a MoE config's
-        # leading dense layers, then one plain stack or gemma2's (local,
-        # global) pairs
+        # leading dense layers, then one plain stack, gemma2's (local,
+        # global) pairs or hymba's mostly-local groups
         groups, n = [], cfg.num_layers
         moe = cfg.moe is not None
+
+        def stack(count, window=None, **kw):
+            return nn.ModuleList(self._block(dev, window, moe=moe, **kw)
+                                 for _ in range(count))
+
         if moe and cfg.moe.first_k_dense:
             k = cfg.moe.first_k_dense
             groups.append(nn.ModuleList(
@@ -123,9 +147,16 @@ class TransformerLM(nn.Module):
                 LayerPair(self._block(dev, cfg.window, moe=moe),
                           self._block(dev, moe=moe))
                 for _ in range(n // 2)))
+        elif cfg.window_pattern == "mostly_local":
+            # global at the first, middle and last layer (hymba)
+            if n < 5:
+                raise ValueError(f"{cfg.name}: mostly-local layers need at "
+                                 f"least 5, got {n}")
+            mid1 = (n - 3) // 2
+            groups += [stack(1), stack(mid1, cfg.window), stack(1),
+                       stack(n - 3 - mid1, cfg.window), stack(1)]
         else:
-            groups.append(nn.ModuleList(
-                self._block(dev, cfg.window, moe=moe) for _ in range(n)))
+            groups.append(stack(n, cfg.window))
         self.groups = nn.ModuleList(groups)
         self.final_norm = make_norm(cfg.norm, d, dev)
         if not cfg.tie_embeddings:
@@ -136,8 +167,10 @@ class TransformerLM(nn.Module):
         init_params(self, generator if generator is not None
                     else torch.Generator().manual_seed(0))
 
-    def _attention(self, dev, window: Optional[int]) -> nn.Module:
+    def _attention(self, dev, window: Optional[int]) -> Optional[nn.Module]:
         cfg = self.cfg
+        if cfg.attention_kind == "none":
+            return None
         if cfg.attention_kind == "mla":
             m = cfg.mla
             return MLAttention(
@@ -156,6 +189,18 @@ class TransformerLM(nn.Module):
                          softcap=cfg.attn_softcap or None,
                          use_bias=cfg.attn_bias, impl=self.impl, device=dev)
 
+    def _ssm(self, dev) -> Optional[nn.Module]:
+        ssm = self.cfg.ssm
+        if ssm is None:
+            return None
+        if ssm.kind == "rwkv6":
+            return RWKV6TimeMix(self.cfg.d_model, head_dim=ssm.head_dim,
+                                chunk=ssm.chunk, device=dev)
+        return MambaMixer(self.cfg.d_model, d_inner=ssm.d_inner,
+                          state_size=ssm.state_size,
+                          conv_width=ssm.conv_width, chunk=ssm.chunk,
+                          device=dev)
+
     def _block(self, dev, window: Optional[int] = None, moe: bool = False,
                d_ff: Optional[int] = None) -> Block:
         cfg = self.cfg
@@ -168,13 +213,16 @@ class TransformerLM(nn.Module):
                       capacity_factor=m.capacity_factor,
                       aux_weight=m.aux_weight, activation=cfg.activation,
                       device=dev)
+        elif cfg.mlp_kind == "rwkv":
+            mlp = RWKVChannelMix(cfg.d_model, d_ff, dev)
         elif cfg.mlp_kind == "plain":
             mlp = MLP(cfg.d_model, d_ff, dev, activation=cfg.activation,
                       use_bias=cfg.attn_bias)
         else:
             mlp = GatedMLP(cfg.d_model, d_ff, dev, activation=cfg.activation)
         return Block(cfg.d_model, attn, mlp, norm=cfg.norm,
-                     post_norms=cfg.norm == "rms_offset", device=dev)
+                     post_norms=cfg.norm == "rms_offset", ssm=self._ssm(dev),
+                     parallel_ssm=cfg.parallel_ssm, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -192,8 +240,10 @@ class TransformerLM(nn.Module):
         embeddings (S' = P + S). With ``cache`` and ``cache_index`` (an int,
         or a (B,) tensor of per-slot cursors for single-token steps) the S'
         tokens are a decode chunk written at ``cache_index``; the cache is
-        updated in place and returned. ``remat``: recompute each layer (or
-        pair) in the backward instead of keeping its activations.
+        updated in place and returned. An SSM's chunk of S' > 1 tokens
+        must be a multiple of its scan chunk (or shorter than it), as in
+        the reference. ``remat``: recompute each layer (or pair) in the
+        backward instead of keeping its activations.
         """
         cfg = self.cfg
         dtype = cfg.compute_dtype
@@ -211,9 +261,8 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embedding(positions, dtype)
         pose = positions.to(torch.float32)[..., None]
         step = None
-        if cache is not None:
-            g0 = cache["group0"]
-            rows = next(iter(g0.get("a", g0).values()))   # "k" or MLA's "ckv"
+        rows = None if cache is None else self._rows(cache)
+        if rows is not None:
             step = cache_step(cache_index, s, b, rows.shape[3], x.device)
         remat = remat and cache is None and torch.is_grad_enabled()
         aux = torch.zeros((), device=x.device)
@@ -238,19 +287,47 @@ class TransformerLM(nn.Module):
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         return logits, aux, cache
 
+    @staticmethod
+    def _rows(cache) -> Optional[torch.Tensor]:
+        """A cache's attention rows (``k`` or MLA's ``ckv``: their length is
+        the cache's max_len), or None for an attention-free model."""
+        for bc in _block_caches(cache):
+            for key in ("k", "ckv"):
+                if key in bc:
+                    return bc[key]
+        return None
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         """{"group{i}": {"k", "v"[, "k_scale", "v_scale"]}} (MLA:
         {"ckv"}), each stacked over the group's layers (a pair group:
         {"a": ..., "b": ...}, each stacked over its pairs); ``dtype`` as
-        ``Attention.init_cache`` (MLA takes no int8)."""
+        ``Attention.init_cache`` (MLA takes no int8). An SSM block's dict
+        also holds its recurrent state (``Block.init_cache``: never int8;
+        the compute dtype stands in for an int8 ``dtype``)."""
         def one(blk, n):
-            return blk.attn.init_cache(batch, max_len, dtype, layers=n)
+            return blk.init_cache(batch, max_len, dtype, layers=n,
+                                  compute_dtype=self.cfg.compute_dtype)
 
         return {f"group{gi}": ({"a": one(group[0].a, len(group)),
                                 "b": one(group[0].b, len(group))}
                                if isinstance(group[0], LayerPair)
                                else one(group[0], len(group)))
                 for gi, group in enumerate(self.groups)}
+
+    @staticmethod
+    def reset_slots(cache: Dict[str, Any], slots) -> None:
+        """Zero the recurrent state (SSM state, channel-mix shift) of the
+        cache's batch rows ``slots`` in every layer, in place, before a
+        new sequence starts there. Attention rows are left: the new
+        sequence's cursor starts at 0 and no decode reads past it."""
+        for bc in _block_caches(cache):
+            for key in _STATE_KEYS:
+                if key not in bc:
+                    continue
+                tensors = (bc[key].values() if isinstance(bc[key], dict)
+                           else (bc[key],))
+                for t in tensors:
+                    t[:, slots] = 0
 
 
 def build_model(cfg, impl: Optional[str] = None, *, device=None,

@@ -9,7 +9,11 @@
   decoding, with no head-of-line blocking.
 * Retired slots are re-admitted at once. Their stale rows are unreachable:
   the new request's cursor restarts at 0 and the decode reads no row at or
-  past a slot's cursor.
+  past a slot's cursor. An SSM's recurrent state has no cursor, so
+  admission zeroes the slot's (``model.reset_slots``). The reference
+  resets only the cursor, so there a re-admitted request of hymba or
+  rwkv6 starts from the slot's last state (free slots are decoded every
+  tick, so that state drifts): a deliberate difference.
 
 Sampling stays on the host, from the last-token logits, greedy or at a
 temperature, with the reference's numpy generator.
@@ -72,11 +76,15 @@ class Server:
         self.queue.append(request)
 
     def _admit(self):
-        for slot in self.slots:
+        admitted = []
+        for i, slot in enumerate(self.slots):
             if slot.request is None and self.queue:
                 slot.request = self.queue.pop(0)
                 slot.cursor = 0
                 slot.prefill_pos = 0
+                admitted.append(i)
+        if admitted:
+            self.model.reset_slots(self.cache, admitted)
 
     # -- main loop -----------------------------------------------------------
     def step(self):

@@ -1033,6 +1033,10 @@ LM_TRAIN_FLASH = {
                                                  scale=144 ** -0.5)),
     "softcap_bends": (1, 8, 4, 300, 128, dict(causal=True, window=100,
                                                softcap=2.0)),
+    # hymba-1.5b's heads (25 / 5 x 64), windowed past its first keys and
+    # global (its window 1,024 cut to 128 with the sequence)
+    "hymba_local": (2, 25, 5, 384, 64, dict(causal=True, window=128)),
+    "hymba_global": (2, 25, 5, 384, 64, dict(causal=True)),
 }
 
 
@@ -1251,3 +1255,141 @@ def test_moe_lm_on_the_card_matches_the_cpu(dev, arch):
     for name, w in want_g.items():
         err = float((got_g[name].cpu() - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)
+
+
+# -- the SSM families (hymba-1.5b, rwkv6-7b) ----------------------------------
+
+# (cursors, window): hymba's tick, 25 query heads over 5 kv heads of 64, its
+# windowed layers' window 1,024 with every cursor past it, and its global
+# layers (no window)
+HYMBA_DECODE_CASES = {"windowed": ([1100, 1500, 2048], 1024),
+                      "global": ([1100, 1500, 2048], None)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", sorted(HYMBA_DECODE_CASES))
+def test_hymba_decode_matches_plain(dev, name, cache_dtype, q_dtype):
+    """The decode at hymba's heads, windowed and global, against the plain
+    version; rows past each cursor NaN (int8: NaN scales); bitwise
+    repeatable."""
+    cursors, window = HYMBA_DECODE_CASES[name]
+    b, s = len(cursors), max(cursors)
+    g = torch.Generator(device=dev).manual_seed(12)
+    k = torch.randn((2, b, 5, s, 64), generator=g, device=dev)
+    v = torch.randn((2, b, 5, s, 64), generator=g, device=dev)
+    q = torch.randn((b, 25, 1, 64), generator=g, device=dev).to(
+        getattr(torch, q_dtype))
+    kvl = torch.tensor(cursors, dtype=torch.int32, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= kvl[:, None].long()
+    opts = {}
+    if cache_dtype == "int8":
+        (k, ks), (v, vs) = fd.quantize_kv(k), fd.quantize_kv(v)
+        opts = {n: torch.where(past[None, :, None], float("nan"),
+                               x).contiguous()
+                for n, x in (("k_scale", ks), ("v_scale", vs))}
+    else:
+        dt = getattr(torch, cache_dtype)
+        k = torch.where(past[None, :, None, :, None], float("nan"), k).to(dt)
+        v = torch.where(past[None, :, None, :, None], float("nan"), v).to(dt)
+    if window is not None:
+        opts.update(window=window,
+                    q_times=(kvl[:, None] - 1).contiguous(),
+                    k_times=torch.arange(s, dtype=torch.int32, device=dev)[
+                        None].expand(b, s).contiguous())
+    _check_decode(q, k.contiguous(), v.contiguous(), kvl, opts, cache_dtype,
+                  None)
+
+
+def _ssm_pair(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.nn.transformer import build_model
+    cfg = get_config(arch).reduced(dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+def test_ssm_lm_on_the_card_matches_the_cpu(dev, arch):
+    """The reduced SSM config on the card against the same weights on the
+    CPU: the full forward, a 16-token chunk and 16 decoded tokens (hymba's
+    window of 16 biting), and the train step's gradients, with the
+    attention kernels' launches exact (rwkv6 has none)."""
+    import numpy as np
+    from repro_torch.data import synthetic_lm
+    from repro_torch.kernels import cuda
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_train_step
+    cfg, cpu, card = _ssm_pair(dev, arch)
+    n = cfg.num_layers if cfg.attention_kind != "none" else 0
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32)))
+    logits = []
+    for m, t in ((cpu, toks), (card, toks.to(dev))):
+        with torch.no_grad():
+            full, _, _ = m(t)
+            cache = m.init_cache(2, 32, torch.float32)
+            cuda.reset_launches()
+            steps = [m(t[:, :16], cache=cache, cache_index=0)[0]]
+            steps += [m(t[:, i:i + 1], cache=cache, cache_index=i)[0]
+                      for i in range(16, 32)]
+        logits.append((full, torch.cat(steps, 1)))
+    assert dict(cuda.LAUNCHES) == ({"flash_decode": 17 * n} if n else {})
+    for a, b in zip(logits[1], logits[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(logits[1][1], logits[1][0], atol=2e-3,
+                               rtol=2e-2)
+    batch = synthetic_lm.generate_batch(0, 0, 2, synthetic_lm.LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=48))
+    want_g, want_m = make_train_step(cpu, adamw(1e-3)).grads(batch)
+    cuda.reset_launches()
+    got_g, got_m = make_train_step(card, adamw(1e-3)).grads(batch)
+    torch.cuda.synchronize()
+    assert dict(cuda.LAUNCHES) == ({"flash_attention_fwd": 2 * n,
+                                    "flash_attention_dq": n,
+                                    "flash_attention_dkv": n} if n else {})
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]),
+                               rtol=1e-5)
+    for name, w in want_g.items():
+        err = float((got_g[name].cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+def test_ssm_server_zeroes_state_at_admission_on_the_card(dev, arch):
+    """Five requests through two slots on the card: an admitted slot's
+    recurrent state is zero, and each request (three re-admitted into a
+    used slot) equals its solo run."""
+    import numpy as np
+    from repro_torch.runtime.server import Request, Server
+    cfg, _, card = _ssm_pair(dev, arch)
+    rng = np.random.default_rng(4)
+    requests = [(uid, rng.integers(1, cfg.vocab_size, rng.integers(2, 9)),
+                 int(rng.integers(3, 9))) for uid in range(5)]
+
+    def serve(reqs, slots):
+        srv = Server(card, num_slots=slots, max_len=48)
+        for uid, prompt, new in reqs:
+            srv.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+        while srv.queue or any(sl.request for sl in srv.slots):
+            fresh = [i for i, sl in enumerate(srv.slots)
+                     if sl.request is None and srv.queue]
+            srv._admit()
+            for gc in srv.cache.values():
+                for key in ("ssm", "cmix_shift"):
+                    if key in gc:
+                        state = gc[key]
+                        for t in (state.values() if isinstance(state, dict)
+                                  else (state,)):
+                            assert not t[:, fresh].any(), key
+            srv.step()
+        return {uid: r.generated for uid, r in srv.done.items()}
+
+    got = serve(requests, 2)
+    for req in requests:
+        assert got[req[0]] == serve([req], 1)[req[0]], req[0]
