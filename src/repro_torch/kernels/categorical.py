@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.kernels import cuda
+from repro_torch.obs import cost
 
 
 def categorical_plain(keys: torch.Tensor, steps: torch.Tensor,
@@ -35,13 +36,14 @@ def categorical(keys: torch.Tensor, steps: torch.Tensor,
     """Action ids (B, A) int64 sampled from logits (B, A, K) float32 with
     the lanes' keys (B, 2) int64 folded with their steps (B,) int32: the
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if logits.device.type == "cpu":
-        return categorical_plain(keys, steps, logits)
-    out = torch.empty(logits.shape[:2], dtype=torch.int64,
-                      device=logits.device)
-    _launch(keys, steps, logits, out, None)
-    cuda.count_launch("categorical")
-    return out
+    with cost.kernel_cost(lambda: cost.sampler_cost(logits)):
+        if logits.device.type == "cpu":
+            return categorical_plain(keys, steps, logits)
+        out = torch.empty(logits.shape[:2], dtype=torch.int64,
+                          device=logits.device)
+        _launch(keys, steps, logits, out, None)
+        cuda.count_launch("categorical")
+        return out
 
 
 def categorical_debug(keys: torch.Tensor, steps: torch.Tensor,

@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
+from repro_torch.obs import cost
 
 
 def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
@@ -45,11 +46,14 @@ def decode_attention(q, k, v, *, kv_length, impl: str = "auto",
                   q_segment_ids=q_segment_ids, k_segment_ids=k_segment_ids,
                   q_times=q_times, k_times=k_times, window=window,
                   softcap=softcap, scale=scale, layer=layer)
-    if impl in ("auto", "flash_decode"):
-        return fd.flash_decode(q, k, v, kv_length, num_splits=num_splits,
-                               **common)
-    if impl == "plain":
-        return fd.decode_plain(q, k, v, kv_length, **common)
+    if impl in ("auto", "flash_decode", "plain"):
+        with cost.kernel_cost(lambda: cost.decode_cost(
+                q, k, v, layer, k_scale, v_scale, kv_length, q_times,
+                k_times, q_segment_ids, k_segment_ids)):
+            if impl == "plain":
+                return fd.decode_plain(q, k, v, kv_length, **common)
+            return fd.flash_decode(q, k, v, kv_length,
+                                   num_splits=num_splits, **common)
     if impl == "ref":
         if layer is not None:
             k, v = k[layer], v[layer]
@@ -75,7 +79,8 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_bwd.flash_attention_bwd`, which launch the CUDA
     kernels for CUDA tensors and run their plain versions for CPU tensors;
     ``plain=True`` runs the plain versions on any device. Integer masks
-    and options get no gradient.
+    and options get no gradient. Each direction reports its shape-only
+    cost to a first call being counted (``obs.cost``).
     """
 
     @staticmethod
@@ -84,9 +89,12 @@ class FlashAttention(torch.autograd.Function):
         opts = dict(causal=causal, window=window, softcap=softcap,
                     scale=scale)
         fwd = fa.flash_fwd_plain if plain else fa.flash_attention_fwd
-        out, lse = fwd(q, k, v, q_segment_ids=q_segment_ids,
-                       k_segment_ids=k_segment_ids, q_times=q_times,
-                       k_times=k_times, **opts)
+        with cost.kernel_cost(lambda: cost.flash_fwd_cost(
+                q, k, v, causal, q_times, k_times, q_segment_ids,
+                k_segment_ids)):
+            out, lse = fwd(q, k, v, q_segment_ids=q_segment_ids,
+                           k_segment_ids=k_segment_ids, q_times=q_times,
+                           k_times=k_times, **opts)
         ctx.save_for_backward(q, k, v, out, lse, q_segment_ids,
                               k_segment_ids, q_times, k_times)
         ctx.opts, ctx.plain = opts, plain
@@ -96,9 +104,12 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse, q_seg, k_seg, q_times, k_times = ctx.saved_tensors
         bwd = fab.flash_bwd_plain if ctx.plain else fab.flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, out, lse, g.contiguous(),
-                         q_segment_ids=q_seg, k_segment_ids=k_seg,
-                         q_times=q_times, k_times=k_times, **ctx.opts)
+        with cost.kernel_cost(lambda: cost.flash_bwd_cost(
+                q, k, v, ctx.opts["causal"], q_times, k_times, q_seg,
+                k_seg)):
+            dq, dk, dv = bwd(q, k, v, out, lse, g.contiguous(),
+                             q_segment_ids=q_seg, k_segment_ids=k_seg,
+                             q_times=q_times, k_times=k_times, **ctx.opts)
         return (dq, dk, dv) + (None,) * 9
 
 

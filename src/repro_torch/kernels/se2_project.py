@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import fourier
 from repro_torch.core.encodings import SE2Fourier, _as_compute, _rotate_pairs
 from repro_torch.kernels import cuda
+from repro_torch.obs import cost
 
 _TOKENS_PER_CTA = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -115,9 +116,10 @@ class _Project(torch.autograd.Function):
     def forward(ctx, x, pose, enc, mode):
         ctx.save_for_backward(pose)
         ctx.enc, ctx.mode = enc, mode
-        if x.device.type == "cpu":
-            return se2_project_plain(x, pose, enc, mode)
-        return _launch(x, pose, enc, mode, transposed=False)
+        with cost.kernel_cost(lambda: cost.se2_cost(x, enc, mode, False)):
+            if x.device.type == "cpu":
+                return se2_project_plain(x, pose, enc, mode)
+            return _launch(x, pose, enc, mode, transposed=False)
 
     @staticmethod
     def backward(ctx, g):
@@ -131,9 +133,10 @@ class _ProjectT(torch.autograd.Function):
     def forward(ctx, g, pose, enc, mode):
         ctx.save_for_backward(pose)
         ctx.enc, ctx.mode = enc, mode
-        if g.device.type == "cpu":
-            return se2_project_t_plain(g, pose, enc, mode)
-        return _launch(g, pose, enc, mode, transposed=True)
+        with cost.kernel_cost(lambda: cost.se2_cost(g, enc, mode, True)):
+            if g.device.type == "cpu":
+                return se2_project_t_plain(g, pose, enc, mode)
+            return _launch(g, pose, enc, mode, transposed=True)
 
     @staticmethod
     def backward(ctx, x):

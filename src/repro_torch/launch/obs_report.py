@@ -6,11 +6,11 @@ Consumes the Chrome/Perfetto trace file the telemetry layer writes
 span timeline gives per-region latency percentiles, and the embedded
 ``repro.registry_snapshot`` instant event gives counters (compile
 counts, NaN skips, admissions), gauges (occupancy, resident slots,
-slab bytes), histogram aggregates, and the roofline-style compiled-cost
-table (``cost.*`` gauges recorded once per jitted hot path at compile
-time by the reference's ``repro/obs/cost.py``) — one file, all views. Merged fleet
-traces (``python -m repro_torch.launch.obs_merge``) render with one span row
-per rank.
+slab bytes), histogram aggregates, and the roofline-style cost table
+(``cost.*`` gauges recorded once per hot path at its first call by
+``repro_torch.obs.cost``; the port compiles nothing, so ``compile_s`` stays
+empty) — one file, all views. Merged fleet traces (``python -m
+repro_torch.launch.obs_merge``) render with one span row per rank.
 
 Run:  python -m repro_torch.launch.obs_report /tmp/run.trace.jsonl
       python -m repro_torch.launch.obs_report /tmp/run.trace.jsonl --json
@@ -34,7 +34,7 @@ from repro_torch import obs
 from repro_torch.obs.flight import BUNDLE_KIND
 
 COMPILE_SUFFIX = "_traces"      # counters counting jit trace events
-COST_PREFIX = "cost."           # compiled-cost gauges (repro/obs/cost.py)
+COST_PREFIX = "cost."           # cost gauges (repro_torch/obs/cost.py)
 
 
 def _fmt(v: Any) -> str:

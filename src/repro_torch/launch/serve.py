@@ -8,7 +8,9 @@ Random weights from ``--seed`` (on the card they are drawn by a CUDA
 generator seeded ``--seed``: a full-width model in a fraction of the CPU
 generator's time, other numbers); prompts of 4-11 random tokens from a
 numpy generator seeded ``--seed``. Runs on the card unless ``--device cpu``
-is given; without a card it raises.
+is given; without a card it raises. An encoder-decoder config (whisper)
+exits with the reference's own message: its ``Server`` has no
+encoder-decoder path, and neither has the port's.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced(dtype="float32")
+    if cfg.enc_dec:
+        raise SystemExit("enc-dec serving demo: see examples/ for whisper")
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, generator=torch.Generator(

@@ -70,13 +70,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def make_batch_fn(cfg, seq: int):
     """``make_batch(seed, index, batch)`` of the reference's launcher:
-    synthetic tokens and labels, zero frames or a zero vision prefix where
-    the config takes one."""
+    synthetic tokens and labels, zero frames (an encoder-decoder's) or a
+    zero vision prefix where the config takes one."""
     data_cfg = synthetic_lm.LMDataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=seq)
 
     def make(seed, idx, bs):
         b = synthetic_lm.generate_batch(seed, idx, bs, data_cfg)
+        if cfg.enc_dec:
+            b["frames"] = np.zeros((bs, cfg.encoder_frames, cfg.d_model),
+                                   np.float32)
         if cfg.vision_prefix:
             b["prefix"] = np.zeros((bs, cfg.vision_prefix, cfg.d_model),
                                    np.float32)
@@ -87,7 +90,8 @@ def make_batch_fn(cfg, seq: int):
 
 def run(args) -> dict:
     """The launcher's run; returns the trainer's summary with its loss
-    history under ``"history"``."""
+    history under ``"history"`` and the ``Trainer`` itself (its model
+    and optimizer state) under ``"trainer"``."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise RuntimeError("launch.train runs one process: the LM's "
                            "parameter placement over ranks is ROADMAP A10.9")
@@ -131,7 +135,7 @@ def run(args) -> dict:
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)
     log.info("finished: %s", out)
-    return {**out, "history": list(trainer.history)}
+    return {**out, "history": list(trainer.history), "trainer": trainer}
 
 
 def main(argv=None) -> int:

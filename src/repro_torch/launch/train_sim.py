@@ -33,7 +33,6 @@ which needs 256 ranks and raises on a smaller world.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import logging
 import os
@@ -140,7 +139,7 @@ def _with_nan_injection(step_fn: TrainStep, at_step: int) -> TrainStep:
         calls["n"] += 1
         return g, metrics
 
-    return dataclasses.replace(step_fn, grads=grads)
+    return TrainStep(grads, step_fn.update)
 
 
 def _host_coords():
@@ -184,6 +183,8 @@ def train_single(args, families=None) -> dict:
     step = make_sim_train_step(
         model, opt, group=torch.distributed.group.WORLD if world > 1
         else None)
+    # the first step's FLOPs and bytes land as cost.* gauges (obs/cost.py)
+    step = obs.CostAccounted(step, "train.step", labels={"arch": arch.name})
     opt_state = opt.init(dict(model.named_parameters()))
     if args.inject_nan_at is not None:
         step = _with_nan_injection(step, args.inject_nan_at)

@@ -5,7 +5,9 @@
 GQA, MQA and MHA; rotary positions (``Rope1D``) on all or a fraction of
 each head's columns (stablelm rotates 20 of 80); ``query_scale``; biases;
 a sliding window (a key is kept where ``k_pos > q_pos - window``) and a
-tanh softcap on the scaled scores (gemma2's local layers and every layer).
+tanh softcap on the scaled scores (gemma2's local layers and every layer);
+non-causal attention and cross-attention from a ``kv`` source (whisper's
+encoder and decoder, ``EncDecLM``).
 
 The cache is one layer-stacked buffer per layer group: ``k`` / ``v``
 (L, B, Hkv, max_len, D) in float32, bfloat16 or int8, int8 with float32
@@ -23,6 +25,12 @@ the chunk comes from ``q_times`` / ``k_times`` set to the positions.
 A windowed layer passes the positions as times at every step (the window
 compares them); the decode kernel applies the window and the softcap
 itself. ``impl="chunked"`` (and ``"ref"``) run the reference's way.
+
+Cross-attention has no cache, in the reference as here: at a decode step
+its keys and values are projected from the encoder's output again. The
+reference runs its full attention over them; the port runs the decode
+kernel with every row's ``kv_length`` at the F encoder frames and no
+times (unmasked), since a step's few query rows are its shape.
 
 ``MLAttention`` (deepseek's multi-head latent attention) caches one row a
 token: the normed latent ``ckv`` (``kv_lora_rank`` wide) and the shared
@@ -147,8 +155,9 @@ def _cache_update(buf: torch.Tensor, layer: int, new: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Causal multi-head attention with ``num_kv_heads`` dividing
-    ``num_q_heads``, an optional sliding ``window`` and score ``softcap``.
+    """Multi-head attention with ``num_kv_heads`` dividing ``num_q_heads``,
+    causal unless ``causal=False`` (whisper's encoder and cross-attention),
+    an optional sliding ``window`` and score ``softcap``.
 
     ``impl``: "auto" (the flash forward and the decode kernel on the card,
     their plain versions on the CPU), "plain", "chunked" or "ref" (the
@@ -160,7 +169,7 @@ class Attention(nn.Module):
                  rope_fraction: float = 1.0,
                  query_scale: Optional[float] = None,
                  window: Optional[int] = None,
-                 softcap: Optional[float] = None,
+                 softcap: Optional[float] = None, causal: bool = True,
                  use_bias: bool = False, impl: str = "auto", device=None):
         super().__init__()
         if num_q_heads % num_kv_heads:
@@ -172,6 +181,7 @@ class Attention(nn.Module):
         self.rope_fraction = rope_fraction
         self.query_scale = query_scale
         self.window, self.softcap = window, softcap
+        self.causal = causal
         self.impl = impl
         h, hk, hd, d = num_q_heads, num_kv_heads, head_dim, d_model
         self.q = Dense((d,), (h, hd), device, use_bias=use_bias)
@@ -206,25 +216,38 @@ class Attention(nn.Module):
         return 1.0 / float(self.head_dim) ** 0.5
 
     def forward(self, x: torch.Tensor, pose: Optional[torch.Tensor] = None,
-                *, cache=None, layer: int = 0,
+                *, kv: Optional[torch.Tensor] = None, kv_length=None,
+                cache=None, layer: int = 0,
                 step: Optional[CacheStep] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
-        """x (B, S, d_model); pose (B, S, 1) positions. Without a cache: the
-        full causal forward. With ``cache`` (a group's stacked dict) and
+        """x (B, S, d_model); pose (B, S, 1) positions. ``kv`` (B, F,
+        d_model): the cross-attention source, keys and values projected from
+        it instead of x. Without a cache: the full forward (causal unless
+        ``causal=False``). With ``kv_length`` ((B,) int32, F for every row):
+        a decode step's cross-attention, the few new query rows against all
+        F keys through the decode kernel, unmasked (the reference runs its
+        full attention there). With ``cache`` (a group's stacked dict) and
         ``step``: write the S new rows at layer ``layer`` and attend the
         cache."""
         impl = impl or self.impl
+        src = x if kv is None else kv
         q = _split_heads(self.q(x), self.num_q_heads, self.head_dim)
-        k = _split_heads(self.k(x), self.num_kv_heads, self.head_dim)
-        v = _split_heads(self.v(x), self.num_kv_heads, self.head_dim)
+        k = _split_heads(self.k(src), self.num_kv_heads, self.head_dim)
+        v = _split_heads(self.v(src), self.num_kv_heads, self.head_dim)
         q, k = self._encode(q, k, pose)
-        if cache is None:
+        if cache is not None:
+            out = self._decode(q, k, v, cache, layer, step, impl)
+        elif kv_length is not None and impl not in ("chunked", "ref"):
+            out = ops.decode_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                kv_length=kv_length,
+                impl="plain" if impl == "plain" else "auto",
+                scale=self._scale(), softcap=self.softcap)
+        else:
             out = ops.attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), impl=impl,
-                causal=True, window=self.window, softcap=self.softcap,
+                causal=self.causal, window=self.window, softcap=self.softcap,
                 scale=self._scale())
-        else:
-            out = self._decode(q, k, v, cache, layer, step, impl)
         return self.o(_merge_heads(out))
 
     def _decode(self, q, k, v, cache, layer, step, impl):
@@ -241,7 +264,7 @@ class Attention(nn.Module):
             if "k_scale" in cache:
                 ck = dequantize_kv(ck, cache["k_scale"][layer], dtype=q.dtype)
                 cv = dequantize_kv(cv, cache["v_scale"][layer], dtype=q.dtype)
-            return ops.attention(q, ck, cv, impl=impl, causal=True,
+            return ops.attention(q, ck, cv, impl=impl, causal=self.causal,
                                  window=self.window, softcap=self.softcap,
                                  scale=self._scale(), q_offset=step.index)
         q_times, k_times = (step.times() if self.window is not None

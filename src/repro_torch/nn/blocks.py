@@ -3,10 +3,11 @@ pre-norms, optional post-norms (gemma2's), a sequence mixer and a channel
 mixer (an MLP, RWKV's channel mix, or a ``MoE`` whose load-balance loss
 the block returns beside its output).
 
-The sequence mixer is an attention (``Attention`` or ``MLAttention``), an
-SSM (``MambaMixer`` or ``RWKV6TimeMix``; rwkv6's has no attention beside
-it), or both: with ``parallel_ssm`` (hymba) each branch's output is
-RMS-normed and the two are averaged; without it they are summed.
+The sequence mixer is an attention (``Attention``, causal or not as
+whisper's encoder, or ``MLAttention``), an SSM (``MambaMixer`` or
+``RWKV6TimeMix``; rwkv6's has no attention beside it), or both: with
+``parallel_ssm`` (hymba) each branch's output is RMS-normed and the two
+are averaged; without it they are summed.
 
 A block's slice of its group's cache is one dict: the attention's rows
 (``k`` / ``v`` and their scales, or MLA's ``ckv``), the SSM's recurrent

@@ -1,8 +1,9 @@
-"""Config-driven decoder LM (port of ``repro/nn/transformer.py``:
-``TransformerLM`` and ``build_model``) for the dense families (stablelm-3b,
-phi4-mini-3.8b, granite-20b, internvl2-26b's backbone, gemma2-27b), the
-MoE families (deepseek-v2-lite-16b with MLA, kimi-k2-1t-a32b) and the SSM
-families (hymba-1.5b, rwkv6-7b).
+"""Config-driven LMs (port of ``repro/nn/transformer.py``:
+``TransformerLM``, ``EncDecLM`` and ``build_model``): the decoder-only
+dense families (stablelm-3b, phi4-mini-3.8b, granite-20b, internvl2-26b's
+backbone, gemma2-27b), the MoE families (deepseek-v2-lite-16b with MLA,
+kimi-k2-1t-a32b), the SSM families (hymba-1.5b, rwkv6-7b) and the
+encoder-decoder (whisper-base).
 
 The model is built from a ``ModelConfig`` as layer groups, one
 ``nn.ModuleList`` per group (the reference scans a stacked group;
@@ -38,8 +39,14 @@ writes the new rows and state and returns the same cache dict. No cursor
 masks a recurrent state as it masks rows: :meth:`TransformerLM.reset_slots`
 zeroes a slot's state before a new sequence starts in it.
 
-Families the port has not taken yet raise ``NotImplementedError`` naming
-their ROADMAP item: enc-dec.
+:class:`EncDecLM` (whisper's family; the conv frontend is stubbed in
+the reference too, so its inputs are precomputed frame embeddings): a
+non-causal encoder over the frames with sinusoidal positions, and a
+causal decoder with learned positions whose every layer adds
+cross-attention over the encoder's output. Its cache is one stack of the
+decoder's self-attention rows; cross-attention is not cached (the
+reference projects its keys and values again at every step). Every
+registered family builds: :func:`unsupported` is None for each.
 """
 from __future__ import annotations
 
@@ -53,7 +60,8 @@ from repro_torch.core.encodings import Rope1D
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import Attention, MLAttention, cache_step
 from repro_torch.nn.blocks import Block, make_norm
-from repro_torch.nn.layers import Dense, Embedding
+from repro_torch.nn.layers import (Dense, Embedding, LayerNorm,
+                                   sinusoidal_positions)
 from repro_torch.nn.mlp import MLP, GatedMLP, RWKVChannelMix
 from repro_torch.nn.module import init_params
 from repro_torch.nn.moe import MoE
@@ -66,10 +74,18 @@ _STATE_KEYS = ("ssm", "cmix_shift")
 
 def unsupported(cfg) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet (with the ROADMAP item that
-    will port it), or None."""
-    if cfg.enc_dec:
-        return "encoder-decoder models (ROADMAP A10.5)"
+    will port it), or None: None for every registered config."""
     return None
+
+
+def _positions(cache_index, b: int, s: int, device) -> torch.Tensor:
+    """(B, S) int64 positions of S tokens starting at ``cache_index`` (0,
+    an int or a (B,) tensor of per-slot cursors)."""
+    ar = torch.arange(s, device=device)
+    if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
+        return cache_index.to(device, torch.int64)[:, None] + ar
+    start = 0 if cache_index is None else int(cache_index)
+    return (start + ar)[None].expand(b, s)
 
 
 class LayerPair(nn.Module):
@@ -251,12 +267,7 @@ class TransformerLM(nn.Module):
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(dtype), x], 1)
         b, s, _ = x.shape
-        ar = torch.arange(s, device=x.device)
-        if isinstance(cache_index, torch.Tensor) and cache_index.ndim == 1:
-            positions = cache_index.to(x.device, torch.int64)[:, None] + ar
-        else:
-            start = 0 if cache_index is None else int(cache_index)
-            positions = (start + ar)[None].expand(b, s)
+        positions = _positions(cache_index, b, s, x.device)
         if cfg.learned_positions:
             x = x + self.pos_embedding(positions, dtype)
         pose = positions.to(torch.float32)[..., None]
@@ -330,9 +341,125 @@ class TransformerLM(nn.Module):
                     t[:, slots] = 0
 
 
+class CrossLayer(nn.Module):
+    """A decoder layer's cross-attention, added to the residual: LayerNorm,
+    then non-causal attention from the encoder's output (the reference's
+    ``cross`` stack of ``norm`` and ``attn``)."""
+
+    def __init__(self, d_model: int, attn: Attention, device=None):
+        super().__init__()
+        self.norm = LayerNorm(d_model, device=device)
+        self.attn = attn
+
+    def forward(self, x, enc_out, *, kv_length=None, impl=None):
+        return x + self.attn(self.norm(x), kv=enc_out, kv_length=kv_length,
+                             impl=impl)
+
+
+class EncDecLM(nn.Module):
+    """Encoder-decoder transformer (whisper's family); built on ``device``
+    with weights from ``generator`` as :class:`TransformerLM`.
+
+    Parameters follow the reference's tree: ``embedding`` (tied logits),
+    ``pos_embedding`` (learned decoder positions), ``encoder`` and
+    ``decoder`` (``Block`` s, LayerNorm, a plain gelu MLP and biased
+    attention; the encoder's non-causal), ``cross`` (:class:`CrossLayer`
+    a decoder layer), ``enc_norm`` and ``dec_norm``."""
+
+    def __init__(self, cfg, impl: Optional[str] = None, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is not an encoder-decoder config")
+        self.cfg = cfg
+        self.impl = impl or "auto"
+        dev = resolve_device(device)
+        d = cfg.d_model
+        self.embedding = Embedding(cfg.padded_vocab, d, dev)
+        self.pos_embedding = Embedding(cfg.max_position, d, dev, scale=0.01)
+        self.encoder = nn.ModuleList(self._block(dev, causal=False)
+                                     for _ in range(cfg.encoder_layers))
+        self.decoder = nn.ModuleList(self._block(dev, causal=True)
+                                     for _ in range(cfg.num_layers))
+        self.cross = nn.ModuleList(
+            CrossLayer(d, self._attention(dev, causal=False), dev)
+            for _ in range(cfg.num_layers))
+        self.enc_norm = LayerNorm(d, device=dev)
+        self.dec_norm = LayerNorm(d, device=dev)
+        init_params(self, generator if generator is not None
+                    else torch.Generator().manual_seed(0))
+
+    def _attention(self, dev, causal: bool) -> Attention:
+        cfg = self.cfg
+        return Attention(cfg.d_model, cfg.num_q_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, causal=causal, use_bias=True,
+                         impl=self.impl, device=dev)
+
+    def _block(self, dev, causal: bool) -> Block:
+        cfg = self.cfg
+        return Block(cfg.d_model, self._attention(dev, causal),
+                     MLP(cfg.d_model, cfg.d_ff, dev, activation="gelu"),
+                     norm="layer", device=dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.embedding.device
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, F, d_model), the stubbed frontend's output -> the
+        encoder's output (B, F, d_model) in the compute dtype."""
+        x = frames.to(self.device, self.cfg.compute_dtype)
+        pos = sinusoidal_positions(x.shape[1], self.cfg.d_model)
+        x = x + pos.to(x.device, x.dtype)[None]
+        for blk in self.encoder:
+            x, _ = blk(x, impl=self.impl)
+        return self.enc_norm(x)
+
+    def decode(self, tokens: torch.Tensor, enc_out: torch.Tensor, *,
+               cache: Optional[Dict[str, Any]] = None, cache_index=None):
+        """tokens (B, S) -> (logits (B, S, padded_vocab), cache). With
+        ``cache`` and ``cache_index`` (as :meth:`TransformerLM.forward`'s)
+        the tokens are a decode chunk written into the decoder's stacked
+        cache in place, and cross-attention runs the decode kernel over
+        the F frames of ``enc_out``."""
+        dtype = self.cfg.compute_dtype
+        x = self.embedding(tokens, dtype)
+        b, s, _ = x.shape
+        x = x + self.pos_embedding(_positions(cache_index, b, s, x.device),
+                                   dtype)
+        step = kv_length = None
+        if cache is not None:
+            step = cache_step(cache_index, s, b, cache["k"].shape[3],
+                              x.device)
+            kv_length = torch.full((b,), enc_out.shape[1],
+                                   dtype=torch.int32, device=x.device)
+        for i, (blk, cross) in enumerate(zip(self.decoder, self.cross)):
+            x, _ = blk(x, cache=cache, layer=i, step=step, impl=self.impl)
+            x = cross(x, enc_out, kv_length=kv_length, impl=self.impl)
+        return self.embedding.attend(self.dec_norm(x)), cache
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor, *,
+                cache: Optional[Dict[str, Any]] = None, cache_index=None):
+        """(logits, aux (a float32 zero), cache): the encoder over
+        ``frames``, then :meth:`decode`. The reference's enc-dec forward
+        takes no ``remat``; neither does this one."""
+        logits, cache = self.decode(tokens, self.encode(frames), cache=cache,
+                                    cache_index=cache_index)
+        return logits, torch.zeros((), device=logits.device), cache
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """The decoder's self-attention cache, one group stacked over its
+        layers: {"k", "v"} (L, B, H, max_len, D) (int8 adds the scales), as
+        the reference's ``EncDecLM.init_cache``."""
+        return self.decoder[0].init_cache(
+            batch, max_len, dtype, layers=len(self.decoder),
+            compute_dtype=self.cfg.compute_dtype)
+
+
 def build_model(cfg, impl: Optional[str] = None, *, device=None,
-                generator: Optional[torch.Generator] = None
-                ) -> TransformerLM:
-    """The model of ``cfg`` (the reference's ``build_model``); raises
-    ``NotImplementedError`` for a family the port has not taken yet."""
-    return TransformerLM(cfg, impl, device=device, generator=generator)
+                generator: Optional[torch.Generator] = None):
+    """The model of ``cfg`` (the reference's ``build_model``): an
+    :class:`EncDecLM` for an encoder-decoder config, else a
+    :class:`TransformerLM`."""
+    cls = EncDecLM if cfg.enc_dec else TransformerLM
+    return cls(cfg, impl, device=device, generator=generator)

@@ -12,12 +12,14 @@
     print(obs.prometheus_text(reg))                  # /metrics payload
 
 The port's ``Trainer`` and ``RolloutEngine`` take ``registry=``: ``None``
-means the process default; ``obs.NULL`` turns their telemetry off. The
-reference's compiled-cost accounting (``repro/obs/cost.py``,
-``CostAccounted``) wraps JAX's AOT compile and is not ported yet
-(ROADMAP A10).
+means the process default; ``obs.NULL`` turns their telemetry off.
+``CostAccounted`` records a hot path's FLOPs and bytes as ``cost.*``
+gauges once, at its first call (``obs/cost.py``: the reference reads them
+from its compiled program).
 """
 from repro_torch.obs import fleet
+from repro_torch.obs.cost import (CostAccounted, compiled_cost,
+                                  record_compiled_cost)
 from repro_torch.obs.export import (SNAPSHOT_EVENT, prometheus_text,
                                     read_chrome_trace, write_chrome_trace)
 from repro_torch.obs.flight import FlightRecorder
@@ -27,4 +29,5 @@ from repro_torch.obs.registry import (NULL, Counter, Gauge, Histogram,
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "NULL",
            "get_registry", "set_registry", "write_chrome_trace",
            "read_chrome_trace", "prometheus_text", "SNAPSHOT_EVENT",
+           "CostAccounted", "compiled_cost", "record_compiled_cost",
            "FlightRecorder", "fleet"]

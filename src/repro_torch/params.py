@@ -1,13 +1,17 @@
 """Weights across the two packages.
 
 The reference keeps an agent-sim model's weights as a nested dict with the
-layers stacked on a leading axis under ``"blocks"``, and an LM's each layer
+layers stacked on a leading axis under ``"blocks"``, an LM's each layer
 group under ``"group{g}"`` (stacked where the group has more than one
-layer); the port keeps one module per layer. Both store a Dense kernel as
+layer), and an encoder-decoder's ``"encoder"``, ``"decoder"`` and
+``"cross"`` stacks (stacked at any depth, as ``"blocks"``); the port keeps
+one module per layer. Both store a Dense kernel as
 ``in_shape + out_shape``, so crossing over is a renaming plus the
 (un)stacking:
 
   tree["blocks"]["attn"]["q"]["kernel"][i]  <->  "blocks.{i}.attn.q.kernel"
+  tree["cross"]["attn"]["q"]["kernel"][i]   <->  "cross.{i}.attn.q.kernel"
+                                                 (and "encoder", "decoder")
   tree["group{g}"]["attn"]["q"]["kernel"][i] <-> "groups.{g}.{i}.attn.q.kernel"
   tree["group{g}"]["attn"]["q"]["kernel"]    <-> "groups.{g}.0.attn.q.kernel"
                                                  (a group of one layer)
@@ -17,7 +21,7 @@ layer); the port keeps one module per layer. Both store a Dense kernel as
                                                  pairs, "a" and "b")
 
 Every other leaf (``embedding``, ``pos_embedding``, ``final_norm``,
-``lm_head``, ...) crosses as it is.
+``lm_head``, ``enc_norm``, ``dec_norm``, ...) crosses as it is.
 
 The same mapping carries any dict of tensors named like the model's
 parameters, such as AdamW's ``mu`` and ``nu`` (checkpoints store them in
@@ -32,7 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_STACKED = "blocks"
+# top-level subtrees the reference stacks over layers at any depth
+_STACKED = ("blocks", "encoder", "decoder", "cross")
 _GROUP = re.compile(r"^group(\d+)$")
 
 
@@ -77,9 +82,9 @@ def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
     for name, arr in _flatten(tree):
         head, _, rest = name.partition(".")
         group = _GROUP.match(head)
-        if head == _STACKED:
+        if head in _STACKED:
             for i in range(arr.shape[0]):
-                out[f"{_STACKED}.{i}.{rest}"] = _tensor(arr[i], device)
+                out[f"{head}.{i}.{rest}"] = _tensor(arr[i], device)
         elif group and stacked.get(head):
             for i in range(arr.shape[0]):
                 out[f"groups.{group[1]}.{i}.{rest}"] = _tensor(arr[i], device)
@@ -92,11 +97,12 @@ def from_reference(tree, device=None) -> Dict[str, torch.Tensor]:
 
 def reference_leaf(name: str) -> str:
     """The reference's leaf of a port parameter name: ``blocks.{i}.rest``
-    belongs to the stacked ``blocks.rest``, ``groups.{g}.{i}.rest`` to
-    ``group{g}.rest``; any other name is its own."""
+    belongs to the stacked ``blocks.rest`` (so do the encoder-decoder's
+    stacks), ``groups.{g}.{i}.rest`` to ``group{g}.rest``; any other name
+    is its own."""
     parts = name.split(".")
-    if parts[0] == _STACKED and len(parts) > 2 and parts[1].isdigit():
-        return ".".join([_STACKED] + parts[2:])
+    if parts[0] in _STACKED and len(parts) > 2 and parts[1].isdigit():
+        return ".".join([parts[0]] + parts[2:])
     if parts[0] == "groups" and len(parts) > 3 and parts[1].isdigit() \
             and parts[2].isdigit():
         return ".".join([f"group{parts[1]}"] + parts[3:])
@@ -107,7 +113,7 @@ def layer_index(name: str) -> int:
     """The layer (or pair) a port parameter belongs to within its group,
     0 for a name outside any."""
     parts = name.split(".")
-    if parts[0] == _STACKED and len(parts) > 2 and parts[1].isdigit():
+    if parts[0] in _STACKED and len(parts) > 2 and parts[1].isdigit():
         return int(parts[1])
     if parts[0] == "groups" and len(parts) > 3 and parts[2].isdigit():
         return int(parts[2])
@@ -127,15 +133,17 @@ def reference_groups(names) -> Dict[str, list]:
 def is_stacked(leaf: str, names) -> bool:
     """Whether the reference stacks the port tensors ``names`` of its leaf
     ``leaf``: a layer group of more than one layer, or the agent-sim
-    ``blocks`` (stacked at any depth), as :func:`reference_tensors` does."""
-    return len(names) > 1 or leaf.startswith(_STACKED + ".")
+    ``blocks`` and the encoder-decoder's stacks (stacked at any depth), as
+    :func:`reference_tensors` does."""
+    return len(names) > 1 or leaf.split(".")[0] in _STACKED
 
 
 def reference_tensors(named: Mapping[str, torch.Tensor]):
     """The reference's tree of tensors from a flat name -> tensor dict, on
-    the tensors' device: the ``blocks`` layers, and the layers of each LM
-    group of more than one, stacked by ``torch.stack`` (new tensors); every
-    other leaf the caller's own tensor."""
+    the tensors' device: the layers of ``blocks`` (and of the
+    encoder-decoder's stacks), and of each LM group of more than one,
+    stacked by ``torch.stack`` (new tensors); every other leaf the caller's
+    own tensor."""
     stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     tree: Dict = {}
     groups: Dict[str, Dict[str, Dict[int, torch.Tensor]]] = {}
@@ -148,15 +156,16 @@ def reference_tensors(named: Mapping[str, torch.Tensor]):
 
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == _STACKED:
-            stacked.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in _STACKED:
+            stacked.setdefault(".".join([parts[0]] + parts[2:]),
+                               {})[int(parts[1])] = t
         elif parts[0] == "groups":
             groups.setdefault(f"group{parts[1]}", {}).setdefault(
                 ".".join(parts[3:]), {})[int(parts[2])] = t
         else:
             put(parts, t.detach())
-    for rest, layers in stacked.items():
-        put([_STACKED] + rest.split("."),
+    for leaf, layers in stacked.items():
+        put(leaf.split("."),
             torch.stack([layers[i].detach() for i in range(len(layers))]))
     for group, leaves in groups.items():
         for rest, layers in leaves.items():

@@ -20,8 +20,10 @@ Telemetry (``registry=``, :mod:`repro_torch.obs`) as in the reference: spans
 clock around the asynchronous launches, the ``rollout.ticks`` counter and
 the ``rollout.cache_bytes`` gauge from shape metadata. No instrument reads
 a device value, so telemetry adds no synchronisation and obs-on and
-obs-off rollouts are bitwise equal. The reference's compiled-cost
-wrappers (``CostAccounted``) are not ported yet (ROADMAP A10).
+obs-off rollouts are bitwise equal. The prefill and the tick body are
+``obs.CostAccounted`` under ``"rollout.prefill"`` and ``"rollout.step"``:
+their first calls' FLOPs and bytes land as ``cost.*`` gauges, counted from
+shapes alone.
 
 Fleet rollouts (``mesh=``, a ("pod", "data") mesh of
 :mod:`repro_torch.launch.mesh`): the slots split over the mesh's ranks,
@@ -121,6 +123,12 @@ class RolloutEngine:
                                       dtype=torch.float32, device=model.device)
         self._yaw = torch.as_tensor(scen_cfg.yaw_values(),
                                     dtype=torch.float32, device=model.device)
+        # the first prefill and tick are counted once (obs/cost.py) and
+        # recorded as cost.* gauges; every later call is the bare body
+        self._prefill = obs.CostAccounted(self._prefill_body,
+                                          "rollout.prefill", registry=self.obs)
+        self._step = obs.CostAccounted(self._step_body, "rollout.step",
+                                       registry=self.obs)
         self.ticks = 0
         self.last_actions = None      # (S, K, T_fut, A) after each run()
 
@@ -153,6 +161,10 @@ class RolloutEngine:
                                         impl=self.decode_impl)
         return cache, logits, pose, speed
 
+    def _prefill_body(self, cache, hist):
+        """The history's prefill into a fresh cache: (logits, cache)."""
+        return self.model.prefill(cache, hist, impl=self.decode_impl)
+
     def _step_body(self, cache, logits, pose, speed, feats_proto, valid,
                    lane_keys, t: int):
         """One engine tick on the device: sample from the previous logits
@@ -173,8 +185,7 @@ class RolloutEngine:
         poses (B, t_total - t_hist, A, 3) and actions (B, T_fut, A)."""
         cache = self.init_cache()
         with self.obs.span("rollout.prefill"):
-            hist_logits, cache = self.model.prefill(cache, hist,
-                                                    impl=self.decode_impl)
+            hist_logits, cache = self._prefill(cache, hist)
         logits = hist_logits[:, -1]
         pose = hist["agent_pose"][:, -1]
         speed = hist["agent_feats"][:, -1, :, 0] * 10.0
@@ -185,7 +196,7 @@ class RolloutEngine:
         for t in range(t_hist, t_total):
             # host time of the tick's launches; no added synchronisation
             with self.obs.span("rollout.step"):
-                cache, logits, pose, speed, acts = self._step_body(
+                cache, logits, pose, speed, acts = self._step(
                     cache, logits, pose, speed, feats_proto, valid,
                     lane_keys, t)
             self.ticks += 1

@@ -51,8 +51,9 @@ The reference jits its tick and admission and counts their compilations;
 eager PyTorch compiles nothing, so ``stats()`` reports 0 for both. The
 port's guard on the hot loop is its launches: exactly the model step's
 kernels a tick and a map prefill's an admission, however the slots churn.
-The reference's compiled-cost gauges (``CostAccounted``) are not ported
-yet (ROADMAP A10).
+The tick and the admission bodies are ``obs.CostAccounted`` under
+``"sim_server.tick"`` and ``"sim_server.admit"``: their first calls'
+FLOPs and bytes land as ``cost.*`` gauges, counted from shapes alone.
 """
 from __future__ import annotations
 
@@ -209,6 +210,12 @@ class SimServer:
         self.obs.counter("sim_server.admit_traces")
         self.obs.gauge("sim_server.slab_rows").set(num_slots * self.max_len)
         self.obs.gauge("sim_server.slab_bytes").set(self._slab_bytes())
+        # the first tick and admission are counted once (obs/cost.py) and
+        # recorded as cost.* gauges; every later call is the bare body
+        self._tick = obs.CostAccounted(self._tick_body, "sim_server.tick",
+                                       registry=self.obs)
+        self._admit = obs.CostAccounted(self._admit_impl, "sim_server.admit",
+                                        registry=self.obs)
 
     def _slab_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.cache.values())
@@ -293,7 +300,7 @@ class SimServer:
                 .record(now - submit_ts)
             key = prng.lane_key(req.seed, req.scene_id, req.sample_id)
             with self.obs.span("sim_server.admit"):
-                self._admit_impl(req.tensors, si, key)
+                self._admit(req.tensors, si, key)
             slot.req = req
             slot.t = 0
             t_fut = req.t_total - req.t_hist
@@ -425,7 +432,7 @@ class SimServer:
         if not active.any():
             return False
         with torch.profiler.record_function("sim_server.tick"):
-            acts, pose = self._tick_body(*(self._to_device(x) for x in (
+            acts, pose = self._tick(*(self._to_device(x) for x in (
                 tfeats, tpose, tvalid, t_vec, active, teacher)))
             if routes:
                 self._pending.append((routes, *self._to_host(acts, pose)))

@@ -37,7 +37,8 @@ def make_train_step(model, optimizer: Optimizer, *,
     """The LM train step (the reference's ``make_train_step``): the full
     forward over ``batch["tokens"]`` (after ``batch["prefix"]`` for a
     vision-prefix config, whose positions are then dropped from the
-    logits), ``lm_loss`` on ``batch["labels"]`` plus the model's aux loss,
+    logits; with ``batch["frames"]`` through the encoder for an
+    encoder-decoder, whose forward takes no ``remat``), ``lm_loss`` on ``batch["labels"]`` plus the model's aux loss,
     their gradients and the optimizer step.
 
     The forward runs in ``cfg.compute_dtype``: each layer casts its float32
@@ -55,9 +56,12 @@ def make_train_step(model, optimizer: Optimizer, *,
     def grads_half(batch):
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}
-        logits, aux, _ = model(
-            batch["tokens"], remat=remat,
-            prefix_embeds=batch["prefix"] if cfg.vision_prefix else None)
+        if cfg.enc_dec:
+            logits, aux, _ = model(batch["frames"], batch["tokens"])
+        else:
+            logits, aux, _ = model(
+                batch["tokens"], remat=remat,
+                prefix_embeds=batch["prefix"] if cfg.vision_prefix else None)
         if cfg.vision_prefix:
             logits = logits[:, cfg.vision_prefix:]
         loss = lm_loss(logits, batch["labels"])
@@ -78,12 +82,15 @@ def make_train_step(model, optimizer: Optimizer, *,
 def make_prefill_step(model) -> Callable:
     """``prefill(batch) -> logits (B, vocab)`` of the last position of the
     full forward over ``batch["tokens"]`` (after ``batch["prefix"]`` for a
-    vision-prefix config)."""
+    vision-prefix config; over ``batch["frames"]`` and the tokens for an
+    encoder-decoder). Nothing is cached."""
     cfg = model.cfg
 
     @torch.no_grad()
     def prefill(batch):
-        if cfg.vision_prefix:
+        if cfg.enc_dec:
+            logits, _, _ = model(batch["frames"], batch["tokens"])
+        elif cfg.vision_prefix:
             logits, _, _ = model(batch["tokens"],
                                  prefix_embeds=batch["prefix"])
         else:
@@ -94,14 +101,20 @@ def make_prefill_step(model) -> Callable:
 
 
 def make_serve_step(model) -> Callable:
-    """``serve_step(cache, tokens, index) -> (logits (B, vocab), cache)``:
-    one decode step of ``tokens`` (B, S) written into the preallocated
-    ``cache`` at ``index`` (an int, or a (B,) tensor of per-slot cursors
-    with S = 1); the cache is updated in place."""
+    """``serve_step(cache, tokens, index, enc_out=None) -> (logits (B,
+    vocab), cache)``: one decode step of ``tokens`` (B, S) written into the
+    preallocated ``cache`` at ``index`` (an int, or a (B,) tensor of
+    per-slot cursors with S = 1); the cache is updated in place. An
+    encoder-decoder decodes against ``enc_out`` (``model.encode``'s)."""
+    enc_dec = model.cfg.enc_dec
 
     @torch.no_grad()
-    def serve_step(cache, tokens, index):
-        logits, _, cache = model(tokens, cache=cache, cache_index=index)
+    def serve_step(cache, tokens, index, enc_out=None):
+        if enc_dec:
+            logits, cache = model.decode(tokens, enc_out, cache=cache,
+                                         cache_index=index)
+        else:
+            logits, _, cache = model(tokens, cache=cache, cache_index=index)
         return logits[:, -1], cache
 
     return serve_step

@@ -20,8 +20,9 @@ Port of ``repro/training/comparison.py``: ``device`` (default the card)
 goes to every model and to the evaluation; ``mesh`` / ``dp_compress``
 train through the compressed-DP step over a ("pod", "data") mesh, every
 rank of it calling :func:`run_comparison` alike, and ``eval_mesh`` splits
-the closed-loop scoring's lanes over a fleet mesh. The reference's
-compiled-cost gauges wait for ``obs/cost.py`` (ROADMAP A10).
+the closed-loop scoring's lanes over a fleet mesh. Each run's first step
+lands as ``cost.*{path="train.step", encoding=...}`` gauges
+(``obs.CostAccounted``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import SimArch
 from repro_torch.data.pipeline import ShardedIterator
 from repro_torch.launch.mesh import rank0_tempdir
@@ -87,6 +89,10 @@ def train_one(arch: SimArch, *, steps: int, batch: int, lr: float = 3e-3,
         step_fn = make_sim_dp_train_step(model, opt, mesh,
                                          compress=dp_compress)
         opt_state = sim_dp_state(opt, params)
+    # the first step's FLOPs and bytes land as cost.* gauges labeled per
+    # encoding
+    step_fn = obs.CostAccounted(step_fn, "train.step",
+                                labels={"encoding": arch.encoding})
     data = ShardedIterator(make_batch_fn(arch.scenario_config()),
                            batch_size=batch, seed=seed)
     if ckpt_dir is None:

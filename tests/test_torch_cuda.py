@@ -401,6 +401,12 @@ FLASH_CASES = {
     "sim_c700": (1, 2, 2, 96, 96, 700, 700, "scene"),
     "wide_300_100": (2, 4, 2, 37, 53, 300, 100, dict(causal=True)),
     "wide_40_520": (1, 2, 2, 45, 45, 40, 520, "scene"),
+    # whisper-base: the encoder's 1,500 frames (no tile divides it),
+    # non-causal; the decoder's causal 448; the cross-attention, 448 rows
+    # against the 1,500 frames
+    "whisper_enc": (1, 8, 8, 1500, 1500, 64, 64, {}),
+    "whisper_dec": (1, 8, 8, 448, 448, 64, 64, dict(causal=True)),
+    "whisper_cross": (1, 8, 8, 448, 1500, 64, 64, {}),
 }
 
 
@@ -1393,3 +1399,135 @@ def test_ssm_server_zeroes_state_at_admission_on_the_card(dev, arch):
     got = serve(requests, 2)
     for req in requests:
         assert got[req[0]] == serve([req], 1)[req[0]], req[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_cross_decode_layer_none(dev, dtype):
+    """The decode at whisper's cross-attention tick: 8 slots x 8 heads x 1
+    row x 64 against the 1,500 frames' keys, a 4-d key set (``layer=None``),
+    every row's kv_length 1,500 and no times (unmasked), against the plain
+    version; bitwise repeatable."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(17)
+    dt = getattr(torch, dtype)
+    q = torch.randn((8, 8, 1, 64), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((8, 8, 1500, 64), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    kvl = torch.full((8,), 1500, dtype=torch.int32, device=dev)
+    run = lambda impl: ops.decode_attention(  # noqa: E731
+        q, k, v, kv_length=kvl, impl=impl, scale=0.125)
+    got, again, want = run("flash_decode"), run("flash_decode"), run("plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **DECODE_TOL[dtype])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_whisper_on_the_card_matches_the_cpu(dev):
+    """The reduced whisper on the card against the same weights on the CPU:
+    the encoder, the full forward, a 3-token chunk and 5 decoded tokens
+    (the decode kernel for self- and cross-attention), and the train step's
+    gradients, the kernels' launches exact."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.steps import make_serve_step, make_train_step
+    from repro_torch.nn.transformer import build_model
+    cfg = get_config("whisper-base").reduced(dtype="float32")
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.normal(size=(2, 32, 128)).astype(
+        np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    outs = []
+    for m, f, t in ((cpu, frames, toks), (card, frames.to(dev),
+                                          toks.to(dev))):
+        serve = make_serve_step(m)
+        cuda.reset_launches()
+        with torch.no_grad():
+            full, _, _ = m(f, t)
+            enc = m.encode(f)
+            cache = m.init_cache(2, 8, "float32")
+            steps = [m.decode(t[:, :3], enc, cache=cache, cache_index=0)[0]]
+            steps += [serve(cache, t[:, i:i + 1], i, enc_out=enc)[0][:, None]
+                      for i in range(3, 8)]
+        outs.append((full, torch.cat(steps, 1)))
+    assert dict(cuda.LAUNCHES) == {
+        "flash_attention_fwd": 2 * n_enc + 2 * n_dec,
+        "flash_decode": 2 * n_dec * 6}
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(outs[1][1], outs[1][0], atol=2e-3, rtol=2e-2)
+    batch = {"tokens": toks.numpy(), "labels": np.roll(toks.numpy(), -1, 1),
+             "frames": frames.numpy()}
+    want_g, want_m = make_train_step(cpu, adamw(1e-3)).grads(batch)
+    cuda.reset_launches()
+    got_g, got_m = make_train_step(card, adamw(1e-3)).grads(batch)
+    torch.cuda.synchronize()
+    n = n_enc + 2 * n_dec
+    assert dict(cuda.LAUNCHES) == {"flash_attention_fwd": n,
+                                   "flash_attention_dq": n,
+                                   "flash_attention_dkv": n}
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]),
+                               rtol=1e-5)
+    for name, w in want_g.items():
+        err = float((got_g[name].cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + 1e-7, (name, err)
+
+
+@pytest.mark.gpu
+def test_cost_gauges_on_the_card_match_the_formulas(dev):
+    """The reduced sim model's engine, server and train step on the card:
+    each path's counted FLOPs within 1% of ``analytic_flops`` at the same
+    call's shapes and its kernels' share equal, as on the CPU."""
+    from repro_torch import obs
+    from repro_torch import scenarios as tscen
+    from repro_torch.nn.agent_sim import AgentSimConfig, AgentSimModel
+    from repro_torch.obs import cost
+    from repro_torch.runtime import RolloutEngine
+    from repro_torch.runtime.sim_server import SceneRequest, SimServer
+    from repro_torch.training.data import make_sim_batch
+    from repro_torch.training.steps import bc_optimizer, make_sim_train_step
+    scen = tscen.ScenarioConfig(num_map=8, num_agents=3, num_steps=7)
+    model = AgentSimModel(AgentSimConfig(
+        d_model=48, num_layers=2, num_heads=2, head_dim=24, d_ff=96,
+        fourier_terms=8, num_actions=scen.num_actions), device=dev)
+    scenes = [tscen.generate_scene("freeform", 0, i, scen) for i in range(2)]
+    eng = RolloutEngine(model, scen, num_slots=2, registry=obs.NULL)
+    srv = SimServer(model, scen, num_slots=2, registry=obs.NULL)
+    seen = {}
+    wrapped = {"rollout.prefill": (eng._prefill, eng._prefill_body),
+               "rollout.step": (eng._step, eng._step_body),
+               "sim_server.tick": (srv._tick, srv._tick_body),
+               "sim_server.admit": (srv._admit, srv._admit_impl)}
+    for path, (w, _) in wrapped.items():
+        inner = w._fn
+
+        def spy(*args, _inner=inner, _path=path):
+            seen.setdefault(_path, args)
+            return _inner(*args)
+        w._fn = spy
+    eng.run(scenes, t_hist=3, n_samples=1, seed=0)
+    srv.submit(SceneRequest(uid=0, tensors=scenes[0], t_hist=3))
+    srv.run_until_drained()
+    checks = []
+    for path, (w, body) in wrapped.items():
+        with torch.no_grad():
+            checks.append((path, w.cost, cost.analytic_flops(
+                model, lambda: body(*seen[path]))))
+    step = make_sim_train_step(model, bc_optimizer(1e-3, 2))
+    counted = obs.CostAccounted(step, "train.step", registry=obs.NULL)
+    batch = make_sim_batch(0, 0, 2, scen)
+    counted.grads(batch)
+    counted.grads(batch)          # an update skipped: the count is recorded
+    checks.append(("train.step", counted.cost, cost.analytic_flops(
+        model, lambda: step.grads(batch))))
+    for path, rec, (flops, kernel) in checks:
+        assert rec["kernel_flops"] == kernel > 0, path
+        assert abs(rec["flops"] - flops) <= 0.01 * flops, (path, rec, flops)

@@ -32,11 +32,12 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.nn import attention as tattn  # noqa: E402
 from repro_torch.nn import layers as tlayers  # noqa: E402
 from repro_torch.nn.module import count_params  # noqa: E402
-from repro_torch.nn.transformer import build_model  # noqa: E402
+from repro_torch.nn.transformer import build_model, unsupported  # noqa: E402
 from repro_torch.runtime import steps as tsteps  # noqa: E402
 
 DENSE = ("stablelm-3b", "phi4-mini-3.8b", "granite-20b", "internvl2-26b")
 MOE = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b")
+# the family the port took last (enc-dec): it builds now
 UNPORTED = ("whisper-base",)
 # the reference's own counts of the MoE configs' specs
 MOE_COUNTS = {"deepseek-v2-lite-16b": 15_706_484_224,
@@ -104,8 +105,13 @@ def test_count_params_on_meta(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        build_model(configs.get_config(arch), device="meta")
+    """whisper-base was the last family the port lacked (its encoder-decoder
+    is ported since, ``tests/test_torch_encdec.py``): it builds now, and
+    ``unsupported`` names no family of the registry."""
+    model = build_model(configs.get_config(arch), device="meta")
+    assert type(model).__name__ == "EncDecLM"
+    assert [a for a in configs.ARCH_NAMES
+            if unsupported(configs.get_config(a)) is not None] == []
 
 
 def test_activations_match_jax():

@@ -297,7 +297,9 @@ def _names(snapshot, events):
                                                "histograms")
              for inst in snapshot[kind]}
     names |= {("events", e["name"]) for e in events}
-    # the reference's compiled-cost gauges (CostAccounted) are not ported
+    # the cost gauges differ on purpose: the port counts a first call, with
+    # no compile times and a kernel_flops gauge of its own (the names are
+    # held in tests/test_torch_cost.py)
     return {n for n in names if not n[1].startswith("cost.")}
 
 
