@@ -328,6 +328,16 @@ Run from the root of a checkout. Phases, each of which fails the run:
    call's shapes with the kernels' share equal, and so do the forwards of
    sim-se2-fourier and whisper-base; the counted first call's seconds
    beside a bare call's.
+18. the dry-run (``launch/dryrun.py``) on the meta device, on a one-card
+   mesh, against two steps earlier phases ran here: 14c's phi4-mini bf16
+   AdamW train step (2 x 512 tokens; its first step counted by
+   ``CostAccounted``; the dry-run given its optimizer) and 17b's float32 whisper-base tick (its float32
+   run's first tick counted; the ticks' peak memory measured): FLOPs
+   and bytes accessed equal, predicted memory (arguments + the step's peak) within 20% of
+   the weights, state and peak the card measured; the measured seconds
+   beside the roofline bound, model FLOPs and the useful share; then
+   ``lower_cell("phi4-mini-3.8b", "train_4k")`` at the production mesh's
+   sizes, counted on this host, with its seconds.
 
 Every phase's wall seconds are logged as it ends, and together before the
 kernels' record.
@@ -627,6 +637,11 @@ WHISPER_LAUNCH = ("--batch", "2", "--seq", "448")
 WHISPER_LAUNCH_STEPS = (4, 2)        # (straight, stopped at)
 COST_SCENES, COST_REL_TOL = 8, 0.01
 SCAN_SPAN = "ssm_scan"
+# phase 18: the dry-run's predicted memory of a step (its arguments and the
+# peak of what it allocates) against the card's, within this share; phases
+# 14c and 17b leave their steps' counts and measurements here
+DRYRUN_MEM_TOL = 0.20
+DRYRUN_HELD = {}
 
 # bound_ms denominators of phase 6's new rows: bf16 products on the tensor
 # cores (H100 SXM data sheet), and 32-bit integer operations for the
@@ -3979,6 +3994,7 @@ def lm_train_full(dev, launches):
     """Phase 14c: phi4-mini-3.8b at full width and depth, bf16 compute,
     float32 master weights: launch/train's AdamW chain, then adafactor."""
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import cuda
     from repro_torch.nn.module import count_params
     from repro_torch.optim import (adafactor, adamw, chain,
@@ -4002,6 +4018,8 @@ def lm_train_full(dev, launches):
         params = dict(model.named_parameters())
         state = opt.init(params)
         step = make_train_step(model, opt, remat=True)
+        if what == "AdamW":     # the first step counted: phase 18's yardstick
+            step = obs.CostAccounted(step, "14c.train", registry=obs.NULL)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, secs = [], []
@@ -4033,6 +4051,9 @@ def lm_train_full(dev, launches):
     if not ends["loss_last"] < ends["loss_first"]:
         raise AssertionError(f"14c AdamW: the loss did not fall: {losses}")
     med = statistics.median(secs[1:])
+    DRYRUN_HELD["train"] = dict(cfg=cfg, b=LM_TRAIN_B, s=LM_TRAIN_S,
+                                cost=step.cost, measured=weights + peak,
+                                step_s=med, what="14c's AdamW step", opt=opt)
     log(f"14c {LM_ARCH} at full width and depth ({cfg.num_layers} layers, "
         f"{n_params:,} parameters, {weights / 2**30:.2f} GiB of float32 "
         f"weights), compute {cfg.dtype}, remat, {LM_TRAIN_STEPS} AdamW steps "
@@ -5803,6 +5824,7 @@ def whisper_serving(dev, launches):
     ticks, peak memory; then the bf16 config teacher-forced over the same
     tokens, its top-1 agreement with float32 printed."""
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import cuda
     from repro_torch.nn.module import count_params
     from repro_torch.runtime.steps import make_serve_step
@@ -5818,12 +5840,14 @@ def whisper_serving(dev, launches):
     prompt = torch.randint(1, cfg.vocab_size, (slots, WHISPER_PROMPT),
                            generator=gen, device=dev)
     serve = make_serve_step(model)
+    # the float32 run's first tick counted: phase 18's yardstick
+    counted = obs.CostAccounted(serve, "17b.tick", registry=obs.NULL)
     n_dec = cfg.num_layers
 
-    def decode(tokens=None):
+    def decode(tokens=None, tick=serve):
         """(logits of every position, the tokens fed, the encode's and
         the chunk's seconds, each tick's seconds): greedy, or teacher-forced
-        over ``tokens``."""
+        over ``tokens``; ``tick`` runs each serve step."""
         t0 = time.perf_counter()
         with torch.no_grad():
             enc = model.encode(frames)
@@ -5836,13 +5860,15 @@ def whisper_serving(dev, launches):
             torch.cuda.synchronize()
             chunk_s = time.perf_counter() - t0
             outs, fed, ticks = [chunk], [prompt], []
-            nxt = chunk[:, -1].argmax(-1, keepdim=True)
+            # int32 tokens, as the Server feeds a tick (and as the dry-run's
+            # input specs hold them: phase 18 compares the counts)
+            nxt = chunk[:, -1].argmax(-1, keepdim=True).int()
             for i in range(WHISPER_TICKS):
                 pos = WHISPER_PROMPT + i
                 tok = nxt if tokens is None else tokens[:, pos:pos + 1]
                 t0 = time.perf_counter()
-                lg, cache = serve(cache, tok, pos, enc_out=enc)
-                nxt = lg.argmax(-1, keepdim=True)
+                lg, cache = tick(cache, tok, pos, enc_out=enc)
+                nxt = lg.argmax(-1, keepdim=True).int()
                 torch.cuda.synchronize()
                 ticks.append(time.perf_counter() - t0)
                 outs.append(lg[:, None])
@@ -5856,7 +5882,7 @@ def whisper_serving(dev, launches):
             "flash_decode": 2 * n_dec * (1 + WHISPER_TICKS)}
     cuda.reset_launches()
     with PlainCalls() as plain:
-        cached, toks, enc_s, chunk_s, ticks = decode()
+        cached, toks, enc_s, chunk_s, ticks = decode(tick=counted)
         peak = torch.cuda.max_memory_allocated() - base
         if dict(cuda.LAUNCHES) != want or plain.calls:
             raise AssertionError(f"17b decode: launches {dict(cuda.LAUNCHES)}"
@@ -5873,6 +5899,7 @@ def whisper_serving(dev, launches):
         launches[k_] += v_
     err = close_or_raise("17b whisper decode vs the full forward", cached,
                          full, **LM_GATE_TOL)
+    ticks = ticks[1:]       # the first, counted by CostAccounted, left out
     med = statistics.median(ticks)
     log(f"17b {WHISPER_ARCH} at full width and depth ({n_params:,} "
         f"parameters, float32): {slots} requests of {cfg.encoder_frames} "
@@ -5899,9 +5926,21 @@ def whisper_serving(dev, launches):
                 serve(cache, toks[:, pos:pos + 1], pos, enc_out=enc)
             torch.cuda.synchronize()
 
+    # the ticks' peak above what they hold (weights, cache, encoder
+    # output, a token each slot): phase 18 holds the dry-run's memory to it
+    torch.cuda.synchronize()
+    held = sum(t_.numel() * t_.element_size()
+               for t_ in itertools.chain(model.parameters(), cache.values(),
+                                         (enc,))) + slots * 8
+    pre = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ticks_run()
     wall = time.perf_counter() - t0
+    DRYRUN_HELD["decode"] = dict(
+        cfg=cfg, b=slots, s=total, cost=counted.cost,
+        measured=held + torch.cuda.max_memory_allocated() - pre,
+        step_s=med, what="17b's float32 tick")
     device_profile(ticks_run, wall, ("tick", lambda: WHISPER_PROFILE_TICKS),
                    f"17b {WHISPER_ARCH} ticks")
     for k_, v_ in cuda.LAUNCHES.items():
@@ -6233,6 +6272,81 @@ def encdec_phase(launches, max_err, records):
     del model
     torch.cuda.empty_cache()
     phase_done("17", t_phase)
+
+
+def dryrun_phase():
+    """Phase 18: ``launch/dryrun.py``'s ``lower_cell`` on the ``meta``
+    device, on a one-card mesh, held to steps phases 14c and 17b ran on
+    this card: FLOPs equal to their ``CostAccounted`` counts, predicted
+    memory (arguments and the step's peak of live storages) within
+    DRYRUN_MEM_TOL of what they measured; the measured seconds a step
+    beside the roofline bound; then a full-size cell at the production
+    mesh's sizes, counted on this host."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW, hw
+    t_phase = time.perf_counter()
+    phase("18. the dry-run on the meta device against the card's steps")
+    one_card = {"data": 1, "model": 1}
+    for mode in ("train", "decode"):
+        held = DRYRUN_HELD[mode]
+        cfg = held["cfg"]
+        shape = ShapeConfig(f"{mode}_{held['b']}x{held['s']}", held["s"],
+                            held["b"], mode)
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(cfg.name, shape.name, False, cfg=cfg,
+                                shape=shape, mesh=one_card,
+                                opt=held.get("opt"))
+        secs = time.perf_counter() - t0
+        for key in ("flops", "bytes_accessed"):
+            got, card = rec["full_depth"][key], held["cost"][key]
+            if got != card:
+                raise AssertionError(f"18 {held['what']}: the dry-run counts "
+                                     f"{got} {key}, the card's step {card}")
+        flops = rec["full_depth"]["flops"]
+        mem = rec["memory"]
+        pred = mem["argument_bytes"] + mem["temp_bytes"]
+        gap = pred / held["measured"] - 1
+        if abs(gap) > DRYRUN_MEM_TOL:
+            raise AssertionError(f"18 {held['what']}: predicted {pred} B, "
+                                 f"measured {held['measured']} B ({gap:+.1%})")
+        bound = rec["terms"]["bound_s"]
+        log(f"18 {cfg.name} {held['what']} ({cfg.dtype}, {held['b']} x "
+            f"{held['s']}), counted on meta in {secs:.1f} s: {flops:.6g} "
+            f"FLOPs and {rec['full_depth']['bytes_accessed']:.6g} bytes "
+            f"accessed, equal to the card's CostAccounted count; memory "
+            f"predicted {pred / 2**30:.3f} GiB (arguments "
+            f"{mem['argument_bytes'] / 2**30:.3f} + temp "
+            f"{mem['temp_bytes'] / 2**30:.3f}) against "
+            f"{held['measured'] / 2**30:.3f} GiB measured (the arguments + "
+            f"{(held['measured'] - mem['argument_bytes']) / 2**30:.3f}), gap "
+            f"{gap:+.2%} "
+            f"(gate {DRYRUN_MEM_TOL:.0%}); extrapolation rel err "
+            f"{rec['extrapolation_rel_err']:.1e}")
+        log(f"18 {held['what']}: measured {held['step_s'] * 1e3:.2f} ms a "
+            f"step beside the roofline bound {bound * 1e3:.3f} ms "
+            f"({rec['terms']['dominant']}): {held['step_s'] / bound:.2f}x "
+            f"the bound")
+        log(f"18 {held['what']}: model_flops {rec['model_flops']:.6g}, "
+            f"useful_flops_frac {rec['useful_flops_frac']:.4f}")
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(LM_ARCH, "train_4k", multi_pod=False)
+    secs = time.perf_counter() - t0
+    if rec["status"] != "ok" or rec["extrapolation_rel_err"] > 1e-6:
+        raise AssertionError(f"18 {LM_ARCH} train_4k: {rec}")
+    t = rec["terms"]
+    log(f"18 lower_cell({LM_ARCH!r}, 'train_4k', multi_pod=False) on this "
+        f"host in {secs:.1f} s: {rec['batch_per_rank']} x 4,096 tokens a "
+        f"rank of the (16, 16) mesh, {rec['flops']:.6g} FLOPs a rank, "
+        f"compute {t['compute_s'] * 1e3:.1f} ms, memory "
+        f"{t['memory_s'] * 1e3:.1f} ms, collective "
+        f"{t['collective_s'] * 1e3:.1f} ms ({t['dominant']}), useful "
+        f"{rec['useful_flops_frac']:.4f}; {rec['hbm_per_chip_gib']:.1f} GiB "
+        f"a chip by the rules, "
+        f"{rec['memory_replicated']['hbm_per_chip_gib']:.1f} GiB as placed "
+        f"today; fits against this card's {hw()['hbm_bytes']:.0f} B (the "
+        f"table's {HW['hbm_bytes']:.0f})")
+    phase_done("18", t_phase)
 
 
 def main() -> int:
@@ -6951,6 +7065,9 @@ def main() -> int:
 
     # 17. the encoder-decoder; the cost gauges ------------------------------
     encdec_phase(launches, max_err, records)
+
+    # 18. the dry-run against the card's steps ------------------------------
+    dryrun_phase()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -107,6 +107,36 @@ class ModelConfig:
         mult = 128
         return self.vocab_size + (-self.vocab_size) % mult
 
+    def depth_variant(self, iters: int) -> "ModelConfig":
+        """Full-width config whose every multi-layer group runs ``iters``
+        iterations (the reference's): the dry-run counts two such variants
+        and extrapolates linearly to the full depth (layer groups are
+        homogeneous)."""
+        if self.window_pattern == "alternating":
+            n = 2 * iters
+        elif self.window_pattern == "mostly_local":
+            n = 3 + 2 * iters
+        elif self.moe and self.moe.first_k_dense:
+            n = self.moe.first_k_dense + iters
+        else:
+            n = iters
+        kw = dict(num_layers=n)
+        if self.enc_dec:
+            kw["encoder_layers"] = iters
+            kw["num_layers"] = iters
+        return dataclasses.replace(self, **kw)
+
+    def scan_iters(self) -> int:
+        """Iterations across multi-layer groups: the variable of the
+        dry-run's linear extrapolation, matching :meth:`depth_variant`."""
+        if self.window_pattern == "alternating":
+            return self.num_layers // 2
+        if self.window_pattern == "mostly_local":
+            return self.num_layers - 3
+        if self.moe and self.moe.first_k_dense:
+            return self.num_layers - self.moe.first_k_dense
+        return self.num_layers   # an encoder-decoder's two stacks move together
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests."""
         n_small = min(self.num_layers,

@@ -35,12 +35,15 @@ def categorical(keys: torch.Tensor, steps: torch.Tensor,
                 logits: torch.Tensor) -> torch.Tensor:
     """Action ids (B, A) int64 sampled from logits (B, A, K) float32 with
     the lanes' keys (B, 2) int64 folded with their steps (B,) int32: the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors, the output
+    alone for meta tensors."""
     with cost.kernel_cost(lambda: cost.sampler_cost(logits)):
         if logits.device.type == "cpu":
             return categorical_plain(keys, steps, logits)
         out = torch.empty(logits.shape[:2], dtype=torch.int64,
                           device=logits.device)
+        if logits.device.type == "meta":
+            return out
         _launch(keys, steps, logits, out, None)
         cuda.count_launch("categorical")
         return out

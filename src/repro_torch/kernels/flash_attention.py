@@ -7,6 +7,10 @@
   same recurrence over key blocks, never an (Sq, Sk) tensor larger than one
   block.
 
+On a ``meta`` tensor (the dry-run's, ``launch/dryrun.py``) the wrapper
+allocates its outputs and computes nothing; its caller reports the
+kernel's cost formula as it does for the card (``obs/cost.py``).
+
 Both return ``(out, lse)``: out (B, Hq, Sq, Dv) in v's dtype and the
 float32 row log-sum-exp (B, Hq, Sq) the backward recomputes probabilities
 from. Masks: causal and sliding window over indices, or over ``q_times`` /
@@ -103,20 +107,23 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         q_segment_ids=None, k_segment_ids=None,
                         q_times=None, k_times=None):
     """Flash-attention forward: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. q (B, Hq, Sq, D); k (B, Hkv, Sk, D);
-    v (B, Hkv, Sk, Dv); times / segment ids (B, S) int32 or None, in (q, k)
-    pairs. Returns (out, lse)."""
+    version for CPU tensors, outputs alone for meta tensors. q (B, Hq, Sq,
+    D); k (B, Hkv, Sk, D); v (B, Hkv, Sk, Dv); times / segment ids (B, S)
+    int32 or None, in (q, k) pairs. Returns (out, lse)."""
     kw = mask_options(causal=causal, window=window, softcap=softcap,
                       scale=scale, q_segment_ids=q_segment_ids,
                       k_segment_ids=k_segment_ids, q_times=q_times,
                       k_times=k_times)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, **kw)
-    check_inputs(q, k, v, **kw)
+    if q.device.type != "meta":
+        check_inputs(q, k, v, **kw)
     b, hq, sq, d = q.shape
     hkv, sk, dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((b, hq, sq, dv), dtype=v.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), device=q.device)
+    if q.device.type == "meta":
+        return out, lse
     _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_mask_ptrs(kw),
               out.data_ptr(), lse.data_ptr(), b, hq, hkv, sq, sk, d, dv,
               *_mask_args(kw, d), _DTYPES[q.dtype],

@@ -95,14 +95,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         q_segment_ids=None, k_segment_ids=None,
                         q_times=None, k_times=None):
     """Flash-attention backward: the dq and dk/dv kernels for CUDA tensors,
-    the plain version for CPU tensors. q, k, v as the forward; o and do
-    (B, Hq, Sq, Dv); lse (B, Hq, Sq) float32. Returns (dq, dk, dv)."""
+    the plain version for CPU tensors, outputs alone for meta tensors. q,
+    k, v as the forward; o and do (B, Hq, Sq, Dv); lse (B, Hq, Sq)
+    float32. Returns (dq, dk, dv)."""
     kw = mask_options(causal=causal, window=window, softcap=softcap,
                       scale=scale, q_segment_ids=q_segment_ids,
                       k_segment_ids=k_segment_ids, q_times=q_times,
                       k_times=k_times)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.sum(do.float() * o.float(), dim=-1)
     return (flash_attention_dq(q, k, v, do, lse, delta, **kw),
             *flash_attention_dkv(q, k, v, do, lse, delta, **kw))

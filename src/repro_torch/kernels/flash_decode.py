@@ -178,7 +178,7 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
                  num_splits: Optional[int] = None,
                  layer: Optional[int] = None) -> torch.Tensor:
     """Split-K ragged decode: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Shapes as :func:`decode_plain`; q float32 or
+    version for CPU tensors, the output alone for meta tensors. Shapes as :func:`decode_plain`; q float32 or
     bfloat16, and the (B, Hq, Sq, Dv) output in q's dtype, as the
     reference's. Any row width (past 256 columns the kernel runs column
     windows of at most 256, each recomputing the scores). ``num_splits`` (CUDA
@@ -196,6 +196,9 @@ def flash_decode(q, k, v, kv_length, *, k_scale=None, v_scale=None,
                             k_segment_ids=k_segment_ids, q_times=q_times,
                             k_times=k_times, window=window, softcap=softcap,
                             scale=scale, layer=layer)
+    if q.device.type == "meta":
+        return torch.empty(q.shape[:3] + v.shape[-1:], dtype=q.dtype,
+                           device=q.device)
     _check_window(window, softcap, q_times)
     return _launch(q, k, v, kv_length, k_scale, v_scale, q_segment_ids,
                    k_segment_ids, q_times, k_times, window, softcap, scale,

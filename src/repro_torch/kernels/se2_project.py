@@ -7,7 +7,8 @@ values, as ``transform_v`` is ``transform_k``). :func:`se2_fourier_project_t`
 is its transpose: ``phi_q g``, which is ``untransform_out``, or ``phi_k^T g``.
 For a CUDA tensor both launch the kernels in ``csrc/se2_project.cu``; for a
 CPU tensor they run the plain versions, :func:`se2_project_plain` and
-:func:`se2_project_t_plain`.
+:func:`se2_project_t_plain`; for a meta tensor they allocate the output
+and compute nothing.
 
 The projection is linear in x, so each direction's backward is the other
 direction at the same pose: the two autograd Functions are each other's
@@ -119,6 +120,8 @@ class _Project(torch.autograd.Function):
         with cost.kernel_cost(lambda: cost.se2_cost(x, enc, mode, False)):
             if x.device.type == "cpu":
                 return se2_project_plain(x, pose, enc, mode)
+            if x.device.type == "meta":
+                return x.new_empty(x.shape[:-1] + (enc.expanded_dim,))
             return _launch(x, pose, enc, mode, transposed=False)
 
     @staticmethod
@@ -136,6 +139,8 @@ class _ProjectT(torch.autograd.Function):
         with cost.kernel_cost(lambda: cost.se2_cost(g, enc, mode, True)):
             if g.device.type == "cpu":
                 return se2_project_t_plain(g, pose, enc, mode)
+            if g.device.type == "meta":
+                return g.new_empty(g.shape[:-1] + (enc.head_dim,))
             return _launch(g, pose, enc, mode, transposed=True)
 
     @staticmethod

@@ -13,8 +13,8 @@ share a card); it never switches backend when initialisation fails. Every
 mesh needs a process group up; ranks outside a prefix mesh
 (``num_devices`` below the world) hold no coordinate in it.
 
-The reference's ``HW`` table holds TPU v5e constants for its roofline
-tool and is not carried over.
+:data:`HW` is the roofline tool's hardware table (``launch/roofline.py``,
+``launch/dryrun.py``): the reference's keys, for an H100 SXM 80GB.
 """
 from __future__ import annotations
 
@@ -115,6 +115,37 @@ def mesh_shape(mesh) -> dict:
     if hasattr(mesh, "mesh_dim_names"):
         return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     return dict(mesh)
+
+
+# Hardware constants for the roofline model: one H100 SXM 80GB and its
+# links, the reference's keys (its own table is a TPU v5e's).
+HW = {
+    "name": "h100_sxm_80gb",
+    # dense bf16 tensor-core peak, NVIDIA H100 SXM datasheet
+    "peak_flops_bf16": 989.4e12,
+    # HBM3 bandwidth, NVIDIA H100 SXM datasheet
+    "hbm_bw": 3.35e12,
+    # NVLink 4: 900 GB/s a GPU both ways, 450 GB/s per direction
+    "ici_bw": 450e9,
+    # across hosts: one 400 Gb/s NDR InfiniBand port per GPU
+    "dci_bw": 50e9,
+    # bytes a program can hold: what CUDA reports as an H100 80GB HBM3's
+    # memory (``torch.cuda.get_device_properties(0).total_memory``,
+    # 79.18 GiB: the datasheet's 80 GB less what the driver keeps), so
+    # that ``fits_hbm`` reads the same with and without a card
+    "hbm_bytes": 85_017_493_504,
+}
+
+
+def hw() -> dict:
+    """:data:`HW`, with ``hbm_bytes`` read from the card where one is
+    present (``torch.cuda.get_device_properties(0).total_memory``: the
+    table's own on an H100 SXM 80GB)."""
+    table = dict(HW)
+    if torch.cuda.is_available():
+        table["hbm_bytes"] = float(
+            torch.cuda.get_device_properties(0).total_memory)
+    return table
 
 
 def rank0_tempdir(prefix: str) -> str:

@@ -158,10 +158,11 @@ class SimAttention(nn.Module):
         self.cfg = cfg
         self.enc = build_sim_encoding(cfg)
         d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-        self.q = Dense((d,), (h, hd), device)
-        self.k = Dense((d,), (h, hd), device)
-        self.v = Dense((d,), (h, hd), device)
-        self.o = Dense((h, hd), (d,), device)
+        emb, heads = ("embed",), ("heads", "head_dim")
+        self.q = Dense((d,), (h, hd), device, in_axes=emb, out_axes=heads)
+        self.k = Dense((d,), (h, hd), device, in_axes=emb, out_axes=heads)
+        self.v = Dense((d,), (h, hd), device, in_axes=emb, out_axes=heads)
+        self.o = Dense((h, hd), (d,), device, in_axes=heads, out_axes=emb)
 
     @property
     def cache_dims(self) -> Tuple[int, int]:
@@ -273,15 +274,19 @@ class AgentSimModel(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         d = cfg.d_model
-        self.map_enc = Dense((cfg.map_feat_dim,), (d,), dev)
-        self.agent_enc = Dense((cfg.agent_feat_dim,), (d,), dev)
+        self.map_enc = Dense((cfg.map_feat_dim,), (d,), dev, in_axes=(None,),
+                             out_axes=("embed",))
+        self.agent_enc = Dense((cfg.agent_feat_dim,), (d,), dev,
+                               in_axes=(None,), out_axes=("embed",))
         self.blocks = nn.ModuleList(SimBlock(cfg, dev)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(d, device=dev)
-        self.head = Dense((d,), (cfg.num_actions,), dev)
+        self.head = Dense((d,), (cfg.num_actions,), dev, in_axes=("embed",),
+                          out_axes=(None,))
         if cfg.encoding == "absolute":
             # the absolute baseline's Fourier pose embedding
-            self.pose_proj = Dense((3 * self.pose_freqs,), (d,), dev)
+            self.pose_proj = Dense((3 * self.pose_freqs,), (d,), dev,
+                                   in_axes=("basis",), out_axes=("embed",))
             self.register_buffer("pose_ladder", torch.as_tensor(
                 2.0 ** np.arange(self.pose_freqs // 2), dtype=torch.float32,
                 device=dev), persistent=False)

@@ -184,10 +184,16 @@ class Attention(nn.Module):
         self.causal = causal
         self.impl = impl
         h, hk, hd, d = num_q_heads, num_kv_heads, head_dim, d_model
-        self.q = Dense((d,), (h, hd), device, use_bias=use_bias)
-        self.k = Dense((d,), (hk, hd), device, use_bias=use_bias)
-        self.v = Dense((d,), (hk, hd), device, use_bias=use_bias)
-        self.o = Dense((h, hd), (d,), device, use_bias=use_bias)
+        emb, heads, kv = ("embed",), ("heads", "head_dim"), ("kv_heads",
+                                                            "head_dim")
+        self.q = Dense((d,), (h, hd), device, use_bias, in_axes=emb,
+                       out_axes=heads)
+        self.k = Dense((d,), (hk, hd), device, use_bias, in_axes=emb,
+                       out_axes=kv)
+        self.v = Dense((d,), (hk, hd), device, use_bias, in_axes=emb,
+                       out_axes=kv)
+        self.o = Dense((h, hd), (d,), device, use_bias, in_axes=heads,
+                       out_axes=emb)
 
     @property
     def rot_dim(self) -> int:
@@ -320,16 +326,23 @@ class MLAttention(nn.Module):
         self.rope = Rope1D(head_dim=dr, base=rope_base)
         self.impl = impl
         self.q_lora_rank = q_lora_rank
+        emb, lora, heads = ("embed",), ("kv_lora",), ("heads", "head_dim")
         if q_lora_rank:
-            self.q_down = Dense((d,), (q_lora_rank,), device)
-            self.q_up = Dense((q_lora_rank,), (h, dn + dr), device)
+            self.q_down = Dense((d,), (q_lora_rank,), device, in_axes=emb,
+                                out_axes=lora)
+            self.q_up = Dense((q_lora_rank,), (h, dn + dr), device,
+                              in_axes=lora, out_axes=heads)
         else:
-            self.q = Dense((d,), (h, dn + dr), device)
-        self.kv_down = Dense((d,), (r,), device)
-        self.k_rope = Dense((d,), (dr,), device)
-        self.k_up = Dense((r,), (h, dn), device)
-        self.v_up = Dense((r,), (h, dv), device)
-        self.o = Dense((h, dv), (d,), device)
+            self.q = Dense((d,), (h, dn + dr), device, in_axes=emb,
+                           out_axes=heads)
+        self.kv_down = Dense((d,), (r,), device, in_axes=emb, out_axes=lora)
+        self.k_rope = Dense((d,), (dr,), device, in_axes=emb,
+                            out_axes=("head_dim",))
+        self.k_up = Dense((r,), (h, dn), device, in_axes=lora,
+                          out_axes=heads)
+        self.v_up = Dense((r,), (h, dv), device, in_axes=lora,
+                          out_axes=heads)
+        self.o = Dense((h, dv), (d,), device, in_axes=heads, out_axes=emb)
         self.kv_norm = RMSNorm(r, device=device)
 
     @property

@@ -2,7 +2,7 @@
 token embedding, sinusoidal positions and the activations."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,17 +16,23 @@ class Dense(nn.Module):
     """y = x @ W (+ b); W has shape ``in_shape + out_shape`` (DenseGeneral),
     the reference's own layout, so weights cross over without a transpose.
     The kernel (and bias) are cast to the input's dtype at every call, as
-    the reference's are."""
+    the reference's are. ``in_axes`` / ``out_axes`` are the logical axes
+    of the input and output dims (the kernel's are both, the bias's the
+    output's)."""
 
     def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
-                 device=None, use_bias: bool = False):
+                 device=None, use_bias: bool = False, *,
+                 in_axes: Tuple[Optional[str], ...] = (),
+                 out_axes: Tuple[Optional[str], ...] = ()):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.kernel = new_parameter(
             ParamSpec(self.in_shape + self.out_shape, init="fan_in",
-                      fan_in=int(np.prod(self.in_shape))), device)
-        self.bias = (new_parameter(ParamSpec(self.out_shape, init="zeros"),
-                                   device) if use_bias else None)
+                      fan_in=int(np.prod(self.in_shape)),
+                      axes=tuple(in_axes) + tuple(out_axes)), device)
+        self.bias = (new_parameter(ParamSpec(self.out_shape, init="zeros",
+                                             axes=out_axes), device)
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.tensordot(x, self.kernel.to(x.dtype),
@@ -46,7 +52,8 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight_offset = weight_offset
         self.scale = new_parameter(ParamSpec(
-            (dim,), init="zeros" if weight_offset else "ones"), device)
+            (dim,), init="zeros" if weight_offset else "ones",
+            axes=("embed_no_fsdp",)), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -62,8 +69,10 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
-        self.scale = new_parameter(ParamSpec((dim,), init="ones"), device)
-        self.bias = new_parameter(ParamSpec((dim,), init="zeros"), device)
+        self.scale = new_parameter(ParamSpec((dim,), init="ones",
+                                             axes=("embed_no_fsdp",)), device)
+        self.bias = new_parameter(ParamSpec((dim,), init="zeros",
+                                            axes=("embed_no_fsdp",)), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.float32)
@@ -79,15 +88,18 @@ class Embedding(nn.Module):
 
     The lookup gathers rows and casts them to the compute dtype (the
     reference casts the table, then gathers: the same values);
-    :meth:`attend` gives tied-weight logits ``x @ E^T``."""
+    :meth:`attend` gives tied-weight logits ``x @ E^T``. ``axes`` are the
+    table's logical axes (a learned position table's rows are ``None``)."""
 
     def __init__(self, vocab_size: int, dim: int, device=None,
-                 scale_by_sqrt_dim: bool = False, scale: float = 0.02):
+                 scale_by_sqrt_dim: bool = False, scale: float = 0.02,
+                 axes: Tuple[Optional[str], ...] = ("vocab", "embed")):
         super().__init__()
         self.dim = dim
         self.scale_by_sqrt_dim = scale_by_sqrt_dim
         self.embedding = new_parameter(
-            ParamSpec((vocab_size, dim), init="normal", scale=scale), device)
+            ParamSpec((vocab_size, dim), init="normal", scale=scale,
+                      axes=axes), device)
 
     def forward(self, tokens: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:

@@ -19,9 +19,12 @@ class GatedMLP(nn.Module):
                  activation: str = "silu"):
         super().__init__()
         self.act = ACTIVATIONS[activation]
-        self.gate = Dense((d_model,), (d_ff,), device)
-        self.up = Dense((d_model,), (d_ff,), device)
-        self.down = Dense((d_ff,), (d_model,), device)
+        self.gate = Dense((d_model,), (d_ff,), device, in_axes=("embed",),
+                          out_axes=("mlp",))
+        self.up = Dense((d_model,), (d_ff,), device, in_axes=("embed",),
+                        out_axes=("mlp",))
+        self.down = Dense((d_ff,), (d_model,), device, in_axes=("mlp",),
+                          out_axes=("embed",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(self.act(self.gate(x)) * self.up(x))
@@ -34,8 +37,10 @@ class MLP(nn.Module):
                  activation: str = "gelu", use_bias: bool = True):
         super().__init__()
         self.act = ACTIVATIONS[activation]
-        self.up = Dense((d_model,), (d_ff,), device, use_bias=use_bias)
-        self.down = Dense((d_ff,), (d_model,), device, use_bias=use_bias)
+        self.up = Dense((d_model,), (d_ff,), device, use_bias=use_bias,
+                        in_axes=("embed",), out_axes=("mlp",))
+        self.down = Dense((d_ff,), (d_model,), device, use_bias=use_bias,
+                          in_axes=("mlp",), out_axes=("embed",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(self.act(self.up(x)))
@@ -48,13 +53,16 @@ class RWKVChannelMix(nn.Module):
     def __init__(self, d_model: int, d_ff: int, device=None):
         super().__init__()
         d, f = d_model, d_ff
-        self.mix_k = new_parameter(ParamSpec((d,), init="uniform", scale=0.5),
-                                   device)
-        self.mix_r = new_parameter(ParamSpec((d,), init="uniform", scale=0.5),
-                                   device)
-        self.key = Dense((d,), (f,), device)
-        self.value = Dense((f,), (d,), device)
-        self.receptance = Dense((d,), (d,), device)
+        mix = ParamSpec((d,), init="uniform", scale=0.5,
+                        axes=("embed_no_fsdp",))
+        self.mix_k = new_parameter(mix, device)
+        self.mix_r = new_parameter(mix, device)
+        self.key = Dense((d,), (f,), device, in_axes=("embed",),
+                         out_axes=("mlp",))
+        self.value = Dense((f,), (d,), device, in_axes=("mlp",),
+                           out_axes=("embed",))
+        self.receptance = Dense((d,), (d,), device, in_axes=("embed",),
+                                out_axes=("embed_no_fsdp",))
 
     def forward(self, x: torch.Tensor,
                 shifted: Optional[torch.Tensor] = None) -> torch.Tensor:

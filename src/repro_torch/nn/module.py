@@ -14,7 +14,7 @@ allocating it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +27,13 @@ class ParamSpec:
     init: str = "fan_in"          # fan_in | normal | uniform | ones | zeros
     fan_in: int = 0               # fan_in init: input size (0 -> shape[0])
     scale: float = 0.02           # normal: standard deviation; uniform: bound
+    axes: Tuple[Optional[str], ...] = ()    # logical axis names
 
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+        object.__setattr__(self, "axes", tuple(self.axes))
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} vs shape {self.shape}")
 
 
 def new_parameter(spec: ParamSpec, device) -> nn.Parameter:
@@ -73,6 +77,12 @@ def init_params(module: nn.Module, gen: torch.Generator) -> nn.Module:
         if p.device.type != "meta":
             p.copy_(_init_leaf(p.spec, gen))
     return module
+
+
+def param_specs(module: nn.Module) -> Dict[str, ParamSpec]:
+    """``{parameter name: ParamSpec}`` of every parameter of ``module``
+    (the reference's spec tree, flat by the port's names)."""
+    return {n: p.spec for n, p in module.named_parameters()}
 
 
 def count_params(module: nn.Module) -> int:

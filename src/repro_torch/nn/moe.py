@@ -85,13 +85,18 @@ class MoE(nn.Module):
         self.capacity_factor = capacity_factor
         self.aux_weight = aux_weight
         self.act = ACTIVATIONS[activation]
-        self.router = new_parameter(ParamSpec((d, e), init="normal",
-                                              scale=0.006), device)
+        self.router = new_parameter(ParamSpec(
+            (d, e), init="normal", scale=0.006,
+            axes=("embed_no_fsdp", None)), device)
         # the reference's fan_in of an (E, d, f) leaf: every axis but the
         # last (module.py's rule for rank >= 2)
-        self.gate = new_parameter(ParamSpec((e, d, f), fan_in=e * d), device)
-        self.up = new_parameter(ParamSpec((e, d, f), fan_in=e * d), device)
-        self.down = new_parameter(ParamSpec((e, f, d), fan_in=e * f), device)
+        in_ax, out_ax = ("experts", "embed", "mlp"), ("experts", "mlp", "embed")
+        self.gate = new_parameter(ParamSpec((e, d, f), fan_in=e * d,
+                                            axes=in_ax), device)
+        self.up = new_parameter(ParamSpec((e, d, f), fan_in=e * d,
+                                          axes=in_ax), device)
+        self.down = new_parameter(ParamSpec((e, f, d), fan_in=e * f,
+                                            axes=out_ax), device)
         self.shared = (GatedMLP(d, num_shared * f, device, activation)
                        if num_shared else None)
 

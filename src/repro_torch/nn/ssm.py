@@ -116,15 +116,24 @@ class MambaMixer(nn.Module):
         n = self.state_size = state_size
         r = self.dt_rank = dt_rank or max(16, d_model // 16)
         self.conv_width, self.chunk = conv_width, chunk
-        self.in_proj = Dense((d,), (2 * di,), device)
-        self.conv = new_parameter(ParamSpec((conv_width, di)), device)
-        self.conv_bias = new_parameter(ParamSpec((di,), init="zeros"), device)
-        self.x_dt = Dense((di,), (r,), device)
-        self.dt_proj = Dense((r,), (di,), device, use_bias=True)
-        self.x_bc = Dense((di,), (2 * n,), device)
-        self.a_log = new_parameter(ParamSpec((di, n), init="zeros"), device)
-        self.d_skip = new_parameter(ParamSpec((di,), init="ones"), device)
-        self.out_proj = Dense((di,), (d,), device)
+        self.in_proj = Dense((d,), (2 * di,), device, in_axes=("embed",),
+                             out_axes=("mlp",))
+        self.conv = new_parameter(ParamSpec((conv_width, di),
+                                            axes=("conv", "mlp")), device)
+        self.conv_bias = new_parameter(ParamSpec((di,), init="zeros",
+                                                 axes=("mlp",)), device)
+        self.x_dt = Dense((di,), (r,), device, in_axes=("mlp",),
+                          out_axes=(None,))
+        self.dt_proj = Dense((r,), (di,), device, use_bias=True,
+                             in_axes=(None,), out_axes=("mlp",))
+        self.x_bc = Dense((di,), (2 * n,), device, in_axes=("mlp",),
+                          out_axes=("state",))
+        self.a_log = new_parameter(ParamSpec((di, n), init="zeros",
+                                             axes=("mlp", "state")), device)
+        self.d_skip = new_parameter(ParamSpec((di,), init="ones",
+                                              axes=("mlp",)), device)
+        self.out_proj = Dense((di,), (d,), device, in_axes=("mlp",),
+                              out_axes=("embed",))
 
     def _conv(self, x: torch.Tensor, state: Optional[torch.Tensor]):
         """Causal depthwise conv. x (B, T, di); state (B, W-1, di) or None.
@@ -190,16 +199,21 @@ class RWKV6TimeMix(nn.Module):
         self.chunk, self.min_log_w = chunk, min_log_w
 
         def vec(init, scale=0.02):
-            return new_parameter(ParamSpec((d,), init=init, scale=scale),
-                                 device)
+            return new_parameter(ParamSpec((d,), init=init, scale=scale,
+                                           axes=("embed_no_fsdp",)), device)
 
         for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g"):
             setattr(self, name, vec("uniform", 0.5))
-        for name in ("receptance", "key", "value", "gate", "output"):
-            setattr(self, name, Dense((d,), (d,), device))
+        for name in ("receptance", "key", "value", "gate"):
+            setattr(self, name, Dense((d,), (d,), device, in_axes=("embed",),
+                                      out_axes=("heads",)))
+        self.output = Dense((d,), (d,), device, in_axes=("heads",),
+                            out_axes=("embed",))
         self.w0 = vec("uniform", 1.0)
-        self.w_lora_a = Dense((d,), (decay_lora,), device)
-        self.w_lora_b = Dense((decay_lora,), (d,), device)
+        self.w_lora_a = Dense((d,), (decay_lora,), device, in_axes=("embed",),
+                              out_axes=(None,))
+        self.w_lora_b = Dense((decay_lora,), (d,), device, in_axes=(None,),
+                              out_axes=("heads",))
         self.bonus = vec("uniform", 0.5)
         self.ln_scale = vec("ones")
         self.ln_bias = vec("zeros")

@@ -176,10 +176,11 @@ class TransformerLM(nn.Module):
         self.groups = nn.ModuleList(groups)
         self.final_norm = make_norm(cfg.norm, d, dev)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense((d,), (cfg.padded_vocab,), dev)
+            self.lm_head = Dense((d,), (cfg.padded_vocab,), dev,
+                                 in_axes=("embed",), out_axes=("vocab",))
         if cfg.learned_positions:
             self.pos_embedding = Embedding(cfg.max_position, d, dev,
-                                           scale=0.01)
+                                           scale=0.01, axes=(None, "embed"))
         init_params(self, generator if generator is not None
                     else torch.Generator().manual_seed(0))
 
@@ -376,7 +377,8 @@ class EncDecLM(nn.Module):
         dev = resolve_device(device)
         d = cfg.d_model
         self.embedding = Embedding(cfg.padded_vocab, d, dev)
-        self.pos_embedding = Embedding(cfg.max_position, d, dev, scale=0.01)
+        self.pos_embedding = Embedding(cfg.max_position, d, dev, scale=0.01,
+                                       axes=(None, "embed"))
         self.encoder = nn.ModuleList(self._block(dev, causal=False)
                                      for _ in range(cfg.encoder_layers))
         self.decoder = nn.ModuleList(self._block(dev, causal=True)

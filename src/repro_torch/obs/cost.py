@@ -51,6 +51,20 @@ __all__ = ["CostAccounted", "compiled_cost", "record_compiled_cost",
 _ACTIVE: list = []
 
 
+def op_tensors(node) -> Iterable[torch.Tensor]:
+    """The tensors of an op's arguments or results: ``node`` and the
+    tuples, lists and dicts in it (``tree_leaves`` of aten's argument
+    types, at a fraction of its cost a call)."""
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, (tuple, list)):
+        for x in node:
+            yield from op_tensors(x)
+    elif isinstance(node, dict):
+        for x in node.values():
+            yield from op_tensors(x)
+
+
 def _nbytes(tensors: Iterable[Any]) -> int:
     """Bytes of the distinct tensors among ``tensors`` (shape metadata)."""
     seen, total = set(), 0
@@ -91,7 +105,7 @@ class _Counter(TorchDispatchMode):
             if formula is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
             if not func.is_view:
-                self.bytes += _nbytes(tree_leaves((args, kwargs, out)))
+                self.bytes += _nbytes(op_tensors((args, kwargs, out)))
         return out
 
     def __enter__(self):

@@ -1,6 +1,8 @@
-"""LM step functions (port of ``repro/runtime/steps.py:27-117``): the
-token cross entropy, the train step, the prefill step and the serve
-(decode) step.
+"""LM step functions (port of ``repro/runtime/steps.py``): the token
+cross entropy, the train step, the prefill step and the serve (decode)
+step; and the dry-run's stand-ins for a step's inputs
+(:func:`input_specs`) with their shardings by logical axes
+(:func:`cache_sharding`, :func:`batch_shardings`).
 
 The reference's step functions build a model from a config and take its
 parameter tree at every call; the port's take the model, whose weights it
@@ -11,10 +13,11 @@ non-finite loss.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict
 
 import torch
 
+from repro_torch.distributed.sharding import shard_of
 from repro_torch.optim import Optimizer, global_norm, step_in_place
 from repro_torch.runtime.trainer import TrainStep
 
@@ -118,3 +121,95 @@ def make_serve_step(model) -> Callable:
         return logits[:, -1], cache
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Stand-in inputs (dry-run) and their shardings
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape, model=None) -> Dict[str, Any]:
+    """``meta`` tensors for the non-parameter inputs of ``shape``'s step,
+    in the reference's shapes and dtypes: train and prefill ``tokens`` (and
+    train ``labels``) (B, S) int32, an encoder-decoder's ``frames`` and a
+    vision prefix's ``prefix`` in the compute dtype; decode ``tokens``
+    (B, 1), ``index`` () int32, ``cache`` (the meta ``model``'s
+    ``init_cache(B, S)`` in the compute dtype; built on ``meta`` from
+    ``cfg`` when not given) and an encoder-decoder's ``enc_out``."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    i32, cdt = torch.int32, cfg.compute_dtype
+
+    def enc_inputs(specs, key):
+        if cfg.enc_dec:
+            specs[key] = torch.empty((b, cfg.encoder_frames, cfg.d_model),
+                                     dtype=cdt, **meta)
+        return specs
+
+    if shape.mode in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), dtype=i32, **meta)}
+        if shape.mode == "train":
+            specs["labels"] = torch.empty((b, s), dtype=i32, **meta)
+        enc_inputs(specs, "frames")
+        if cfg.vision_prefix:
+            specs["prefix"] = torch.empty((b, cfg.vision_prefix,
+                                           cfg.d_model), dtype=cdt, **meta)
+        return specs
+    if shape.mode == "decode":
+        if model is None:
+            from repro_torch.nn.transformer import build_model
+            model = build_model(cfg, device="meta")
+        specs = {"tokens": torch.empty((b, 1), dtype=i32, **meta),
+                 "index": torch.empty((), dtype=i32, **meta),
+                 "cache": model.init_cache(b, s, cdt)}
+        return enc_inputs(specs, "enc_out")
+    raise ValueError(shape.mode)
+
+
+# Logical axes of cache entries, keyed by leaf name (the reference's).
+# Trailing dims are matched right-to-left so the leading "layers" stacking
+# dim is covered.
+_CACHE_AXES = {
+    "k": (None, "act_batch", "act_kv", "act_kvlen", None),
+    "v": (None, "act_batch", "act_kv", "act_kvlen", None),
+    "ckv": (None, "act_batch", None, "act_kvlen", None),
+    "kr": (None, "act_batch", None, "act_kvlen", None),
+    "s": (None, "act_batch", "act_heads", None, None),
+    "h": (None, "act_batch", "act_mlp", None),
+    "conv": (None, "act_batch", None, "act_mlp"),
+    "shift": (None, "act_batch", None),
+    "cmix_shift": (None, "act_batch", None),
+}
+
+
+def cache_sharding(cache_tree, mesh, rules=None):
+    """The (possibly layer-stacked) decode cache's tree with a
+    :class:`~repro_torch.distributed.sharding.Shard` at every tensor."""
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        axes = _CACHE_AXES.get(key)
+        if axes is None:
+            logical = [None] * tree.ndim
+        elif tree.ndim >= len(axes):
+            logical = [None] * (tree.ndim - len(axes)) + list(axes)
+        else:
+            logical = list(axes[len(axes) - tree.ndim:])
+        return shard_of(tree.shape, logical, mesh, rules, tree.element_size())
+
+    return walk(cache_tree)
+
+
+def batch_shardings(specs: Dict[str, Any], mesh, rules=None):
+    """Shards of :func:`input_specs`' dict: the cache by
+    :func:`cache_sharding`, ``index`` replicated, every other (batch-
+    leading) tensor over the data-parallel axes, as ``batch_sharding``."""
+    out = {}
+    for k, v in specs.items():
+        if k == "cache":
+            out[k] = cache_sharding(v, mesh, rules)
+        elif k == "index":
+            out[k] = shard_of(v.shape, (), mesh, rules, v.element_size())
+        else:
+            out[k] = shard_of(v.shape, ["act_batch"] + [None] * (v.ndim - 1),
+                              mesh, rules, v.element_size())
+    return out

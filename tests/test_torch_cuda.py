@@ -1531,3 +1531,43 @@ def test_cost_gauges_on_the_card_match_the_formulas(dev):
     for path, rec, (flops, kernel) in checks:
         assert rec["kernel_flops"] == kernel > 0, path
         assert abs(rec["flops"] - flops) <= 0.01 * flops, (path, rec, flops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["train", "decode"])
+def test_dryrun_flops_equal_the_cards_count(dev, mode):
+    """``launch/dryrun.py``'s count (FLOPs and bytes accessed) on the
+    ``meta`` device equals ``CostAccounted``'s count of the same step on
+    the card, through the kernels: a reduced phi4-mini's train step
+    (AdamW) and serve step."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.nn.transformer import build_model
+    from repro_torch.obs import NULL, CostAccounted
+    from repro_torch.runtime import steps
+    cfg = configs.get_config("phi4-mini-3.8b").reduced()
+    shape = ShapeConfig("small", 64, 2, mode)
+    rec = dryrun.lower_cell(cfg.name, shape.name, False, cfg=cfg,
+                            shape=shape, mesh={"data": 1, "model": 1})
+    model = build_model(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64), generator=g,
+                         device=dev, dtype=torch.int32)
+    if mode == "train":
+        opt = dryrun.choose_optimizer(cfg)
+        state = opt.init(dict(model.named_parameters()))
+        step = CostAccounted(steps.make_train_step(model, opt), "t",
+                             registry=NULL)
+        grads, _ = step.grads({"tokens": toks, "labels": toks})
+        step.update(state, grads)
+    else:
+        cache = model.init_cache(2, 64, cfg.compute_dtype)
+        step = CostAccounted(steps.make_serve_step(model), "d",
+                             registry=NULL)
+        step(cache, toks[:, :1], 63)
+    torch.cuda.synchronize()
+    assert rec["full_depth"]["flops"] == step.cost["flops"] > 0
+    assert rec["full_depth"]["kernel_flops"] == step.cost["kernel_flops"]
+    assert rec["full_depth"]["bytes_accessed"] == \
+        step.cost["bytes_accessed"]
